@@ -1,0 +1,81 @@
+"""Camera transforms: look / perspective divide / face gathers.
+
+PyTorch counterpart of sdn3d_tpu/geometry/camera.py
+(geometric/neural_renderer/{look,perspective,vertices_to_faces}.py).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+# The reference uses a truncated pi in the perspective transform
+# (neural_renderer/perspective.py:10: `angle / 180. * 3.1416`).  Kept for
+# bit-parity of the projection.
+_REFERENCE_PI = 3.1416
+
+
+def _normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    return v / torch.clamp_min(torch.linalg.norm(v, dim=dim, keepdim=True), eps)
+
+
+def _atleast_2d(x: torch.Tensor) -> torch.Tensor:
+    return x[None] if x.dim() == 1 else x
+
+
+def look(vertices: torch.Tensor,
+         eye: torch.Tensor,
+         direction: Optional[torch.Tensor] = None,
+         up: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """'Look' transformation (neural_renderer/look.py:7-45).
+
+    vertices [B, V, 3]; eye [3] or [B, 3]; direction/up likewise.
+    """
+    kw = dict(dtype=vertices.dtype, device=vertices.device)
+    if direction is None:
+        direction = torch.tensor([0.0, 0.0, 1.0], **kw)
+    if up is None:
+        up = torch.tensor([0.0, 1.0, 0.0], **kw)
+    eye, direction, up = _atleast_2d(eye), _atleast_2d(direction), _atleast_2d(up)
+    z_axis = _normalize(direction)
+    x_axis = _normalize(torch.linalg.cross(up.expand_as(z_axis), z_axis))
+    y_axis = _normalize(torch.linalg.cross(z_axis, x_axis))
+    r = torch.stack([x_axis, y_axis, z_axis], dim=1)          # [B, 3, 3] rows
+    vertices = vertices - eye[:, None, :]
+    return torch.matmul(vertices, r.transpose(1, 2))
+
+
+def perspective_divide(vertices: torch.Tensor, angle_deg) -> torch.Tensor:
+    """Perspective projection (neural_renderer/perspective.py:5-19).
+
+    x,y are divided by z * tan(angle); z passes through.  `angle_deg` is a
+    scalar or [B] tensor in degrees.
+    """
+    angle = torch.as_tensor(angle_deg, dtype=vertices.dtype,
+                            device=vertices.device) / 180.0 * _REFERENCE_PI
+    width = torch.tan(angle).reshape(-1, 1).expand(vertices.shape[:2])
+    z = vertices[..., 2]
+    x = vertices[..., 0] / z / width
+    y = vertices[..., 1] / z / width
+    return torch.stack([x, y, z], dim=2)
+
+
+def vertices_to_faces(vertices: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """Gather per-face vertex triplets (neural_renderer/vertices_to_faces.py).
+
+    vertices [B, V, 3], faces [B, F, 3] int -> [B, F, 3, 3].
+    """
+    B, F = faces.shape[:2]
+    idx = faces.long().reshape(B, F * 3, 1).expand(B, F * 3, 3)
+    return torch.gather(vertices, 1, idx).reshape(B, F, 3, 3)
+
+
+def face_normals(face_vertices: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Per-face unit normals, NMR convention (derender3d renderer.py:66-73):
+    normalize(cross(v0 - v1, v2 - v1)).  face_vertices [B, F, 3, 3] -> [B, F, 3].
+    """
+    v10 = face_vertices[:, :, 0] - face_vertices[:, :, 1]
+    v12 = face_vertices[:, :, 2] - face_vertices[:, :, 1]
+    n = torch.linalg.cross(v10, v12)
+    return n / torch.clamp_min(torch.linalg.norm(n, dim=-1, keepdim=True), eps)

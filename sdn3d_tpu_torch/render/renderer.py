@@ -1,0 +1,112 @@
+"""Mesh renderer: camera orchestration + rasterization (inference path).
+
+PyTorch counterpart of sdn3d_tpu/render/renderer.py:render_targets.  The
+differentiable `render()` (and the RGB target) belong to the training
+slice and are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from sdn3d_tpu_torch.geometry import camera
+from sdn3d_tpu_torch.ops import rasterize as R
+
+
+def project_faces(vertices: torch.Tensor, faces: torch.Tensor,
+                  viewing_angle=30.0, fill_back: bool = True,
+                  normals: bool = True):
+    """The camera half of `render_targets`: raw vertices [B, V, 3] and
+    faces [B, F, 3] int -> (face_verts [B, F, 3, 3] in screen space, as
+    the rasterizer takes them, and flat normal colours [B, F, 3] or None).
+    """
+    dt = vertices.dtype
+    dev = vertices.device
+    # The derender3d camera is FIXED (eye 0, direction -z, up +y,
+    # renderer.py:226-229), so `look` is the rotation diag(-1, 1, -1);
+    # composed with the x-flip fix that is diag(1, 1, -1) on the raw
+    # vertices.  Normals come from the looked faces rotated back.
+    vlook = vertices * torch.tensor([1.0, 1.0, -1.0], dtype=dt, device=dev)
+    fvl = camera.vertices_to_faces(vlook, faces)               # [B, F, 3, 3]
+    colors = None
+    if normals:
+        colors = camera.face_normals(fvl) * torch.tensor(
+            [-1.0, 1.0, -1.0], dtype=dt, device=dev)           # [B, F, 3]
+
+    # perspective_divide, elementwise on face verts (perspective.py:5-19)
+    angle = torch.as_tensor(viewing_angle, dtype=dt, device=dev) \
+        / 180.0 * camera._REFERENCE_PI
+    width = torch.tan(angle).reshape(-1, 1, 1).expand(fvl.shape[:3])
+    z = fvl[..., 2]
+    face_verts = torch.stack([fvl[..., 0] / z / width,
+                              fvl[..., 1] / z / width, z], dim=-1)
+
+    if fill_back:
+        # Orientation fold instead of the 2F concat: a (non-degenerate)
+        # face is front-facing in exactly one winding, so fill_back ==
+        # "flip the winding of back-facing faces" (back copies carry
+        # negated normals, nr renderer.py:99 convention).
+        ccw = R._frontface(face_verts)                         # [B, F]
+        face_verts = torch.where(ccw[..., None, None], face_verts,
+                                 face_verts.flip(2))
+        if normals:
+            colors = torch.where(ccw[..., None], colors, -colors)
+    return face_verts, colors
+
+
+def render_targets(
+    vertices: torch.Tensor,
+    faces: torch.Tensor,
+    targets=("silhouette", "normal", "depth"),
+    face_valid: Optional[torch.Tensor] = None,
+    image_size: int = 256,
+    viewing_angle=30.0,
+    anti_aliasing: bool = True,
+    fill_back: bool = True,
+    near: float = R.DEFAULT_NEAR,
+    far: float = R.DEFAULT_FAR,
+) -> dict:
+    """Render several 2.5D targets from ONE rasterization.
+
+    vertices [B, V, 3], faces [B, F, 3] int.  Silhouette, normal and
+    depth all derive from a single face-index/depth map (and the flat
+    normal colours the rasterizer writes in the same pass).  Returns
+    {"silhouette": [B, 1, H, W], "normal": [B, 3, H, W],
+    "depth": [B, 1, H, W]} for the requested targets.
+    """
+    dev = vertices.device
+    face_verts, colors = project_faces(vertices, faces, viewing_angle,
+                                       fill_back, "normal" in targets)
+    size = image_size * 2 if anti_aliasing else image_size
+    if face_valid is None:
+        face_valid = torch.ones(face_verts.shape[:2], dtype=torch.bool,
+                                device=dev)
+    with torch.no_grad():
+        if colors is not None:
+            fi, depth, _, rgb = R._rasterize_sorted(
+                face_verts.detach(), face_valid, size, near, far,
+                colors=colors.detach().contiguous())
+        else:
+            fi, depth, _ = R._rasterize_sorted(
+                face_verts.detach(), face_valid, size, near, far)
+
+    def finish(img, spatial_dim):
+        img = torch.flip(img, dims=(spatial_dim,))
+        if anti_aliasing:
+            s = img.shape
+            img = img.reshape(s[:-2] + (s[-2] // 2, 2, s[-1] // 2, 2))
+            img = img.mean(dim=(-3, -1))
+        return img
+
+    out = {}
+    if "silhouette" in targets:
+        out["silhouette"] = finish((fi >= 0).to(torch.float32), 1)[:, None]
+    if "depth" in targets:
+        out["depth"] = finish(depth, 1)[:, None]
+    if "normal" in targets:
+        rgb = finish(rgb, 2)
+        out["normal"] = rgb * torch.tensor(
+            [-1.0, 1.0, 1.0], dtype=rgb.dtype, device=dev)[None, :, None, None]
+    return out
