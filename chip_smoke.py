@@ -5,11 +5,16 @@
 
 Phases, each of which must pass (any failure exits non-zero):
   1. the card: requires torch.cuda; prints nvidia-smi's name and power limit;
-  2. build: compiles the CUDA rasterizer (csrc/rasterize.cu) from source;
-  3. kernel vs plain: the kernel against its plain PyTorch version on the
-     card (2 x 37 random faces at 128^2; 2 images at 768^2 of a ~4k-face
-     mesh, with and without colours): face index and colours equal, depth
-     bit-equal;
+  2. build: compiles the three CUDA kernels (csrc/rasterize.cu,
+     silhouette_walk.cu, segment_face_grads.cu) from source, one nvcc each,
+     all started together;
+  3. kernels vs plain: the forward rasterizer against its plain PyTorch
+     version on the card (2 x 37 random faces at 128^2; 2 images at 768^2
+     of a ~4k-face mesh, with and without colours): face index and colours
+     equal, depth bit-equal; then the silhouette VJP of the 128^2 faces:
+     walk accumulators bit-equal to the plain walk (windows 24 and 128),
+     the reduction within 1e-5 of |terms| of a float64 sum and bit-equal
+     across two launches;
   4. main path: cli/geometric_main.main --source gt over three synthetic
      375x1242 frames (5, 11, 16 cars) with a two-item edit JSON, at the CLI
      defaults (16 slots, render_size 384 -> 768^2 rasterization) with
@@ -17,11 +22,21 @@ Phases, each of which must pass (any failure exits non-zero):
      ShapeNet directory layout; checks the five output files per item, the
      kernel's launch count and that the plain rasterizer never ran; prints
      steady-state per-phase times;
-  5. kernel vs plain at the main path's own shapes (the last frame's
-     rasterizer inputs), with kernel and plain times and the kernel's bound;
-  6. profile: one 16-car frame's wall time, device busy time and idle
-     share, and its device time by kernel (torch.profiler);
-  7. reference: the port's CUDA path against its CPU path on a small input.
+  4b. refinement path: the same with --num_opts 10 (silhouette refinement,
+     walk window 64): the three kernels' launch counts (>= num_opts per
+     refined item), no plain version run, the refine loss of the real
+     objects (silhouette and reg terms) at the first and last step (the
+     silhouette term's mean over items must fall), and the steady-state
+     geo.refine time;
+  5. kernels vs plain at the main paths' own inputs (the last forward of
+     phase 4, the last refine step's backward of 4b): equality as in 3, the
+     kernels' and plain versions' times, each kernel's bound, the walk
+     against its global-memory build (no shared-memory staging), and for
+     the reduction the time of one index_add_ computing the same sums;
+  6. profile: one 16-car frame, unrefined and refined: wall time, device
+     busy time and idle share, and device time by kernel (torch.profiler);
+  7. reference: the port's CUDA path against its CPU path on a small input,
+     unrefined and with 2 refinement steps.
 The line before last is the card's name and power limit, the line before
 that the kernels' JSON; the last line is {"ok": true, "device": {...}}.
 """
@@ -43,6 +58,14 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 H100_HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 H100_FP32_FLOPS = 67e12               # H100 SXM, fp32 outside tensor cores
 EDGE_TEST_FLOPS = 15                  # 3 edge functions: 6 sub, 6 mul, 3 cmp
+# walk: an OUT step of an edge inside the image (d1k, 2 bounds, diff, gate:
+# 7 ops) plus, when gated, two distance terms (sub, mul, cmp, add, div)
+# and two adds: counted for every in-image step, gated or not; an IN term
+# (diff, gate, two divisions, two adds)
+WALK_OUT_STEP_FLOPS = 19
+WALK_IN_TERM_FLOPS = 7
+REDUCE_FLOPS = 6                      # one add per plane for a won pixel
+NUM_OPTS = 10
 
 
 def log(msg: str) -> None:
@@ -190,10 +213,12 @@ def check_outputs(out_dir: str, n_cars: int):
             raise AssertionError("json/pkl values empty or not finite")
 
 
-def profile_frame(frame, shapenet: str, seed: int, card: str) -> None:
+def profile_frame(frame, shapenet: str, seed: int, card: str,
+                  num_opts: int = 0) -> None:
     """Where one serving frame's time goes on the card: derender_image on
-    the given frame (its first edit item), host wall per frame without the
-    profiler, then device time by kernel under torch.profiler."""
+    the given frame (its first edit item), with `num_opts` refinement
+    steps, host wall per frame without the profiler, then device time by
+    kernel under torch.profiler."""
     import torch
     from PIL import Image
     from torch.autograd import DeviceType
@@ -208,7 +233,7 @@ def profile_frame(frame, shapenet: str, seed: int, card: str) -> None:
     args = geometric_main.build_argparser().parse_args(
         ["--source", "gt", "--shapenet_root", shapenet, "--seed", str(seed)])
     model, bank = geometric_main.load_derenderer(args)
-    cfg = DerenderInferConfig()
+    cfg = DerenderInferConfig(num_opts=num_opts)
     image = np.asarray(Image.open(img).convert("RGB"))
     with np.load(npz) as d:
         dets = keep_largest_detections(cfg, d["class_ids"], d["masks"],
@@ -238,17 +263,133 @@ def profile_frame(frame, shapenet: str, seed: int, card: str) -> None:
             rec[0] += e.time_range.elapsed_us() / 1e3 / n
             rec[1] += 1
     busy_ms = sum(v[0] for v in by_name.values())
+    what = f"{n_cars}-car frame, num_opts {num_opts}"
     if busy_ms == 0.0:
-        log(f"[profile] {n_cars}-car frame: wall {wall_ms:.3f} ms/frame; "
-            f"device time not measured (the profiler saw no device events)")
+        log(f"[profile] {what}: wall {wall_ms:.3f} ms/frame; device time "
+            f"not measured (the profiler saw no device events)")
         return
-    log(f"[profile] {n_cars}-car frame: wall {wall_ms:.3f} ms/frame, device "
-        f"busy {busy_ms:.3f} ms/frame, idle share "
-        f"{1.0 - busy_ms / wall_ms:.4f} ({card})")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    log(f"[profile] {what}: wall {wall_ms:.3f} ms/frame, device busy "
+        f"{busy_ms:.3f} ms/frame, idle share {1.0 - busy_ms / wall_ms:.4f} "
+        f"({card})")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     for name, (ms, count) in top:
         log(f"[profile]   {ms:9.4f} ms/frame  {count // n:4d} launches/frame"
             f"  {name[:90]}")
+
+
+def walk_invariants(TR, faces, fi, isz: int):
+    """The walk's invariant stacks of both axes, as
+    silhouette_grad_pixelwise makes them."""
+    pp_px = TR.face_pixel_coords(faces, fi, isz)
+    return [TR.edge_invariant_stack(pp_px, fi >= 0, isz, a) for a in (0, 1)]
+
+
+def check_walk(TC, TR, alpha, cot, invs, walk: int, eps: float) -> float:
+    """The walk kernel against its plain version, both axes: bit-equal or
+    the run fails.  Returns the max |kernel - plain| (0.0)."""
+    import torch
+    err = 0.0
+    for axis in (0, 1):
+        got = TC.walk_grads_cuda(alpha, cot, invs[axis], walk, eps, axis)
+        want = TR.walk_grads_plain(alpha, cot, invs[axis], walk, eps, axis)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"walk kernel != plain (axis {axis}, walk "
+                                 f"{walk}, {tuple(alpha.shape)}): max diff "
+                                 f"{e}, {int((got != want).sum())} values")
+        err = max(err, e)
+    return err
+
+
+def check_reduction(TC, TR, acc_x, acc_y, fi, bbox) -> float:
+    """The reduction kernel against a float64 segment sum of the same
+    planes: |err| <= 1e-5 * sum of |terms| per face, and bit-equal across
+    two launches.  Returns the max |kernel - float64|."""
+    import torch
+    F = bbox.shape[1]
+    got = TC.segment_face_grads_cuda(acc_x, acc_y, fi, bbox)
+    again = TC.segment_face_grads_cuda(acc_x, acc_y, fi, bbox)
+    ref = TR.segment_face_grads_plain(acc_x.double(), acc_y.double(), fi, F)
+    mag = TR.segment_face_grads_plain(acc_x.double().abs(),
+                                      acc_y.double().abs(), fi, F).abs()
+    torch.cuda.synchronize()
+    err = (got.double() - ref).abs()
+    if not torch.equal(got, again):
+        raise AssertionError("reduction kernel differs between two launches")
+    if not (err <= 1e-5 * mag + 1e-30).all():
+        raise AssertionError(f"reduction kernel vs float64: max err "
+                             f"{float(err.max())}, worst ratio "
+                             f"{float((err / (mag + 1e-30)).max())}")
+    return float(err.max())
+
+
+def walk_variant_ms(TC, alpha, cot, invs, walk: int, eps: float):
+    """The walk kernel as built (alpha and grad staged in shared memory
+    for windows up to 64) against the same source built with
+    -DSDN3D_WALK_MAX_STAGED_STEPS=-1 (global-memory reads at every
+    window): bit-equal or the run fails; then each one's ms per launch,
+    per axis, timed staged, global, global, staged.  Returns (staged,
+    global) lists of [axis 0, axis 1] ms."""
+    import ctypes
+
+    import torch
+    B, H, W = alpha.shape
+    with tempfile.TemporaryDirectory(prefix="sdn3d_walk_") as tmp:
+        lib = os.path.join(tmp, "libwalk_global.so")
+        subprocess.run([TC._nvcc(), *TC.NVCC_FLAGS,
+                        "-DSDN3D_WALK_MAX_STAGED_STEPS=-1", "-o", lib,
+                        os.path.join(TC.CSRC_DIR, "silhouette_walk.cu")],
+                       check=True, capture_output=True, timeout=300)
+        fn = ctypes.CDLL(lib).sdn3d_walk_grads
+    fn.argtypes = TC._ENTRY["silhouette_walk"][1]
+    fn.restype = ctypes.c_int
+
+    def run(variant, a):
+        if variant == "staged":
+            return TC.walk_grads_cuda(alpha, cot, invs[a], walk, eps, a)
+        out = torch.empty((B, 3, H, W), device=alpha.device)
+        err = fn(alpha.data_ptr(), cot.data_ptr(), invs[a].data_ptr(),
+                 out.data_ptr(), B, H, W, walk, eps, a,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"global-memory walk launch failed: {err}")
+        return out
+
+    for a in (0, 1):
+        if not torch.equal(run("staged", a), run("global", a)):
+            raise AssertionError(f"walk variants differ on axis {a}")
+    ms = {"staged": [[], []], "global": [[], []]}
+    for variant in ("staged", "global", "global", "staged"):
+        for a in (0, 1):
+            ms[variant][a].append(cuda_ms(lambda: run(variant, a), iters=10,
+                                          warmup=2))
+    return ms["staged"], ms["global"]
+
+
+def walk_bound(invs, walk: int):
+    """(bytes, operations) of one walk launch per axis, averaged over the
+    two axes: alpha, grad and 18 invariant planes read once, 3 planes
+    written; operations of this data: every in-image OUT step of every
+    in-boundary (pixel, edge), one IN term per (pixel, edge) within the
+    window."""
+    import torch
+    B, _, H, W = invs[0].shape
+    nbytes = (2 + 18 + 3) * 4 * B * H * W
+    ops = 0.0
+    for axis, inv in enumerate(invs):
+        size = H if axis == 0 else W
+        idx = torch.arange(size, device=inv.device, dtype=torch.float32)
+        d1 = idx[None, :, None] if axis == 0 else idx[None, None, :]
+        for e in range(3):
+            direction, j_gate, is_in = (inv[:, 6 * e + 1], inv[:, 6 * e + 4],
+                                        inv[:, 6 * e + 5])
+            border = torch.where(direction > 0, size - 1 - d1, d1)
+            steps = torch.clamp(border, max=float(walk)) * (is_in > 0)
+            n_in = ((j_gate >= 0) & (j_gate + 1 <= walk)).sum()
+            ops += (float(steps.sum()) * WALK_OUT_STEP_FLOPS
+                    + float(n_in) * WALK_IN_TERM_FLOPS)
+    return nbytes, ops / 2
 
 
 def main(argv=None) -> int:
@@ -268,18 +409,24 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     from sdn3d_tpu_torch.ops import rasterize as TR
     from sdn3d_tpu_torch.ops import rasterize_cuda as TC
+    from sdn3d_tpu_torch.pipelines import derender_infer as TI
     dev = torch.device("cuda")
+    eps = TR.DEFAULT_EPS
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    TC._load()
-    log(f"[build] rasterize.cu built+loaded in {time.perf_counter() - t0:.2f} s"
-        f" (nvcc {TC.build_seconds if TC.build_seconds is not None else 'cached'})")
-    for line in TC.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    TC.build(TC.SOURCES)
+    for name in TC.SOURCES:
+        TC._load(name)
+    log(f"[build] {', '.join(TC.SOURCES)} built+loaded in "
+        f"{time.perf_counter() - t0:.2f} s (nvcc, in parallel: "
+        f"{ {k: round(v, 2) for k, v in TC.build_seconds.items()} or 'cached'})")
+    for name, text in TC.build_log.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"[build] {name}: {line.strip()}")
 
-    # -- 3. kernel vs plain at the issue's sizes ----------------------------
+    # -- 3. kernels vs plain at small sizes ----------------------------------
     from sdn3d_tpu_torch.geometry.transforms import perspective_transform
     from sdn3d_tpu_torch.render.renderer import project_faces
     max_err = 0.0
@@ -296,6 +443,35 @@ def main(argv=None) -> int:
                         colors.to(dev))
     max_err = max(max_err, err)
     log("[kernel] 2x37 random faces @128^2: equal")
+
+    # the silhouette VJP of the same faces, kernels against plain versions
+    sf, sv = faces.to(dev), valid.to(dev)
+    sfi, _ = TC.rasterize_face_index(sf, sv, 128)
+    salpha = (sfi >= 0).float()
+    scot = torch.from_numpy(rng.randn(2, 128, 128).astype(np.float32)).to(dev)
+    sinvs = walk_invariants(TR, sf, sfi, 128)
+    walk_err = max(check_walk(TC, TR, salpha, scot, sinvs, w, eps)
+                   for w in (24, 128))
+    sacc = [TC.walk_grads_cuda(salpha, scot, sinvs[a], 24, eps, a)
+            for a in (1, 0)]                                # x, y planes
+    sbox = TC.pack_faces(sf, sv, 128)[1]
+    red_err = check_reduction(TC, TR, sacc[0], sacc[1], sfi, sbox)
+    g_k = TR.silhouette_grad_pixelwise(sf, sfi, salpha, scot, 128, eps,
+                                       walk=24, boxes=sbox)[..., :2]
+    # the plain versions composed as silhouette_grad_pixelwise composes
+    # the kernels
+    pacc = [TR.walk_grads_plain(salpha, scot, sinvs[a], 24, eps, a)
+            for a in (1, 0)]
+    g_p = TR.segment_face_grads_plain(pacc[0], pacc[1], sfi,
+                                      sf.shape[1]).reshape(g_k.shape)
+    g_err = float((g_k - g_p).abs().max())
+    if not g_err <= 1e-5 * float(g_p.abs().max()) or not torch.isfinite(
+            g_k).all():
+        raise AssertionError(f"silhouette VJP kernels vs plain: {g_err}")
+    log(f"[kernel] silhouette VJP of 2x37 faces @128^2: walk bit-equal "
+        f"(windows 24, 128); reduction max err vs float64 {red_err:.3e}; "
+        f"face grads max diff {g_err:.3e} (max |g| "
+        f"{float(g_p.abs().max()):.4g})")
 
     v, f = car_mesh(args.seed, 32, 64)                     # 3,968 faces
     verts = torch.from_numpy(np.stack([v, v[:, [0, 1, 2]] * 0.9]))
@@ -328,48 +504,135 @@ def main(argv=None) -> int:
     dispatch = TC.rasterize_face_index
 
     def recording(faces, face_valid, image_size, near=TR.DEFAULT_NEAR,
-                  far=TR.DEFAULT_FAR, colors=None):
+                  far=TR.DEFAULT_FAR, colors=None, boxes=False):
         captured.update(faces=faces.clone(), valid=face_valid.clone(),
                         size=image_size,
                         colors=None if colors is None else colors.clone())
-        return dispatch(faces, face_valid, image_size, near, far, colors)
+        return dispatch(faces, face_valid, image_size, near, far, colors,
+                        boxes)
+
+    # the refine path's last backward inputs: references, not copies (each
+    # call's tensors are fresh and never written after)
+    bw = {}
+    walk_dispatch, seg_dispatch = TC.walk_grads, TC.segment_face_grads
+    refine = TI.refine_silhouettes
+    traces = []
+
+    def walk_recording(alpha, grad_alpha, inv, n_steps, eps_, axis):
+        bw.update({f"inv{axis}": inv, "alpha": alpha, "cot": grad_alpha,
+                   "walk": n_steps})
+        return walk_dispatch(alpha, grad_alpha, inv, n_steps, eps_, axis)
+
+    def seg_recording(acc_x, acc_y, face_index, num_faces, boxes=None):
+        bw.update(acc_x=acc_x, acc_y=acc_y, fi=face_index, boxes=boxes)
+        return seg_dispatch(acc_x, acc_y, face_index, num_faces, boxes)
+
+    def refine_recording(blob, bank, masks, ignores, cfg, trace=None):
+        steps = []
+        out = refine(blob, bank, masks, ignores, cfg, trace=steps)
+        real = (blob["_droi_norms"] > 0).all(1)
+        traces.append(np.asarray([t[:, real].sum(1).tolist() for t in steps]))
+        return out
+
+    def plain_counts():
+        return (TR.rasterize_face_maps.calls, TR.walk_grads_plain.calls,
+                TR.segment_face_grads_plain.calls)
+
+    def kernel_counts():
+        return (launch.launches, TC.walk_grads_cuda.launches,
+                TC.segment_face_grads_cuda.launches)
+
+    def drive(frames, shapenet, tmp, extra, tag):
+        """geometric_main over the frames; counts set to 0 just before and
+        read just after.  Returns (kernel launches, plain calls, wall s,
+        phase snapshot)."""
+        phases.reset(True)
+        launch.launches = 0
+        TC.walk_grads_cuda.launches = 0
+        TC.segment_face_grads_cuda.launches = 0
+        TR.rasterize_face_maps.calls = 0
+        TR.walk_grads_plain.calls = 0
+        TR.segment_face_grads_plain.calls = 0
+        t0 = time.perf_counter()
+        for k, (img, npz, edit, n) in enumerate(frames):
+            out_dir = os.path.join(tmp, f"{tag}{k}")
+            geometric_main.main([
+                "--source", "gt", "--input_image", img, "--input_masks", npz,
+                "--edit_json", edit, "--shapenet_root", shapenet,
+                "--output_dir", out_dir, "--seed", str(args.seed)] + extra)
+            check_outputs(out_dir, n)
+            log(f"[{tag}] frame {k} ({n} cars, 2 edit items): outputs ok")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, plain = kernel_counts(), plain_counts()
+        snap = phases.snapshot()
+        phases.reset(False)
+        for name, rec in snap.items():
+            log(f"[phases] {tag} {name}: calls {rec['calls']} first_s "
+                f"{rec.get('first_s', rec['s'])} steady_avg_s "
+                f"{rec.get('steady_avg_s', 'n/a')} MB {rec['MB']} ({card})")
+        return counts, plain, wall, snap
 
     with tempfile.TemporaryDirectory(prefix="sdn3d_smoke_") as tmp:
         t0 = time.perf_counter()
         shapenet, frames = write_assets(tmp, args.seed)
         log(f"[main] wrote assets in {time.perf_counter() - t0:.1f} s")
         TC.rasterize_face_index = recording
-        phases.reset(True)
-        launch.launches = 0
-        TR.rasterize_face_maps.calls = 0
-        t0 = time.perf_counter()
-        for k, (img, npz, edit, n) in enumerate(frames):
-            out_dir = os.path.join(tmp, f"out{k}")
-            geometric_main.main([
-                "--source", "gt", "--input_image", img, "--input_masks", npz,
-                "--edit_json", edit, "--shapenet_root", shapenet,
-                "--output_dir", out_dir, "--seed", str(args.seed)])
-            check_outputs(out_dir, n)
-            log(f"[main] frame {k} ({n} cars, 2 edit items): outputs ok")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches, plain_calls = launch.launches, TR.rasterize_face_maps.calls
+        counts, plain, wall, _ = drive(frames, shapenet, tmp, [], "main")
         TC.rasterize_face_index = dispatch
-        snap = phases.snapshot()
-        phases.reset(False)
+        launches = counts[0]
+        if launches < len(frames) * 2 or any(plain):
+            raise AssertionError(f"main path: kernel launches {counts}, "
+                                 f"plain calls {plain}")
+        log(f"[main] {len(frames)} frames x 2 items in {wall:.2f} s; kernel "
+            f"launches {launches}, plain rasterizer calls {plain[0]}")
+
+        # -- 4b. refinement path ----------------------------------------------
+        TC.walk_grads, TC.segment_face_grads = walk_recording, seg_recording
+        TI.refine_silhouettes = refine_recording
+        r_counts, r_plain, r_wall, r_snap = drive(
+            frames, shapenet, tmp, ["--num_opts", str(NUM_OPTS)], "refine")
+        TC.walk_grads, TC.segment_face_grads = walk_dispatch, seg_dispatch
+        TI.refine_silhouettes = refine
+        items = len(frames) * 2
+        need = (items * (NUM_OPTS + 1), items * NUM_OPTS * 2, items * NUM_OPTS)
+        if any(c < n for c, n in zip(r_counts, need)) or any(r_plain):
+            raise AssertionError(f"refine path: kernel launches {r_counts} "
+                                 f"(need >= {need}), plain calls {r_plain}")
+        # traces[i][step] = (silhouette term, reg term) of the real objects
+        for i, t in enumerate(traces):
+            log(f"[refine] item {i}: loss of the real objects (silhouette "
+                f"+ reg) step 1 {t[0, 0]:.6f} + {t[0, 1]:.6f}, step "
+                f"{len(t)} {t[-1, 0]:.6f} + {t[-1, 1]:.6f}")
+        firsts = np.asarray([t[0] for t in traces])
+        lasts = np.asarray([t[-1] for t in traces])
+        # the silhouette term is what the kernels' gradient drives down;
+        # from the small FFD coefficients of random weights the reg term
+        # rises (Adam moves every coefficient by ~lr a step), and so may
+        # the total: the JAX package's refinement does the same
+        # (tests/test_torch_refine.py::test_refine_losses_follow_jax_over_
+        # ten_steps)
+        if len(traces) != items or not np.isfinite(firsts).all() \
+                or not np.isfinite(lasts).all() \
+                or not lasts[:, 0].mean() < firsts[:, 0].mean():
+            raise AssertionError(f"refine silhouette loss did not fall: "
+                                 f"{[t.tolist() for t in traces]}")
+        refine_s = r_snap["geo.refine"].get("steady_avg_s",
+                                            r_snap["geo.refine"]["s"])
+        log(f"[refine] {len(frames)} frames x 2 items x {NUM_OPTS} steps in "
+            f"{r_wall:.2f} s; launches forward {r_counts[0]}, walk "
+            f"{r_counts[1]}, reduction {r_counts[2]}; plain calls {r_plain}; "
+            f"mean silhouette loss {firsts[:, 0].mean():.6f} -> "
+            f"{lasts[:, 0].mean():.6f}, mean loss {firsts.sum(1).mean():.6f} "
+            f"-> {lasts.sum(1).mean():.6f}; "
+            f"geo.refine steady {refine_s:.4f} s/item ({card})")
+
         # -- 6. where one frame's time goes (after the counts were read) --
         profile_frame(frames[-1], shapenet, args.seed, card)
-    if launches < len(frames) * 2 or plain_calls != 0:
-        raise AssertionError(f"main path: {launches} kernel launches, "
-                             f"{plain_calls} plain rasterizer calls")
-    log(f"[main] {len(frames)} frames x 2 items in {wall:.2f} s; kernel "
-        f"launches {launches}, plain rasterizer calls {plain_calls}")
-    for name, rec in snap.items():
-        log(f"[phases] {name}: calls {rec['calls']} first_s {rec.get('first_s', rec['s'])}"
-            f" steady_avg_s {rec.get('steady_avg_s', 'n/a')} MB {rec['MB']}"
-            f" ({card})")
+        profile_frame(frames[-1], shapenet, args.seed, card,
+                      num_opts=NUM_OPTS)
 
-    # -- 5. kernel vs plain at the main path's shapes -------------------------
+    # -- 5. kernels vs plain at the main paths' shapes ------------------------
     cf, cv, cs, cc = (captured["faces"], captured["valid"], captured["size"],
                       captured["colors"])
     err, hits, plain_ms = compare(TC, TR, cf, cv, cs, cc)
@@ -394,6 +657,72 @@ def main(argv=None) -> int:
         f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {pairs:.0f} "
         f"face-pixel box pairs) ({card})")
 
+    # the last refine step's backward: walk (both axes) and reduction
+    alpha, cot, W = bw["alpha"], bw["cot"], bw["walk"]
+    invs = [bw["inv0"], bw["inv1"]]
+    walk_err = max(walk_err, check_walk(TC, TR, alpha, cot, invs, W, eps))
+    bbox = bw["boxes"]
+    path_err = check_reduction(TC, TR, bw["acc_x"], bw["acc_y"], bw["fi"],
+                               bbox)
+    red_err = max(red_err, path_err)
+    log(f"[kernel] refine-path backward {tuple(alpha.shape)}, walk {W}: walk "
+        f"bit-equal; reduction within 1e-5 of |terms| of float64, max err "
+        f"{path_err:.3e}, bit-equal across launches")
+
+    def both_axes(fn):
+        return lambda: [fn(a) for a in (0, 1)]
+
+    walk_ms = cuda_ms(both_axes(lambda a: TC.walk_grads_cuda(
+        alpha, cot, invs[a], W, eps, a)), iters=10, warmup=2) / 2
+    walk_plain_ms = cuda_ms(both_axes(lambda a: TR.walk_grads_plain(
+        alpha, cot, invs[a], W, eps, a)), iters=1, warmup=0) / 2
+    w_bytes, w_ops = walk_bound(invs, W)
+    walk_bound_ms, walk_bound_by = max(
+        (w_bytes / H100_HBM_BYTES_PER_S * 1e3, "bytes"),
+        (w_ops / H100_FP32_FLOPS * 1e3, "operations"))
+    log(f"[kernel] walk: {walk_ms:.4f} ms/launch (mean of both axes), plain "
+        f"{walk_plain_ms:.1f} ms; bound {walk_bound_ms:.4f} ms by "
+        f"{walk_bound_by} ({w_bytes} B, {w_ops:.0f} operations per launch) "
+        f"({card})")
+
+    # why the walk keeps its shared-memory staging: the same kernel built
+    # to read alpha and grad from global memory, at the same inputs
+    stag_ms, glob_ms = walk_variant_ms(TC, alpha, cot, invs, W, eps)
+    log(f"[kernel] walk variants at {tuple(alpha.shape)}, window {W}, "
+        f"bit-equal, ms per launch (axis 0, axis 1; staged, global, global, "
+        f"staged): staged {stag_ms}, global-memory {glob_ms} ({card})")
+
+    ax, ay, sfi_m = bw["acc_x"], bw["acc_y"], bw["fi"]
+    Bm, Fm = bbox.shape[:2]
+    red_ms = cuda_ms(lambda: TC.segment_face_grads_cuda(ax, ay, sfi_m, bbox),
+                     iters=20, warmup=3)
+    red_plain_ms = cuda_ms(lambda: TR.segment_face_grads_plain(
+        ax, ay, sfi_m, Fm), iters=3, warmup=1)
+    hit = sfi_m >= 0
+    seg = (torch.where(hit, sfi_m, torch.zeros_like(sfi_m)).long()
+           + torch.arange(Bm, device=dev)[:, None, None] * Fm).reshape(-1)
+    rows = torch.where(hit[:, None], -torch.stack(
+        [p for v in range(3) for p in (ax[:, v], ay[:, v])], 1), 0.0)
+    rows = rows.permute(0, 2, 3, 1).reshape(-1, 6).contiguous()
+    lib_ms = cuda_ms(lambda: torch.zeros(Bm * Fm, 6, device=dev).index_add_(
+        0, seg, rows), iters=20, warmup=3)
+    # bytes the function needs: the face index of every pixel, the six
+    # planes of the won pixels only, the sums written once per face
+    n_won = int(hit.sum())
+    r_bytes = sfi_m.numel() * 4 + n_won * 6 * 4 + Bm * Fm * 6 * 4
+    r_ops = float(n_won) * REDUCE_FLOPS
+    red_bound_ms, red_bound_by = max(
+        (r_bytes / H100_HBM_BYTES_PER_S * 1e3, "bytes"),
+        (r_ops / H100_FP32_FLOPS * 1e3, "operations"))
+    box = bbox.float()
+    box_px = float(((box[..., 1] - box[..., 0] + 1).clamp(min=0)
+                    * (box[..., 3] - box[..., 2] + 1).clamp(min=0)).sum())
+    log(f"[kernel] reduction: {red_ms:.4f} ms/launch, plain "
+        f"{red_plain_ms:.3f} ms, index_add_ {lib_ms:.4f} ms; bound "
+        f"{red_bound_ms:.4f} ms by {red_bound_by} ({r_bytes} B); pixels in "
+        f"the faces' boxes {box_px:.0f}, won pixels {n_won} "
+        f"({card})")
+
     # -- 7. reference: CUDA path vs CPU path on a small input ---------------
     from sdn3d_tpu_torch.data.synthetic import make_sphere_mesh
     from sdn3d_tpu_torch.geometry.assets import build_mesh_bank
@@ -403,30 +732,34 @@ def main(argv=None) -> int:
     torch.manual_seed(args.seed)
     model = Derenderer(num_classes=2).eval()
     host_bank = build_mesh_bank([make_sphere_mesh(12, 24)] * 2)
-    cfg = DerenderInferConfig(image_size=64, render_size=64, max_objects=4)
     image = (rng.rand(96, 160, 3) * 255).astype(np.uint8)
     rois = np.asarray([[20, 30, 60, 80], [40, 90, 85, 150]], np.float32)
     masks = np.zeros((2, 1, 96, 160), np.float32)
     for i, r in enumerate(rois.astype(int)):
         masks[i, 0, r[0] + 5:r[2] - 5, r[1] + 5:r[3] - 5] = 1
-    outs = {}
-    for d in ("cpu", "cuda"):
-        outs[d] = derender_image(model.to(d), DeviceMeshBank.from_host(
-            host_bank, device=d), image, np.asarray([1, 2]), masks, rois, cfg,
-            device=d)
-    agree = float((outs["cpu"]["instance_map"]
-                   == outs["cuda"]["instance_map"]).mean())
-    nrm_diff = int(np.abs(outs["cpu"]["normal_png"].astype(int)
-                          - outs["cuda"]["normal_png"].astype(int)).max())
-    d_cpu = [o["depth"] for o in outs["cpu"]["json_obj"].values()]
-    d_gpu = [o["depth"] for o in outs["cuda"]["json_obj"].values()]
-    if agree < 0.999 or nrm_diff > 1 or not np.allclose(d_cpu, d_gpu,
-                                                        rtol=1e-4):
-        raise AssertionError(f"cuda vs cpu: instance agreement {agree}, "
-                             f"normal byte diff {nrm_diff}, depths {d_cpu} "
-                             f"vs {d_gpu}")
-    log(f"[reference] cuda vs cpu path on 96x160: instance agreement {agree}, "
-        f"max normal byte diff {nrm_diff}")
+    for num_opts, min_agree in ((0, 0.999), (2, 0.98)):
+        cfg = DerenderInferConfig(image_size=64, render_size=64,
+                                  max_objects=4, num_opts=num_opts)
+        outs = {}
+        for d in ("cpu", "cuda"):
+            outs[d] = derender_image(model.to(d), DeviceMeshBank.from_host(
+                host_bank, device=d), image, np.asarray([1, 2]), masks, rois,
+                cfg, device=d)
+        agree = float((outs["cpu"]["instance_map"]
+                       == outs["cuda"]["instance_map"]).mean())
+        nrm_diff = int(np.abs(outs["cpu"]["normal_png"].astype(int)
+                              - outs["cuda"]["normal_png"].astype(int)).max())
+        d_cpu = [o["depth"] for o in outs["cpu"]["json_obj"].values()]
+        d_gpu = [o["depth"] for o in outs["cuda"]["json_obj"].values()]
+        a_gpu = [o["alpha"] for o in outs["cuda"]["json_obj"].values()]
+        if agree < min_agree or not np.allclose(d_cpu, d_gpu, rtol=1e-4) \
+                or not np.isfinite(a_gpu).all() \
+                or (num_opts == 0 and nrm_diff > 1):
+            raise AssertionError(f"cuda vs cpu, num_opts {num_opts}: "
+                                 f"instance agreement {agree}, normal byte "
+                                 f"diff {nrm_diff}, depths {d_cpu} vs {d_gpu}")
+        log(f"[reference] cuda vs cpu path on 96x160, num_opts {num_opts}: "
+            f"instance agreement {agree}, max normal byte diff {nrm_diff}")
 
     kernels = [{
         "name": "rasterize_forward",
@@ -440,6 +773,30 @@ def main(argv=None) -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+    }, {
+        "name": "silhouette_walk",
+        "route": "cuda",
+        "source": "sdn3d_tpu_torch/csrc/silhouette_walk.cu",
+        "replaces": "sdn3d_tpu/ops/rasterize_pallas.py:1071",
+        "launches": r_counts[1],
+        "max_abs_err": walk_err,
+        "ms": walk_ms,
+        "plain_ms": walk_plain_ms,
+        "bound_ms": walk_bound_ms,
+        "bound_by": walk_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "segment_face_grads",
+        "route": "cuda",
+        "source": "sdn3d_tpu_torch/csrc/segment_face_grads.cu",
+        "replaces": "sdn3d_tpu/ops/rasterize_pallas.py:941",
+        "launches": r_counts[2],
+        "max_abs_err": red_err,
+        "ms": red_ms,
+        "plain_ms": red_plain_ms,
+        "bound_ms": red_bound_ms,
+        "bound_by": red_bound_by,
+        "library_ms": lib_ms,
     }]
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -2,9 +2,10 @@
 
 Mirrors the JAX package's layout (geometry/, ops/, render/, models/,
 pipelines/, data/, utils/, cli/) so each module's counterpart is easy to
-find.  Plain tensor code is PyTorch; the forward rasterizer, the one TPU
-kernel on the geometric serving path, is a hand-written CUDA kernel
-(csrc/rasterize.cu, bound in ops/rasterize_cuda.py).
+find.  Plain tensor code is PyTorch; each TPU kernel of the JAX package
+is a hand-written CUDA kernel (csrc/: the forward rasterizer, and the
+silhouette gradient's edge walk and pixel->face reduction), bound in
+ops/rasterize_cuda.py.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`.
 Nothing falls back to the CPU when no GPU is found.

@@ -5,9 +5,11 @@
 {name}.png (instance map), {name}.json, {name}-normal.png,
 {name}-depth.png, {name}.pkl — the inter-branch filesystem contract
 (scripts/main.py:530-622).  Runs on `--device` (default cuda).
+--num_opts N refines each object's pose and shape against its mask with
+N Adam steps through the differentiable silhouette before the edits.
 
 Not ported yet: --source maskrcnn (Mask R-CNN), --vkitti_root dataset
-mode, --num_opts > 0 (silhouette refinement), and orbax checkpoints:
+mode, and orbax checkpoints:
 --ckpt_dir takes a torch state_dict file written from JAX variables by
 sdn3d_tpu_torch.utils.port.derenderer_state_dict_from_jax.
 """
@@ -28,7 +30,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--mode", choices=["pretrain", "full", "finetune",
                                       "extend"], default="extend")
     p.add_argument("--source", choices=["gt", "maskrcnn"], default="maskrcnn")
-    p.add_argument("--num_opts", type=int, default=0)
+    p.add_argument("--num_opts", type=int, default=0,
+                   help="Adam steps of silhouette refinement per frame")
     p.add_argument("--image_size", type=int, default=256)
     p.add_argument("--render_size", type=int, default=384)
     p.add_argument("--ckpt_dir", default=None,
@@ -179,9 +182,6 @@ def main(argv=None):
     if args.source == "gt" and args.input_image and not args.input_masks:
         parser.error("--source gt with --input_image requires "
                      "--input_masks (npz with rois/masks/class_ids)")
-    if args.num_opts:
-        raise NotImplementedError(
-            "silhouette refinement (--num_opts > 0) is not ported yet")
     model, bank = load_derenderer(args)
     cfg = DerenderInferConfig(
         image_size=args.image_size, render_size=args.render_size,

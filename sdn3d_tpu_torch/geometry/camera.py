@@ -1,4 +1,5 @@
-"""Camera transforms: look / perspective divide / face gathers.
+"""Camera transforms: look / perspective divide / face gathers (one with a
+gather-based backward over the mesh's adjacency).
 
 PyTorch counterpart of sdn3d_tpu/geometry/camera.py
 (geometric/neural_renderer/{look,perspective,vertices_to_faces}.py).
@@ -69,6 +70,52 @@ def vertices_to_faces(vertices: torch.Tensor, faces: torch.Tensor) -> torch.Tens
     B, F = faces.shape[:2]
     idx = faces.long().reshape(B, F * 3, 1).expand(B, F * 3, 3)
     return torch.gather(vertices, 1, idx).reshape(B, F, 3, 3)
+
+
+class _VerticesToFacesAdj(torch.autograd.Function):
+    """vertices_to_faces whose backward is a gather over the mesh's
+    vertex->(face, corner) adjacency plus a masked sum (JAX
+    camera.py:111-143), instead of autograd's scatter-add with atomics:
+    deterministic on every device."""
+
+    @staticmethod
+    def forward(ctx, vertices, faces, adjacency, fill_back):
+        ctx.save_for_backward(faces, adjacency)
+        ctx.fill_back = fill_back
+        return vertices_to_faces(vertices, faces)
+
+    @staticmethod
+    def backward(ctx, g):
+        faces, adjacency = ctx.saved_tensors
+        F = faces.shape[1]
+        if ctx.fill_back:
+            # back copies are the front faces with reversed winding: the
+            # grad of face f+F0 corner c belongs to front face f corner 2-c
+            F0 = F // 2
+            h = g[:, :F0] + g[:, F0:].flip(2)
+        else:
+            h = g
+        B, V, D = adjacency.shape
+        valid = adjacency >= 0
+        zero = torch.zeros_like(adjacency)
+        af = torch.where(valid, adjacency >> 2, zero).long()
+        ac = torch.where(valid, adjacency & 3, zero).long()
+        rows = (af * 3 + ac).reshape(B, V * D, 1).expand(B, V * D, 3)
+        picked = torch.gather(h.reshape(B, -1, 3), 1, rows).reshape(B, V, D, 3)
+        dv = torch.where(valid[..., None], picked, 0.0).sum(dim=2)
+        return dv, None, None, None
+
+
+def vertices_to_faces_adj(vertices: torch.Tensor, faces: torch.Tensor,
+                          adjacency: torch.Tensor,
+                          fill_back: bool = False) -> torch.Tensor:
+    """vertices_to_faces with a gather-based backward (JAX camera.py:146-161).
+
+    adjacency [B, V, D] int32: entries face*4 + corner of every face
+    corner that uses the vertex, -1 padded (assets._vertex_adjacency).
+    When `fill_back` is True, `faces` holds [front ‖ reversed-back] copies
+    and `adjacency` describes only the front half."""
+    return _VerticesToFacesAdj.apply(vertices, faces, adjacency, fill_back)
 
 
 def face_normals(face_vertices: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

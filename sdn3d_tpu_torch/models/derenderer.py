@@ -1,9 +1,12 @@
 """3D de-renderer: per-object pose/shape/class inference + re-rendering.
 
-PyTorch counterpart of sdn3d_tpu/models/derenderer.py (inference path):
-the encoder is a resnet18 trunk + FC heads (derender3d/models/
-derenderer.py:7-65); `render_blob` gathers each slot's mesh from a padded
-MeshBank, deforms it (FFD) and renders every slot in one rasterization.
+PyTorch counterpart of sdn3d_tpu/models/derenderer.py: the encoder is a
+resnet18 trunk + FC heads (derender3d/models/derenderer.py:7-65);
+`render_blob` gathers each slot's mesh from a padded MeshBank, deforms it
+(FFD) and renders every slot in one rasterization, either for inference
+(no gradient) or, with `training=True`, as differentiable silhouettes
+under the training camera (argmax class; REINFORCE sampling waits for the
+training slice).
 Module names follow the reference state_dict (`net.conv1`,
 `net.layerI.J.*`, `net.fc`, `fc1`, `fc2`, `_fc3`).
 """
@@ -21,7 +24,7 @@ from torch import nn
 from sdn3d_tpu_torch.geometry import ffd as ffd_mod
 from sdn3d_tpu_torch.geometry.transforms import perspective_transform
 from sdn3d_tpu_torch.models.resnet import ResNetClassifier
-from sdn3d_tpu_torch.render.renderer import render_targets
+from sdn3d_tpu_torch.render.renderer import RenderType, render, render_targets
 
 
 class TargetType:
@@ -201,14 +204,31 @@ def render_blob(
     image_size: int = 256,
     render_size: int = 384,
     obj_valid: Optional[torch.Tensor] = None,
+    training: bool = False,
+    force_no_sample: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """Batched re-rendering of all object slots, inference branch
-    (replaces __init__.py:94-250).
+    """Batched re-rendering of all object slots (replaces
+    __init__.py:94-250).
 
     blob must contain encoder outputs plus _mroi_norms/_droi_norms/_focals.
     Returns the render dict (_masks, _normals, _depth_maps, poses, ...).
+    training=False: the inference camera (zoom solved from `_zoom_tos`),
+    one non-differentiable rasterization of the mode's targets.
+    training=True: the training camera (`_zooms` from the ROI), and
+    `_masks` are differentiable silhouettes (the walk window is 64 for
+    render_size > 128, else exact), carrying gradients to the pose and
+    FFD entries of the blob.  Only the argmax class
+    (`force_no_sample=True`) is ported.
     """
-    pose = pose_from_blob(blob, image_size, render_size, training=False)
+    if training and not force_no_sample:
+        raise NotImplementedError(
+            "REINFORCE class sampling (training without force_no_sample) "
+            "is not ported yet: it comes with the training slice")
+    if training and mode & (TargetType.normal | TargetType.depth):
+        raise NotImplementedError(
+            "differentiable normal/depth renders are not ported yet: they "
+            "come with the training slice")
+    pose = pose_from_blob(blob, image_size, render_size, training=training)
     class_probs = blob["_class_probs"]
     B = class_probs.shape[0]
     cls, logp = select_class(class_probs)
@@ -227,14 +247,25 @@ def render_blob(
     vertices = ffd_mod.deform(Bmat, bank.ffd_P0, ffd_coeff,
                               num_grids=bank.ffd_P0.shape[1])  # [B, V, 3]
 
-    verts_cam, zooms = perspective_transform(
-        vertices,
-        scales=pose["_scales"],
-        rotations=pose["_rotations"],
-        translations=pose["_translations"],
-        perspective_translations=pose["_translations"],
-        zoom_tos=pose["_zoom_tos"],
-    )
+    if training:
+        verts_cam = perspective_transform(
+            vertices,
+            scales=pose["_scales"],
+            rotations=pose["_rotations"],
+            translations=pose["_translations"],
+            perspective_translations=pose["_perspective_translations"],
+            zooms=pose["_zooms"],
+        )
+        zooms = pose["_zooms"]
+    else:
+        verts_cam, zooms = perspective_transform(
+            vertices,
+            scales=pose["_scales"],
+            rotations=pose["_rotations"],
+            translations=pose["_translations"],
+            perspective_translations=pose["_translations"],
+            zoom_tos=pose["_zoom_tos"],
+        )
 
     # Per-object viewing angle (main loop __init__.py:202):
     # atan(render_size / (2 * focal)) in degrees.
@@ -246,6 +277,16 @@ def render_blob(
     out["_class_samples"] = cls
     out["_class_log_probs"] = logp
     out["_zooms"] = zooms
+
+    if training:
+        # windowed silhouette gradient for large renders: the exact out-walk
+        # spans the whole image; contributions decay as 1/dist
+        gw = 0 if render_size <= 128 else 64
+        out["_masks"] = render(verts_cam, faces, RenderType.Silhouette,
+                               face_valid, image_size=render_size,
+                               viewing_angle=viewing_angle, grad_walk=gw,
+                               vertex_adjacency=bank.adjacency[cls_l])
+        return out
 
     targets = ["silhouette"]
     if mode & TargetType.normal:

@@ -1,13 +1,18 @@
-"""Wrapper of the CUDA forward rasterizer (csrc/rasterize.cu).
+"""Wrappers of the port's CUDA kernels (csrc/*.cu).
 
-`rasterize_face_index` dispatches on the device of its input: for a CPU
-tensor it runs the plain PyTorch version (ops/rasterize.py); for a CUDA
-tensor it launches the kernel or raises.  There is no fallback from one
-to the other.
+  rasterize.cu           forward rasterizer      rasterize_face_index
+  silhouette_walk.cu     silhouette edge walk    walk_grads
+  segment_face_grads.cu  pixel->face reduction   segment_face_grads
 
-The kernel is built at first use with nvcc (route (b): a plain C entry
-point loaded with ctypes) into `sdn3d_tpu_torch/_build/`, named by a hash
-of the source and flags so an edited source is never served stale.
+Each dispatcher runs on the device of its input: for a CPU tensor the
+plain PyTorch version (ops/rasterize.py); for a CUDA tensor it launches the
+kernel or raises.  There is no fallback from one to the other.  Each
+`*_cuda` launcher counts its launches in `.launches`.
+
+The kernels are built at first use with nvcc (route (b): plain C entry
+points loaded with ctypes) into `sdn3d_tpu_torch/_build/`, each library
+named by a hash of its source and flags so an edited source is never
+served stale.  `build()` compiles several sources in parallel.
 """
 
 from __future__ import annotations
@@ -19,26 +24,39 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from sdn3d_tpu_torch.ops import rasterize as R
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "rasterize.cu")
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-# -fmad=false: no a*b+c contraction (it flips boundary pixels against the
-# plain version); IEEE division stays on (no --use_fast_math).
+SOURCES = ("rasterize", "silhouette_walk", "segment_face_grads")
+# -fmad=false: no a*b+c contraction (it flips boundary pixels and walk
+# terms against the plain versions); IEEE division stays on (no
+# --use_fast_math).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
-CHUNK = 256          # faces per culling chunk; equals kChunk in the source
+CHUNK = 256          # faces per culling chunk; equals kChunk in rasterize.cu
 _FACE_FLOATS = 18
 
-_lib: Optional[ctypes.CDLL] = None
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# entry point and ctypes argument types of each source
+_ENTRY = {
+    "rasterize": ("sdn3d_rasterize_forward",
+                  [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P]),
+    "silhouette_walk": ("sdn3d_walk_grads",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]),
+    "segment_face_grads": ("sdn3d_segment_face_grads",
+                           [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
-build_seconds: Optional[float] = None
-build_log: str = ""
+build_seconds: Dict[str, float] = {}   # nvcc wall time of each fresh build
+build_log: Dict[str, str] = {}         # compiler output (ptxas -v report)
 
 
 def _nvcc() -> str:
@@ -48,48 +66,69 @@ def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     path = os.path.join(home, "bin", "nvcc")
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA rasterizer needs the "
+        raise RuntimeError("nvcc not found: the CUDA kernels need the "
                            "CUDA toolkit (set CUDA_HOME)")
     return path
 
 
-def build() -> str:
-    """Compile csrc/rasterize.cu into a shared library (once per source
-    and flags hash) and return its path.  The compiler's output, with
-    ptxas' register / shared-memory / spill report, is kept in
-    `build_log`."""
-    global build_seconds, build_log
-    with open(_SOURCE, "rb") as fh:
+def library_path(name: str) -> str:
+    """_build/lib{name}_{hash of source and flags}.so"""
+    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as fh:
         src = fh.read()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"librasterize_{tag}.so")
-    if os.path.exists(out):
-        return out
+    return os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+
+
+def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
+    """Compile csrc/{name}.cu for each name into a shared library (once
+    per source and flags hash), one nvcc process per source, all started
+    together.  Returns {name: library path}.  The compiler's output, with
+    ptxas' register / shared-memory / spill report, is kept in
+    `build_log[name]`."""
+    paths = {n: library_path(n) for n in names}
+    todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
+    if not todo:
+        return paths
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
+    procs = {}
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, _SOURCE],
-        capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)
-    return out
+    for n, out in todo.items():
+        tmp = f"{out}.{os.getpid()}.tmp"
+        procs[n] = (tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
+             os.path.join(CSRC_DIR, f"{n}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        build_seconds[n] = time.perf_counter() - t0
+        build_log[n] = log
+        if proc.returncode != 0:
+            failed.append(f"{n}.cu: nvcc failed ({proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, todo[n])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
+def _load(name: str = "rasterize") -> ctypes.CDLL:
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.sdn3d_rasterize_forward.argtypes = [
-                p, p, p, p, i, i, i, f, f, p, p, p, p]
-            lib.sdn3d_rasterize_forward.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+        if name not in _libs:
+            lib = ctypes.CDLL(build([name])[name])
+            entry, argtypes = _ENTRY[name]
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _libs[name] = lib
+    return _libs[name]
+
+
+def _launch(name: str, *args) -> None:
+    lib = _load(name)
+    err = getattr(lib, _ENTRY[name][0])(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
 def pack_faces(faces: torch.Tensor, face_valid: Optional[torch.Tensor],
@@ -162,11 +201,13 @@ def rasterize_face_index_cuda(faces: torch.Tensor,
                               image_size: int,
                               near: float = R.DEFAULT_NEAR,
                               far: float = R.DEFAULT_FAR,
-                              colors: Optional[torch.Tensor] = None):
+                              colors: Optional[torch.Tensor] = None,
+                              boxes: bool = False):
     """Launch the CUDA kernel.  faces [B, F, 3, 3] float32 CUDA;
     face_valid [B, F] bool or None; colors [B, F, 3] float32 or None.
     Returns (face_index [B, S, S] i32, depth [B, S, S] f32
-    [, rgb [B, 3, S, S] f32])."""
+    [, rgb [B, 3, S, S] f32][, bbox]): with `boxes`, also the faces' pixel
+    boxes of `pack_faces`, which the reduction kernel walks."""
     if not faces.is_cuda:
         raise ValueError("rasterize_face_index_cuda needs a CUDA tensor")
     if faces.dim() != 4 or faces.shape[2:] != (3, 3):
@@ -194,21 +235,16 @@ def rasterize_face_index_cuda(faces: torch.Tensor,
            if colors is not None else None)
     for t in (fdata, bbox, cbbox, fi, depth):
         assert t.is_contiguous()
-    lib = _load()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.sdn3d_rasterize_forward(
-            fdata.data_ptr(), bbox.data_ptr(), cbbox.data_ptr(),
-            colors.data_ptr() if colors is not None else None,
-            B, F, S, float(near), float(far), fi.data_ptr(),
-            depth.data_ptr(), rgb.data_ptr() if rgb is not None else None,
-            stream)
-    if err != 0:
-        raise RuntimeError(f"rasterize kernel launch failed: cudaError {err}")
+        _launch("rasterize",
+                fdata.data_ptr(), bbox.data_ptr(), cbbox.data_ptr(),
+                colors.data_ptr() if colors is not None else None,
+                B, F, S, float(near), float(far), fi.data_ptr(),
+                depth.data_ptr(), rgb.data_ptr() if rgb is not None else None,
+                torch.cuda.current_stream(dev).cuda_stream)
     rasterize_face_index_cuda.launches += 1
-    if rgb is not None:
-        return fi, depth, rgb
-    return fi, depth
+    return ((fi, depth) + ((rgb,) if rgb is not None else ())
+            + ((bbox,) if boxes else ()))
 
 
 rasterize_face_index_cuda.launches = 0
@@ -219,19 +255,123 @@ def rasterize_face_index(faces: torch.Tensor,
                          image_size: int,
                          near: float = R.DEFAULT_NEAR,
                          far: float = R.DEFAULT_FAR,
-                         colors: Optional[torch.Tensor] = None):
+                         colors: Optional[torch.Tensor] = None,
+                         boxes: bool = False):
     """Forward rasterization on the device of `faces`: the CUDA kernel for
     a CUDA tensor, the plain PyTorch version for a CPU tensor.  Returns
-    (face_index, depth[, rgb planar [B, 3, S, S]]) as
-    rasterize_face_index_cuda does."""
+    (face_index, depth[, rgb planar [B, 3, S, S]][, bbox]) as
+    rasterize_face_index_cuda does; the plain version has no boxes (None)."""
     if faces.is_cuda:
         return rasterize_face_index_cuda(faces, face_valid, image_size,
-                                         near, far, colors)
+                                         near, far, colors, boxes)
     if faces.device.type != "cpu":
         raise ValueError(f"no rasterizer for device {faces.device}")
-    fi, depth = R.rasterize_face_maps(faces, face_valid, image_size, near,
-                                      far)
-    if colors is None:
-        return fi, depth
-    rgb = R._gather_face_colors(fi, colors.float()).permute(0, 3, 1, 2)
-    return fi, depth, rgb.contiguous()
+    out = R.rasterize_face_maps(faces, face_valid, image_size, near, far)
+    if colors is not None:
+        rgb = R._gather_face_colors(out[0], colors.float()).permute(0, 3, 1, 2)
+        out = out + (rgb.contiguous(),)
+    return out + (None,) if boxes else out
+
+
+def _check_planes(name: str, t: torch.Tensor, shape, dtype, dev) -> None:
+    if t.device != dev or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dtype} tensor of "
+                         f"shape {tuple(shape)} on {dev}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def walk_grads_cuda(alpha: torch.Tensor, grad_alpha: torch.Tensor,
+                    inv: torch.Tensor, n_steps: int, eps: float,
+                    axis: int) -> torch.Tensor:
+    """Launch the walk kernel (csrc/silhouette_walk.cu) for one axis.
+    alpha, grad_alpha [B, H, W] float32 CUDA; inv [B, 18, H, W] from
+    `rasterize.edge_invariant_stack`.  Returns [B, 3, H, W] float32, the
+    same values as `rasterize.walk_grads_plain`."""
+    if not alpha.is_cuda:
+        raise ValueError("walk_grads_cuda needs CUDA tensors")
+    if alpha.dim() != 3 or axis not in (0, 1) or n_steps < 0:
+        raise ValueError(f"alpha must be [B, H, W] and axis 0 or 1, got "
+                         f"{tuple(alpha.shape)}, axis {axis}")
+    B, H, W = alpha.shape
+    dev = alpha.device
+    _check_planes("alpha", alpha, (B, H, W), torch.float32, dev)
+    _check_planes("grad_alpha", grad_alpha, (B, H, W), torch.float32, dev)
+    _check_planes("inv", inv, (B, R.WALK_INV_ROWS, H, W), torch.float32, dev)
+    if B == 0 or H == 0 or W == 0:
+        raise ValueError("empty batch or image")
+    out = torch.empty((B, 3, H, W), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("silhouette_walk", alpha.data_ptr(), grad_alpha.data_ptr(),
+                inv.data_ptr(), out.data_ptr(), B, H, W, int(n_steps),
+                float(eps), int(axis), torch.cuda.current_stream(dev).cuda_stream)
+    walk_grads_cuda.launches += 1
+    return out
+
+
+walk_grads_cuda.launches = 0
+
+
+def walk_grads(alpha: torch.Tensor, grad_alpha: torch.Tensor,
+               inv: torch.Tensor, n_steps: int, eps: float,
+               axis: int) -> torch.Tensor:
+    """Silhouette walk accumulators for one axis on the device of
+    `alpha`: the kernel for a CUDA tensor, the plain version for a CPU
+    tensor."""
+    if alpha.is_cuda:
+        return walk_grads_cuda(alpha, grad_alpha, inv, n_steps, eps, axis)
+    if alpha.device.type != "cpu":
+        raise ValueError(f"no walk kernel for device {alpha.device}")
+    return R.walk_grads_plain(alpha, grad_alpha, inv, n_steps, eps, axis)
+
+
+def segment_face_grads_cuda(acc_x: torch.Tensor, acc_y: torch.Tensor,
+                            face_index: torch.Tensor,
+                            bbox: torch.Tensor) -> torch.Tensor:
+    """Launch the pixel->face reduction kernel
+    (csrc/segment_face_grads.cu).  acc_x / acc_y [B, 3, H, W] float32,
+    face_index [B, H, W] int32, bbox [B, F, 4] int32 from `pack_faces`
+    (each face's pixel box; it holds every pixel the face can win).
+    Returns [B, F, 6], the values of `rasterize.segment_face_grads_plain`
+    summed in another (fixed) order."""
+    if not acc_x.is_cuda:
+        raise ValueError("segment_face_grads_cuda needs CUDA tensors")
+    if face_index.dim() != 3 or bbox.dim() != 3 or bbox.shape[2] != 4:
+        raise ValueError(f"face_index must be [B, H, W] and bbox [B, F, 4], "
+                         f"got {tuple(face_index.shape)}, {tuple(bbox.shape)}")
+    B, H, W = face_index.shape
+    F = bbox.shape[1]
+    dev = acc_x.device
+    _check_planes("acc_x", acc_x, (B, 3, H, W), torch.float32, dev)
+    _check_planes("acc_y", acc_y, (B, 3, H, W), torch.float32, dev)
+    _check_planes("face_index", face_index, (B, H, W), torch.int32, dev)
+    _check_planes("bbox", bbox, (B, F, 4), torch.int32, dev)
+    out = torch.empty((B, F, 6), dtype=torch.float32, device=dev)
+    if B * F == 0:
+        return out
+    with torch.cuda.device(dev):
+        _launch("segment_face_grads", acc_x.data_ptr(), acc_y.data_ptr(),
+                face_index.data_ptr(), bbox.data_ptr(), B, F, H, W,
+                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    segment_face_grads_cuda.launches += 1
+    return out
+
+
+segment_face_grads_cuda.launches = 0
+
+
+def segment_face_grads(acc_x: torch.Tensor, acc_y: torch.Tensor,
+                       face_index: torch.Tensor, num_faces: int,
+                       boxes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pixel->face reduction [B, F, 6] on the device of `acc_x`: the
+    kernel for a CUDA tensor, over `boxes` (the forward's `pack_faces`
+    boxes of the F faces, which the kernel needs); the plain version for
+    a CPU tensor."""
+    if acc_x.is_cuda:
+        if boxes is None or boxes.shape[1] != num_faces:
+            raise ValueError("the reduction kernel needs the forward's face "
+                             "boxes [B, num_faces, 4]")
+        return segment_face_grads_cuda(acc_x, acc_y, face_index, boxes)
+    if acc_x.device.type != "cpu":
+        raise ValueError(f"no reduction kernel for device {acc_x.device}")
+    return R.segment_face_grads_plain(acc_x, acc_y, face_index, num_faces)

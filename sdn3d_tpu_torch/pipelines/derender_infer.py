@@ -1,12 +1,12 @@
-"""Geometric-branch inference: detections -> de-render -> edit ops ->
-batched re-render -> composite -> one packed host copy per frame.
+"""Geometric-branch inference: detections -> de-render -> (optional
+silhouette refinement) -> edit ops -> batched re-render -> composite ->
+one packed host copy per frame.
 
 PyTorch counterpart of the serving path of
 sdn3d_tpu/pipelines/derender_infer.py (geometric/scripts/main.py:_test,
 :325-622).  Objects are padded to `max_objects` slots; every per-object
-loop of the reference is a batched device computation.  Silhouette
-refinement (num_opts > 0), the batched multi-frame API and the small
-serving plan wait for later slices.
+loop of the reference is a batched device computation.  The batched
+multi-frame API and the small serving plan wait for later slices.
 """
 
 from __future__ import annotations
@@ -30,30 +30,40 @@ class DerenderInferConfig:
     render_size: int = 384
     max_objects: int = 16
     num_opts: int = 0
+    opt_lr: float = 3e-2          # main.py:438
+    ffd_opt_reg: float = 100.0    # main.py:445
     mode: int = TargetType.extend
 
 
 def prepare_objects(image_rgb: np.ndarray, rois: np.ndarray,
                     image_masks: np.ndarray, class_ids: np.ndarray,
-                    cfg: DerenderInferConfig) -> Dict[str, np.ndarray]:
+                    cfg: DerenderInferConfig,
+                    with_masks: bool = False) -> Dict[str, np.ndarray]:
     """Host-side packing of per-object crops to padded slots
     (main.py:344-392).  image_masks [N, 1, H, W]; rois [N, 4] pixel.
 
     Crops are uint8 (VK.transform_rgb_u8); the encoder dequantizes them on
-    the device.  The render_size mask crops of the reference are not made:
-    only the silhouette refinement (num_opts > 0) reads them."""
+    the device.  `with_masks` also makes the render_size mask crops
+    ("masks" [M, 1, R, R]), which only the silhouette refinement
+    (num_opts > 0) reads."""
     n = len(class_ids)
     M = cfg.max_objects
     if n > M:
         raise ValueError(f"{n} objects for {M} slots")
 
     rgbs = np.zeros((M, cfg.image_size, cfg.image_size, 3), np.uint8)
+    masks = (np.zeros((M, cfg.render_size, cfg.render_size), np.float32)
+             if with_masks else None)
     rois_pad = np.zeros((M, 4), np.float32)
     valid = np.zeros((M,), bool)
     image_f = np.asarray(image_rgb, np.float32) / 255.0
     for i in range(n):
         rgbs[i] = VK.transform_rgb_u8(image_f, rois[i], cfg.image_size,
                                       prescaled=True)
+        if with_masks:
+            masks[i] = VK.transform_mask(
+                np.asarray(image_masks[i, 0], np.float32), rois[i],
+                cfg.render_size)
         rois_pad[i] = rois[i]
         valid[i] = True
 
@@ -62,7 +72,7 @@ def prepare_objects(image_rgb: np.ndarray, rois: np.ndarray,
     interests[:n] = edit_mod.compute_interests(class_ids, mask_areas)
 
     roi_norms = VK.roi_norms_from_rois(rois_pad)
-    return {
+    objs = {
         "rgbs": rgbs,
         "roi_norms": roi_norms,
         "focals": np.full((M, 1), VK.Camera.focal, np.float32),
@@ -71,6 +81,9 @@ def prepare_objects(image_rgb: np.ndarray, rois: np.ndarray,
         "class_ids": np.pad(class_ids.astype(np.int32), (0, M - n)),
         "num_objs": n,
     }
+    if with_masks:
+        objs["masks"] = masks[:, None]                    # [M, 1, R, R]
+    return objs
 
 
 # byte -> normalized-f32 lookup table ((x/255 - 0.5)/0.25 computed in
@@ -141,6 +154,108 @@ def keep_largest_detections(cfg: DerenderInferConfig, class_ids, masks,
     return class_ids, masks, rois
 
 
+def build_default_ignores(image_masks: np.ndarray, log_depths: np.ndarray,
+                          droi_norms: np.ndarray) -> np.ndarray:
+    """Occlusion ignore maps from predicted depth ordering
+    (main.py:405-414): each object ignores pixels covered by any
+    nearer-sorted object."""
+    depths = log_depths[:, 0] - np.log(droi_norms).sum(axis=1)
+    index = np.argsort(depths)
+    sorted_masks = np.concatenate(
+        [np.zeros_like(image_masks[:1]), image_masks[index]], axis=0)[:-1]
+    cum = np.clip(np.cumsum(sorted_masks, axis=0), 0, 1)
+    out = np.zeros_like(image_masks)
+    out[index] = cum
+    return out
+
+
+_OPT_KEYS = ("_theta_deltas", "_translation2ds", "_log_scales",
+             "_ffd_coeffs")
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    """1 - decay**count in float32, as optax computes it, on the host.
+    torch's float32 pow agrees with XLA's CPU pow on this value for every
+    count below 31 (decay 0.9) and 168 (decay 0.999); the two pow
+    implementations round differently beyond."""
+    d = torch.tensor(decay, dtype=torch.float32)
+    return float(1 - torch.pow(d, torch.tensor(float(count))))
+
+
+_ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8    # optax.adam defaults
+
+
+def adam_step(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+              nu: torch.Tensor, count: int, lr: float):
+    """One step of optax.adam(lr) (scale_by_adam, then scale by -lr, then
+    apply_updates), in optax's arithmetic order.  count is the step
+    number, from 1.  Returns (p, mu, nu)."""
+    b1, b2 = _ADAM_B1, _ADAM_B2
+    mu = (1 - b1) * g + b1 * mu
+    nu = (1 - b2) * (g * g) + b2 * nu
+    mu_hat = mu / torch.full((), _bias_correction(b1, count), device=mu.device)
+    nu_hat = nu / torch.full((), _bias_correction(b2, count), device=nu.device)
+    update = mu_hat / (torch.sqrt(nu_hat) + _ADAM_EPS)
+    return p + (-lr) * update, mu, nu
+
+
+def refine_silhouettes(blob: Dict[str, torch.Tensor], bank: DeviceMeshBank,
+                       masks: torch.Tensor, ignores: torch.Tensor,
+                       cfg: DerenderInferConfig,
+                       trace: Optional[list] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """Test-time optimization of pose/shape against detected masks
+    (main.py:420-459; JAX derender_infer.py:341-398): `cfg.num_opts` Adam
+    steps (lr cfg.opt_lr) over theta / translation2d / log_scale / ffd,
+    argmax class, training camera, loss mean((mask - target)^2 +
+    ffd_opt_reg * mean(ffd^2)) times (1 - ignores).
+
+    Parity with the JAX package, kept on purpose: the reg term is added
+    per pixel BEFORE the ignore multiply, and padded slots are rendered
+    (no obj_valid) and count in the mean.  A padded slot's pose is not
+    finite, so from the second step on its entries, and the loss, are NaN
+    (in the JAX package too); real slots are unaffected.
+
+    `trace`, when given, receives each step's per-slot shares of the loss:
+    a [2, M] tensor, row 0 the data term of the slot's pixels, row 1 the
+    reg term of the slot's coefficients, whose sum is the loss; a caller
+    can follow the loss of the real slots.  Returns the blob with the
+    refined entries (no gradient)."""
+    params = {k: blob[k].detach().clone().requires_grad_(True)
+              for k in _OPT_KEYS}
+    frozen = {k: v.detach() for k, v in blob.items()}
+    mu = {k: torch.zeros_like(v) for k, v in params.items()}
+    nu = {k: torch.zeros_like(v) for k, v in params.items()}
+    for step in range(1, cfg.num_opts + 1):
+        b = dict(frozen)
+        b.update(params)
+        # model.train() + _force_no_sample=True during refinement
+        # (main.py:424-425): training-mode projection, argmax class
+        out = render_blob(b, bank, TargetType.reproject, cfg.image_size,
+                          cfg.render_size, training=True,
+                          force_no_sample=True)
+        keep = 1 - ignores
+        l = ((out["_masks"] - masks) ** 2 + cfg.ffd_opt_reg * torch.mean(
+            params["_ffd_coeffs"] ** 2)) * keep
+        loss = torch.mean(l)
+        grads = torch.autograd.grad(loss, [params[k] for k in _OPT_KEYS])
+        if trace is not None:
+            with torch.no_grad():
+                data = ((out["_masks"] - masks) ** 2 * keep).flatten(1).sum(1)
+                ffd = params["_ffd_coeffs"]
+                reg = (cfg.ffd_opt_reg * keep.mean() / ffd.numel()
+                       * (ffd ** 2).flatten(1).sum(1))
+                trace.append(torch.stack([data / l.numel(), reg]))
+        with torch.no_grad():
+            for k, g in zip(_OPT_KEYS, grads):
+                p, mu[k], nu[k] = adam_step(params[k], g, mu[k], nu[k], step,
+                                            cfg.opt_lr)
+                params[k] = p.requires_grad_(True)
+    out = dict(frozen)
+    out.update({k: v.detach() for k, v in params.items()})
+    return out
+
+
 def derender_encode(
     model: Derenderer,
     image_rgb: np.ndarray,
@@ -149,19 +264,40 @@ def derender_encode(
     rois: np.ndarray,
     cfg: Optional[DerenderInferConfig] = None,
     device="cuda",
+    bank: Optional[DeviceMeshBank] = None,
 ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
-    """Phase 1 of derender_image: object prep + encoder (main.py:344-402).
-    Returns (objs, host blob): the encoder outputs come back in ONE packed
-    device-to-host copy."""
+    """Phase 1 of derender_image: object prep + encoder + optional
+    silhouette refinement (main.py:344-459).  Returns (objs, host blob):
+    the encoder (or refined) outputs come back in ONE packed
+    device-to-host copy.  The refinement (cfg.num_opts > 0) needs `bank`;
+    its ignore maps come from `build_default_ignores`."""
     cfg = cfg or DerenderInferConfig()
-    if cfg.num_opts:
-        raise NotImplementedError(
-            "silhouette refinement (num_opts > 0) is not ported yet")
+    if cfg.num_opts and bank is None:
+        raise ValueError("silhouette refinement (num_opts > 0) needs the "
+                         "mesh bank")
     with phases.phase("geo.prep"):
-        objs = prepare_objects(image_rgb, rois, image_masks, class_ids, cfg)
+        objs = prepare_objects(image_rgb, rois, image_masks, class_ids, cfg,
+                               with_masks=cfg.num_opts > 0)
         phases.add_bytes("geo.prep", objs["rgbs"][:objs["num_objs"]])
     with phases.phase("geo.encode"):
         blob, packed = phases.block(encode_objects(model, objs, device))
+    if cfg.num_opts:
+        with phases.phase("geo.refine"):
+            n = len(rois)
+            enc = _unpack_f32(packed.cpu().numpy(), blob, sorted(blob))
+            image_ignores = build_default_ignores(
+                image_masks, enc["_log_depths"][:n], enc["_droi_norms"][:n])
+            rs = cfg.render_size
+            ign = np.zeros((cfg.max_objects, 1, rs, rs), np.float32)
+            for i in range(n):
+                ign[i, 0] = VK.transform_mask(
+                    np.asarray(image_ignores[i, 0], np.float32), rois[i], rs)
+            dev = torch.device(device)
+            phases.add_bytes("geo.refine", objs["masks"], ign)
+            blob = phases.block(refine_silhouettes(
+                blob, bank, torch.from_numpy(objs["masks"]).to(dev),
+                torch.from_numpy(ign).to(dev), cfg))
+            packed = _packed_f32([blob[k] for k in sorted(blob)])
     with phases.phase("geo.encode_fetch"):
         packed_np = packed.cpu().numpy()
         phases.add_bytes("geo.encode_fetch", packed_np)
@@ -315,12 +451,14 @@ def derender_image(
     and depth_map [H, W] (device tensors), the quantized planes
     instance_png / normal_png / depth_png, json_obj (per-object
     class/depth/alpha), state (3D pkl equivalent), interests.  `encoded`
-    optionally carries a cached derender_encode result for this frame."""
+    optionally carries a cached derender_encode result for this frame;
+    with cfg.num_opts > 0 the encoder's blob is refined against the masks
+    first."""
     cfg = cfg or DerenderInferConfig()
     H, W = image_rgb.shape[:2]
     if encoded is None:
         encoded = derender_encode(model, image_rgb, class_ids, image_masks,
-                                  rois, cfg, device=device)
+                                  rois, cfg, device=device, bank=bank)
     objs, blob = encoded
     with phases.phase("geo.edit"):
         blob_t, interests = _edited_blob(objs, blob, operations)

@@ -1,18 +1,83 @@
-"""Mesh renderer: camera orchestration + rasterization (inference path).
+"""Mesh renderer: camera orchestration + rasterization.
 
-PyTorch counterpart of sdn3d_tpu/render/renderer.py:render_targets.  The
-differentiable `render()` (and the RGB target) belong to the training
-slice and are not ported yet.
+PyTorch counterpart of sdn3d_tpu/render/renderer.py: `render_targets`
+(the inference path, one rasterization for silhouette, normal and depth)
+and the differentiable `render()` for the Silhouette type.  `render()` of
+the Depth, Normal and RGB types waits for a later slice.
 """
 
 from __future__ import annotations
 
+import enum
 from typing import Optional
 
 import torch
 
 from sdn3d_tpu_torch.geometry import camera
 from sdn3d_tpu_torch.ops import rasterize as R
+
+
+class RenderType(enum.IntEnum):
+    """derender3d/models/renderer.py:12-16."""
+    RGB = 0
+    Silhouette = 1
+    Depth = 2
+    Normal = 3
+
+
+def render(
+    vertices: torch.Tensor,
+    faces: torch.Tensor,
+    render_type: RenderType = RenderType.Silhouette,
+    face_valid: Optional[torch.Tensor] = None,
+    image_size: int = 256,
+    viewing_angle=30.0,
+    anti_aliasing: bool = True,
+    fill_back: bool = True,
+    near: float = R.DEFAULT_NEAR,
+    far: float = R.DEFAULT_FAR,
+    eps: float = R.DEFAULT_EPS,
+    grad_walk: int = 0,
+    vertex_adjacency: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Render [B, V, 3] vertices + [B, F, 3] int faces to silhouettes
+    [B, 1, H, W], differentiable in `vertices` (JAX renderer.py:39-144).
+
+    The camera is the fixed derender3d camera (eye at the origin, looking
+    along -z, up +y, renderer.py:226-229) after the reference's x-flip fix
+    (renderer.py:241-243); `viewing_angle` may be per-batch [B].  fill_back
+    is the winding fold: a face that is back-facing is rasterized with
+    its winding reversed.  `vertex_adjacency` [B, V, D] routes the face
+    gather's backward through the mesh's adjacency (deterministic)."""
+    if render_type != RenderType.Silhouette:
+        raise NotImplementedError(
+            f"render() of type {RenderType(render_type).name} is not ported "
+            "yet (the port's render() covers Silhouette; Depth, Normal and "
+            "RGB come with the training slice)")
+    dt = vertices.dtype
+    dev = vertices.device
+    # x-flip fix (renderer.py:241-243)
+    vertices = vertices * torch.tensor([-1.0, 1.0, 1.0], dtype=dt, device=dev)
+    B = vertices.shape[0]
+    eye = torch.zeros((B, 3), dtype=dt, device=dev)
+    direction = torch.tensor([0.0, 0.0, -1.0], dtype=dt,
+                             device=dev).expand(B, 3)
+    up = torch.tensor([0.0, 1.0, 0.0], dtype=dt, device=dev).expand(B, 3)
+    vertices = camera.look(vertices, eye, direction, up)
+    vertices = camera.perspective_divide(vertices, viewing_angle)
+    if vertex_adjacency is not None:
+        face_verts = camera.vertices_to_faces_adj(vertices, faces,
+                                                  vertex_adjacency)
+    else:
+        face_verts = camera.vertices_to_faces(vertices, faces)
+    if fill_back:
+        ccw = R._frontface(face_verts)                          # [B, F]
+        face_verts = torch.where(ccw[..., None, None], face_verts,
+                                 face_verts.flip(2))
+    a = R.rasterize_silhouettes(face_verts, face_valid, image_size,
+                                anti_aliasing, near, far, eps,
+                                grad_walk=grad_walk)
+    return a[:, None]
 
 
 def project_faces(vertices: torch.Tensor, faces: torch.Tensor,

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card.  Imports no JAX, so it runs where only the port is installed:
+"""The port's CUDA kernels (forward rasterizer, silhouette walk,
+pixel->face reduction) against their plain PyTorch versions, on the card.
+Imports no JAX, so it runs where only the port is installed:
 
-    python -m pytest -m cuda tests/test_torch_cuda.py -q
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Without a card every test here skips (the kernels have no CPU mode).
 """
@@ -48,3 +49,99 @@ def test_rasterize_kernel_matches_plain(cuda, isz):
     assert torch.equal(fi, fi_p)
     assert torch.equal(depth, depth_p)
     assert torch.equal(rgb, rgb_p)
+
+
+def _backward_inputs(dev, isz, seed=0, batch=2, num_faces=37):
+    """Random faces, their forward face index and alpha, a cotangent, and
+    the walk's invariant stacks of both axes, on `dev`."""
+    faces, valid, _ = (torch.from_numpy(a).to(dev)
+                       for a in _faces(seed, batch, num_faces))
+    fi, _ = TC.rasterize_face_index(faces, valid, isz)
+    alpha = (fi >= 0).float()
+    cot = torch.from_numpy(np.random.RandomState(seed + 1).randn(
+        batch, isz, isz).astype(np.float32)).to(dev)
+    pp_px = TR.face_pixel_coords(faces, fi, isz)
+    invs = [TR.edge_invariant_stack(pp_px, fi >= 0, isz, a) for a in (0, 1)]
+    return faces, valid, fi, alpha, cot, invs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("isz,walk", [(128, 24), (128, 128), (100, 64),
+                                      (100, 100)])
+def test_walk_kernel_matches_plain(cuda, isz, walk):
+    """The walk kernel against its plain version on the same card inputs,
+    both axes: bit-equal (same IEEE operations in the same order, built
+    with -fmad=false).  Walks up to 64 run staged in shared memory, longer
+    ones read global memory; 100^2 has ragged tiles."""
+    _, _, _, alpha, cot, invs = _backward_inputs(cuda, isz, seed=isz + walk)
+    for axis in (0, 1):
+        got = TC.walk_grads_cuda(alpha, cot, invs[axis], walk, TR.DEFAULT_EPS,
+                                 axis)
+        want = TR.walk_grads_plain(alpha, cot, invs[axis], walk,
+                                   TR.DEFAULT_EPS, axis)
+        torch.cuda.synchronize()
+        assert want.abs().max() > 0
+        assert torch.equal(got, want), (axis, (got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("isz", [128, 100])
+def test_reduction_kernel_matches_float64(cuda, isz):
+    """The reduction kernel against a float64 segment sum of the same
+    planes: |err| <= 1e-5 * sum of |terms| per face (float32 sums of up to
+    a few hundred terms per lane), and bit-equal across two launches."""
+    faces, valid, fi, _, _, _ = _backward_inputs(cuda, isz, seed=isz)
+    B, F = faces.shape[:2]
+    rng = np.random.RandomState(7)
+    acc_x, acc_y = (torch.from_numpy(rng.randn(B, 3, isz, isz)
+                                     .astype(np.float32)).to(cuda)
+                    for _ in range(2))
+    bbox = TC.pack_faces(faces, valid, isz)[1]
+    got = TC.segment_face_grads_cuda(acc_x, acc_y, fi, bbox)
+    again = TC.segment_face_grads_cuda(acc_x, acc_y, fi, bbox)
+    # the plain version in float64, and the sums of |terms| per face
+    ref = TR.segment_face_grads_plain(acc_x.double(), acc_y.double(), fi, F)
+    mag = TR.segment_face_grads_plain(acc_x.double().abs(),
+                                      acc_y.double().abs(), fi, F).abs()
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert ref.abs().max() > 0
+    assert ((got.double() - ref).abs() <= 1e-5 * mag + 1e-30).all()
+
+
+@pytest.mark.cuda
+def test_silhouette_vjp_kernels_match_plain(cuda):
+    """The silhouette VJP through the kernels against the plain versions
+    composed the same way on the same card: face gradients to 1e-5 of
+    the largest (the walks agree bit for bit; the reduction sums in
+    another order)."""
+    faces, valid, fi, alpha, cot, invs = _backward_inputs(cuda, 128, seed=3)
+    bbox = TC.pack_faces(faces, valid, 128)[1]
+    launches = (TC.walk_grads_cuda.launches,
+                TC.segment_face_grads_cuda.launches)
+    got = TR.silhouette_grad_pixelwise(faces, fi, alpha, cot, 128,
+                                       TR.DEFAULT_EPS, walk=24,
+                                       boxes=bbox)[..., :2]
+    acc_x, acc_y = (TR.walk_grads_plain(alpha, cot, invs[a], 24,
+                                        TR.DEFAULT_EPS, a) for a in (1, 0))
+    want = TR.segment_face_grads_plain(acc_x, acc_y, fi, faces.shape[1]
+                                       ).reshape(got.shape)
+    torch.cuda.synchronize()
+    assert (TC.walk_grads_cuda.launches,
+            TC.segment_face_grads_cuda.launches) == (launches[0] + 2,
+                                                     launches[1] + 1)
+    assert want.abs().max() > 0
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_all_invalid_scene_has_zero_gradients(cuda):
+    """No valid face: empty alpha, and every face gradient exactly 0."""
+    faces, _, _ = (torch.from_numpy(a).to(cuda) for a in _faces(9, 2, 21))
+    faces.requires_grad_(True)
+    valid = torch.zeros(2, 21, dtype=torch.bool, device=cuda)
+    a = TR.rasterize_silhouettes(faces, valid, image_size=64)
+    (g,) = torch.autograd.grad(a.sum(), faces)
+    torch.cuda.synchronize()
+    assert (a == 0).all() and (g == 0).all()

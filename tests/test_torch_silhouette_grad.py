@@ -1,0 +1,319 @@
+"""The port's silhouette gradient (sdn3d_tpu_torch/ops/rasterize.py
+backward, geometry/camera.vertices_to_faces_adj, render/renderer.render)
+against the JAX package's on the same seeded inputs, on the CPU.  The
+CUDA kernels' plain versions are what runs here; tests/test_torch_cuda.py
+holds the kernels against them on the card."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from sdn3d_tpu.data.synthetic import make_sphere_mesh
+from sdn3d_tpu.geometry import camera as JC
+from sdn3d_tpu.geometry.assets import build_mesh_bank
+from sdn3d_tpu.ops import rasterize as JR
+from sdn3d_tpu.ops import rasterize_pallas as JRP
+from sdn3d_tpu.render import RenderType as JRenderType
+from sdn3d_tpu.render import render as j_render
+from sdn3d_tpu_torch.geometry import camera as TCam
+from sdn3d_tpu_torch.ops import rasterize as TR
+from sdn3d_tpu_torch.ops import rasterize_cuda as TC
+from sdn3d_tpu_torch.render.renderer import RenderType, render
+from tests import nmr_oracle as oracle
+
+EPS = TR.DEFAULT_EPS
+
+
+def random_faces(rng, batch=2, num_faces=12, z_range=(1.5, 6.0)):
+    """Random triangles in front of the camera, normalized coords."""
+    xy = rng.uniform(-1.2, 1.2, size=(batch, num_faces, 3, 2))
+    z = rng.uniform(*z_range, size=(batch, num_faces, 3, 1))
+    return np.concatenate([xy, z], axis=-1).astype(np.float32)
+
+
+def _scene(seed, batch, num_faces, isz):
+    """Faces, validity (one invalid face per image), the forward's face
+    index and alpha, and a random cotangent."""
+    rng = np.random.RandomState(seed)
+    faces = random_faces(rng, batch, num_faces)
+    valid = np.ones((batch, num_faces), bool)
+    valid[:, 3] = False
+    fi, _ = TR.rasterize_face_maps(torch.from_numpy(faces),
+                                   torch.from_numpy(valid), isz)
+    alpha = (fi >= 0).float()
+    cot = torch.from_numpy(
+        np.random.RandomState(seed + 1).randn(batch, isz, isz)
+        .astype(np.float32))
+    return faces, valid, fi, alpha, cot
+
+
+def _invariants(faces, fi, isz, axis):
+    """The port's invariant stack for one axis."""
+    pp_px = TR.face_pixel_coords(torch.from_numpy(faces), fi, isz)
+    return TR.edge_invariant_stack(pp_px, fi >= 0, isz, axis)
+
+
+def test_edge_invariants_match_jax():
+    """The 18 invariant planes of both axes against JAX's
+    `_edge_invariants` on the same gathered coordinates.  Equal but for
+    the last ulp of d1_cross and the k factors (XLA's CPU backend fuses
+    slope * (d0 - Au) + Av into an FMA and may divide by a reciprocal):
+    rtol 1e-6; the integer-valued planes (direction, j_gate,
+    is_in_pixel) exactly."""
+    isz = 32
+    faces, _, fi, _, _ = _scene(0, 2, 13, isz)
+    B, F = faces.shape[:2]
+    pp = 0.5 * (jnp.asarray(faces)[..., :2] * isz + isz - 1)
+    hit = np.asarray(fi) >= 0
+    fi_c = np.where(hit, np.asarray(fi), 0)
+    pp_px = jax.vmap(lambda pb, fb: pb[fb])(pp, jnp.asarray(fi_c))
+    yi = jnp.arange(isz, dtype=jnp.float32)[None, :, None]
+    xi = jnp.arange(isz, dtype=jnp.float32)[None, None, :]
+    for axis, (u, v, d0, d1) in enumerate(
+            [(0, 1, xi, yi), (1, 0, yi, xi)]):
+        got = _invariants(faces, fi, isz, axis).numpy()
+        for e in range(3):
+            E = JR._edge_invariants(pp_px[..., u], pp_px[..., v], d0, d1,
+                                    jnp.asarray(hit), isz, axis, e)
+            want = [E["d1_cross"], E["direction"], E["kA"], E["kB"],
+                    E["j_gate"], E["is_in_pixel"].astype(jnp.float32)]
+            for r, w in enumerate(want):
+                w = np.broadcast_to(np.asarray(w), got.shape[:1]
+                                    + got.shape[2:])
+                g = got[:, 6 * e + r]
+                if r in (1, 4, 5):
+                    np.testing.assert_array_equal(g[hit], w[hit])
+                else:
+                    np.testing.assert_allclose(g[hit], w[hit], rtol=1e-6,
+                                               atol=1e-6)
+
+
+@pytest.mark.parametrize("walk", [8, 24])
+def test_walk_plain_matches_pallas_interp(walk):
+    """The port's plain walk (the CUDA walk kernel's plain version) against
+    the TPU kernel `walk_grads_pallas` in interpret mode, as
+    tests/test_rasterize.py runs it, on the same invariant planes, both
+    axes at 128^2 (the TPU kernel walks along dim 1: axis 1 runs on
+    transposed planes).  Bit-equal: the same IEEE operations on both
+    sides, and the zero halo and torch.roll differ only in reads the gates
+    discard."""
+    isz = 128
+    faces, _, fi, alpha, cot = _scene(1, 2, 19, isz)
+    for axis in range(2):
+        inv = _invariants(faces, fi, isz, axis)
+        got = TR.walk_grads_plain(alpha, cot, inv, walk, EPS, axis).numpy()
+        a, g, i = alpha.numpy(), cot.numpy(), inv.numpy()
+        if axis == 1:
+            a, g, i = a.transpose(0, 2, 1), g.transpose(0, 2, 1), \
+                i.transpose(0, 1, 3, 2)
+        want = np.asarray(JRP.walk_grads_pallas(
+            jnp.asarray(a), jnp.asarray(g), jnp.asarray(i), walk, EPS,
+            interpret=True))
+        if axis == 1:
+            want = want.transpose(0, 1, 3, 2)
+        assert np.abs(want).max() > 0
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("walk,impl,isz", [(0, "xla", 48), (8, "xla", 48),
+                                           (8, "pallas", 128)])
+def test_silhouette_grad_matches_jax_xla_loop(walk, impl, isz):
+    """`silhouette_grad_pixelwise` (plain walk + plain reduction) against
+    JAX's `_silhouette_grad_pixelwise` on the same face index, with its
+    XLA roll loop (walk 0, exact, and 8) and with the TPU walk kernel in
+    interpret mode (walk 8; it needs a multiple of 128).  rtol 1e-5 on
+    the face gradients: the walks agree bit for bit (previous test); the
+    pixel->face sums may add in another order."""
+    faces, valid, fi, alpha, cot = _scene(2, 2, 17, isz)
+    got = TR.silhouette_grad_pixelwise(
+        torch.from_numpy(faces), fi, alpha, cot, isz, EPS, walk=walk).numpy()
+    want = np.asarray(JR._silhouette_grad_pixelwise(
+        jnp.asarray(faces), jnp.asarray(valid), jnp.asarray(fi.numpy()),
+        jnp.asarray(alpha.numpy()), jnp.asarray(cot.numpy()), isz, EPS,
+        walk=walk, force_walk_impl=impl))
+    assert np.abs(want).max() > 0
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-6 * np.abs(want).max())
+    assert (got[..., 2] == 0).all() and (got[:, 3] == 0).all()
+
+
+def test_reduction_plain_matches_pallas_and_numpy():
+    """The plain pixel->face reduction (the CUDA reduction kernel's plain
+    version) against `segment_face_grads_pallas` in interpret mode and a
+    numpy add.at, on random planes (tests/test_rasterize.py:260-285).
+    rtol/atol 1e-4: the three sum in different orders."""
+    B, F, isz = 2, 53, 128
+    rng = np.random.RandomState(4)
+    faces = random_faces(rng, B, F)
+    fi, _ = TR.rasterize_face_maps(torch.from_numpy(faces), None, isz)
+    acc_x = rng.randn(B, 3, isz, isz).astype(np.float32)
+    acc_y = rng.randn(B, 3, isz, isz).astype(np.float32)
+    got = TR.segment_face_grads_plain(torch.from_numpy(acc_x),
+                                      torch.from_numpy(acc_y), fi, F).numpy()
+    planes = [-p for v in range(3) for p in (acc_x[:, v], acc_y[:, v])]
+    acc8 = np.stack(planes + [np.zeros_like(acc_x[:, 0])] * 2, axis=1)
+    aux, cb = JRP.pack_seg_aux(jnp.asarray(faces), isz)
+    pallas = np.asarray(JRP.segment_face_grads_pallas(
+        jnp.asarray(acc8), jnp.asarray(fi.numpy()), aux, cb, isz,
+        interpret=True))[:, :F, :6]
+    hit = fi.numpy() >= 0
+    seg = (np.where(hit, fi.numpy(), 0) + np.arange(B)[:, None, None] * F
+           ).reshape(-1)
+    ref = np.zeros((B * F, 6), np.float64)
+    for c in range(6):
+        np.add.at(ref[:, c], seg, np.where(hit, planes[c], 0.0).reshape(-1))
+    ref = ref.reshape(B, F, 6)
+    assert np.abs(ref).max() > 0
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, pallas, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("walk", [0, 8])
+def test_silhouette_vjp_matches_jax(walk):
+    """SilhouetteFn (forward rasterizer + backward) against `jax.vjp` of
+    `_make_silhouette_fn`: alpha equal; face gradients to rtol 1e-5 (the
+    same arithmetic; reduction order may differ)."""
+    isz = 40
+    faces, valid, _, _, cot = _scene(5, 2, 19, isz)
+    sil = JR._make_silhouette_fn(isz, TR.DEFAULT_NEAR, TR.DEFAULT_FAR, EPS,
+                                 walk)
+    a_j, vjp = jax.vjp(lambda f: sil(f, jnp.asarray(valid)),
+                       jnp.asarray(faces))
+    (g_j,) = vjp(jnp.asarray(cot.numpy()))
+    ft = torch.from_numpy(faces).requires_grad_(True)
+    a_t = TR.SilhouetteFn.apply(ft, torch.from_numpy(valid), isz,
+                                TR.DEFAULT_NEAR, TR.DEFAULT_FAR, EPS, walk)
+    (g_t,) = torch.autograd.grad(a_t, ft, cot)
+    np.testing.assert_array_equal(a_t.detach().numpy(), np.asarray(a_j))
+    g_j = np.asarray(g_j)
+    assert np.abs(g_j).max() > 0
+    np.testing.assert_allclose(g_t.numpy(), g_j, rtol=1e-5,
+                               atol=1e-6 * np.abs(g_j).max())
+
+
+def test_silhouette_vjp_matches_nmr_oracle():
+    """Against the loop-based numpy oracle of the reference's CUDA
+    backward (tests/nmr_oracle.py), exact walk; rtol/atol 1e-3 as
+    tests/test_rasterize.py gives the JAX package (the oracle sums in
+    float64)."""
+    faces = random_faces(np.random.RandomState(3), batch=1, num_faces=5)
+    isz = 16
+    cot = np.random.RandomState(1).randn(1, isz, isz).astype(np.float32)
+    ft = torch.from_numpy(faces).requires_grad_(True)
+    a = TR.SilhouetteFn.apply(ft, torch.ones(1, 5, dtype=torch.bool), isz,
+                              TR.DEFAULT_NEAR, TR.DEFAULT_FAR, EPS, 0)
+    (g,) = torch.autograd.grad(a, ft, torch.from_numpy(cot))
+    fi_o, _, _, _ = oracle.forward_maps(faces, image_size=isz)
+    alpha_o = (fi_o >= 0).astype(np.float32)
+    np.testing.assert_array_equal(a.detach().numpy(), alpha_o)
+    g_o = oracle.silhouette_backward(faces, fi_o, alpha_o, cot,
+                                     image_size=isz, eps=EPS)
+    assert np.abs(g_o).max() > 0
+    np.testing.assert_allclose(g.numpy(), g_o, rtol=1e-3, atol=1e-3)
+
+
+def _mesh_batch(batch=2, seed=0):
+    """Posed spheres (make_sphere_mesh(4, 8)) in front of the camera, with
+    the bank's adjacency table."""
+    v, f = make_sphere_mesh(4, 8)
+    bank = build_mesh_bank([(v, f)])
+    rng = np.random.RandomState(seed)
+    verts = np.stack([bank.vertices[0] * rng.uniform(1.0, 2.0, 3)
+                      + [rng.uniform(-.2, .2), rng.uniform(-.2, .2),
+                         -rng.uniform(2.2, 3.0)]
+                      for _ in range(batch)]).astype(np.float32)
+    faces = np.repeat(bank.faces, batch, 0)
+    valid = np.repeat(bank.face_valid, batch, 0)
+    adj = np.repeat(bank.adjacency, batch, 0)
+    return verts, faces, valid, adj
+
+
+@pytest.mark.parametrize("fill_back", [False, True])
+def test_vertices_to_faces_adj_backward_matches_jax(fill_back):
+    """The gather-over-adjacency backward against JAX's custom VJP (and
+    the forward against the plain gather).  rtol 1e-6: the per-vertex sum
+    over its faces may add in another order."""
+    verts, faces, _, adj = _mesh_batch()
+    if fill_back:
+        faces = np.concatenate([faces, faces[:, :, ::-1]], axis=1)
+    cot = np.random.RandomState(3).randn(*faces.shape, 3).astype(np.float32)
+    fv_j, vjp = jax.vjp(lambda v: JC.vertices_to_faces_adj(
+        v, jnp.asarray(faces), jnp.asarray(adj), fill_back),
+        jnp.asarray(verts))
+    (g_j,) = vjp(jnp.asarray(cot))
+    vt = torch.from_numpy(verts).requires_grad_(True)
+    fv_t = TCam.vertices_to_faces_adj(vt, torch.from_numpy(faces),
+                                      torch.from_numpy(adj), fill_back)
+    (g_t,) = torch.autograd.grad(fv_t, vt, torch.from_numpy(cot))
+    np.testing.assert_array_equal(fv_t.detach().numpy(), np.asarray(fv_j))
+    np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("grad_walk,aa", [(0, True), (8, False)])
+def test_render_silhouette_and_grad_match_jax(grad_walk, aa):
+    """render(..., Silhouette, vertex_adjacency=...) and its gradient in
+    the vertices against JAX's render at 32^2 with per-image viewing
+    angles.  Silhouettes equal; vertex gradients to rtol 1e-4 of their
+    largest value (the camera and perspective arithmetic differ from XLA's
+    CPU code by an ulp, which moves a walk term by as much)."""
+    verts, faces, valid, adj = _mesh_batch(seed=1)
+    ang = np.asarray([27.0, 31.0], np.float32)
+    cot = np.random.RandomState(2).randn(2, 1, 32, 32).astype(np.float32)
+    kw = dict(image_size=32, anti_aliasing=aa, grad_walk=grad_walk)
+
+    def j_fn(v):
+        return j_render(v, jnp.asarray(faces), JRenderType.Silhouette,
+                        jnp.asarray(valid), viewing_angle=jnp.asarray(ang),
+                        vertex_adjacency=jnp.asarray(adj), **kw)
+
+    s_j, vjp = jax.vjp(j_fn, jnp.asarray(verts))
+    (g_j,) = vjp(jnp.asarray(cot))
+    vt = torch.from_numpy(verts).requires_grad_(True)
+    s_t = render(vt, torch.from_numpy(faces), RenderType.Silhouette,
+                 torch.from_numpy(valid), viewing_angle=torch.from_numpy(ang),
+                 vertex_adjacency=torch.from_numpy(adj), **kw)
+    (g_t,) = torch.autograd.grad(s_t, vt, torch.from_numpy(cot))
+    assert s_t.shape == (2, 1, 32, 32) and 0.05 < float(s_t.detach().mean()) < 0.95
+    np.testing.assert_array_equal(s_t.detach().numpy(), np.asarray(s_j))
+    g_j = np.asarray(g_j)
+    assert np.abs(g_j).max() > 0
+    np.testing.assert_allclose(g_t.numpy(), g_j, rtol=1e-4,
+                               atol=1e-4 * np.abs(g_j).max())
+
+
+def test_render_other_types_not_ported():
+    verts, faces, _, _ = _mesh_batch()
+    for t in (RenderType.Depth, RenderType.Normal, RenderType.RGB):
+        with pytest.raises(NotImplementedError):
+            render(torch.from_numpy(verts), torch.from_numpy(faces), t)
+
+
+def test_backward_wrappers_dispatch_cpu_to_plain():
+    """On CPU tensors the walk and reduction wrappers run the plain
+    versions and count no kernel launch; the kernel launchers refuse CPU
+    tensors."""
+    isz = 24
+    faces, valid, fi, alpha, cot = _scene(6, 1, 9, isz)
+    inv = _invariants(faces, fi, isz, 0)
+    calls = (TR.walk_grads_plain.calls, TR.segment_face_grads_plain.calls)
+    launches = (TC.walk_grads_cuda.launches,
+                TC.segment_face_grads_cuda.launches)
+    acc = TC.walk_grads(alpha, cot, inv, 4, EPS, 0)
+    g = TC.segment_face_grads(acc, acc, fi, faces.shape[1])
+    assert TC.rasterize_face_index(torch.from_numpy(faces),
+                                   torch.from_numpy(valid), isz,
+                                   boxes=True)[2] is None
+    assert acc.shape == (1, 3, isz, isz) and g.shape == (1, 9, 6)
+    assert (TR.walk_grads_plain.calls, TR.segment_face_grads_plain.calls) \
+        == (calls[0] + 1, calls[1] + 1)
+    assert (TC.walk_grads_cuda.launches,
+            TC.segment_face_grads_cuda.launches) == launches
+    with pytest.raises(ValueError):
+        TC.walk_grads_cuda(alpha, cot, inv, 4, EPS, 0)
+    with pytest.raises(ValueError):
+        TC.segment_face_grads_cuda(acc, acc, fi, torch.zeros(1, 9, 4,
+                                                             dtype=torch.int32))
