@@ -9,30 +9,36 @@ Phases, each of which must pass (any failure exits non-zero):
      silhouette_walk.cu, segment_face_grads.cu) from source, one nvcc each,
      all started together;
   3. kernels vs plain: the forward rasterizer against its plain PyTorch
-     version on the card (2 x 37 random faces at 128^2; 2 images at 768^2
-     of a ~4k-face mesh, with and without colours): face index and colours
-     equal, depth bit-equal; then the silhouette VJP of the 128^2 faces:
-     walk accumulators bit-equal to the plain walk (windows 24 and 128),
-     the reduction within 1e-5 of |terms| of a float64 sum and bit-equal
-     across two launches;
+     version on the card (2 x 37 random faces at 128^2, and at 144^2 with
+     a whole-image sliver on the wide list; 2 images at 768^2 of a
+     ~4k-face mesh, with and without colours): face index and colours
+     equal, depth bit-equal; the bin kernels' boxes equal pack_faces'
+     boxes and their lists, as sets, the plain bin lists; then the
+     silhouette VJP of the 128^2 faces: walk accumulators bit-equal to
+     the plain walk (windows 24 and 128), the reduction's boxes equal to
+     won_pixel_boxes, its sums within 1e-5 of |terms| of a float64 sum and
+     bit-equal across two launches;
   4. main path: cli/geometric_main.main --source gt over three synthetic
      375x1242 frames (5, 11, 16 cars) with a two-item edit JSON, at the CLI
      defaults (16 slots, render_size 384 -> 768^2 rasterization) with
      random derenderer weights and 8 synthetic ~40k-face meshes in the
      ShapeNet directory layout; checks the five output files per item, the
-     kernel's launch count and that the plain rasterizer never ran; prints
-     steady-state per-phase times;
+     forward's launch counts (bin and raster kernels) and that the plain
+     rasterizer never ran; prints steady-state per-phase times;
   4b. refinement path: the same with --num_opts 10 (silhouette refinement,
-     walk window 64): the three kernels' launch counts (>= num_opts per
-     refined item), no plain version run, the refine loss of the real
-     objects (silhouette and reg terms) at the first and last step (the
-     silhouette term's mean over items must fall), and the steady-state
-     geo.refine time;
+     walk window 64): the kernels' launch counts (>= num_opts per refined
+     item; the reduction's box pass with each reduction), no plain version
+     run, the refine loss of the real objects (silhouette and reg terms)
+     at the first and last step (the silhouette term's mean over items
+     must fall), and the steady-state geo.refine time;
   5. kernels vs plain at the main paths' own inputs (the last forward of
      phase 4, the last refine step's backward of 4b): equality as in 3, the
      kernels' and plain versions' times, each kernel's bound, the walk
-     against its global-memory build (no shared-memory staging), and for
-     the reduction the time of one index_add_ computing the same sums;
+     against its global-memory build (no shared-memory staging); for the
+     forward the pre-pass, bin and raster times beside the wrapper's, the
+     face-tile pairs, the longest tile list and the wide lists; for the
+     reduction the box pass's time, box pixels per won pixel, and the time
+     of one index_add_ computing the same sums;
   6. profile: one 16-car frame, unrefined and refined: wall time, device
      busy time and idle share, and device time by kernel (torch.profiler);
   7. reference: the port's CUDA path against its CPU path on a small input,
@@ -99,7 +105,7 @@ def compare(TC, TR, faces, valid, isz, colors):
     and colours are equal and depth bit-equal.  Returns (max |depth
     diff|, covered pixels, the plain version's ms on the card)."""
     import torch
-    got = TC.rasterize_face_index(faces, valid, isz, colors=colors)
+    got = TC.rasterize_face_index_cuda(faces, valid, isz, colors=colors)
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -117,6 +123,58 @@ def compare(TC, TR, faces, valid, isz, colors):
     if colors is not None and not torch.equal(got[2], rgb_p):
         raise AssertionError("kernel colours != plain gather")
     return err, int((fi_p >= 0).sum()), t0.elapsed_time(t1)
+
+
+def whole_image_sliver(TC, isz: int):
+    """xy [3, 2] of a front-facing, non-degenerate sliver across the image
+    whose pack_faces box is the whole image (its cross product's lower
+    bound is <= 0)."""
+    import torch
+    a = torch.tensor([-0.9, -0.8])
+    c = torch.tensor([0.9, 0.85])
+    whole = torch.tensor([0, isz - 1, 0, isz - 1], dtype=torch.int32)
+    for off in (1e-7, 2e-7, 4e-7, 8e-7):
+        m = (a + c) / 2 + off
+        for tri in ((a, m, c), (a, c, m)):
+            xy = torch.stack(tri)
+            face = torch.cat([xy, torch.full((3, 1), 3.0)], 1)[None, None]
+            if torch.equal(TC.pack_faces(face, None, isz)[1][0, 0], whole):
+                return xy
+    raise AssertionError("no whole-image sliver found")
+
+
+def check_bins(TC, faces, valid, isz: int, lists: bool):
+    """The bin kernels against pack_faces' boxes (exact) and, with
+    `lists`, against the plain bin lists read as sets.  Returns the
+    kernel's Bins."""
+    import torch
+    rec, box = TC.pack_faces(faces, valid, isz)
+    got = TC.bin_faces_cuda(rec, isz)
+    torch.cuda.synchronize()
+    if not torch.equal(got.box, box):
+        raise AssertionError(f"bin kernel boxes != pack_faces boxes at "
+                             f"{tuple(faces.shape)} {isz}^2: "
+                             f"{int((got.box != box).any(-1).sum())} faces")
+    if lists:
+        want = TC.bin_faces_plain(box, isz)
+        if not torch.equal(got.tile_off, want.tile_off) \
+                or not torch.equal(got.wide_n, want.wide_n):
+            raise AssertionError("bin kernel list lengths != plain")
+        F = faces.shape[1]
+        for b in range(faces.shape[0]):
+            off = got.tile_off[b].long()
+            tid = torch.repeat_interleave(
+                torch.arange(len(off) - 1, device=off.device),
+                off[1:] - off[:-1])
+            n, w = int(off[-1]), int(got.wide_n[b])
+            # the plain lists run by (tile, face): sort the kernel's so
+            key = torch.sort(tid * F + got.tile_faces[b, :n].long())[0]
+            wide = torch.sort(got.wide_faces[b, :w])[0]
+            if not torch.equal(key, tid * F + want.tile_faces[b, :n].long()) \
+                    or not torch.equal(wide, want.wide_faces[b, :w]):
+                raise AssertionError(f"bin kernel lists != plain lists "
+                                     f"(image {b})")
+    return got
 
 
 def car_mesh(seed: int, n_theta: int, n_phi: int):
@@ -302,19 +360,24 @@ def check_walk(TC, TR, alpha, cot, invs, walk: int, eps: float) -> float:
     return err
 
 
-def check_reduction(TC, TR, acc_x, acc_y, fi, bbox) -> float:
-    """The reduction kernel against a float64 segment sum of the same
-    planes: |err| <= 1e-5 * sum of |terms| per face, and bit-equal across
-    two launches.  Returns the max |kernel - float64|."""
+def check_reduction(TC, TR, acc_x, acc_y, fi, F: int) -> float:
+    """The reduction kernels against their plain versions: the box pass
+    equal to won_pixel_boxes, the sums against a float64 segment sum of
+    the same planes, |err| <= 1e-5 * sum of |terms| per face, and
+    bit-equal across two launches.  Returns the max |kernel - float64|."""
     import torch
-    F = bbox.shape[1]
-    got = TC.segment_face_grads_cuda(acc_x, acc_y, fi, bbox)
-    again = TC.segment_face_grads_cuda(acc_x, acc_y, fi, bbox)
+    box = TC.won_pixel_boxes_cuda(fi, F)
+    got = TC.segment_face_grads_cuda(acc_x, acc_y, fi, F)
+    again = TC.segment_face_grads_cuda(acc_x, acc_y, fi, F)
     ref = TR.segment_face_grads_plain(acc_x.double(), acc_y.double(), fi, F)
     mag = TR.segment_face_grads_plain(acc_x.double().abs(),
                                       acc_y.double().abs(), fi, F).abs()
+    box_p = TR.won_pixel_boxes(fi, F)
     torch.cuda.synchronize()
     err = (got.double() - ref).abs()
+    if not torch.equal(box, box_p):
+        raise AssertionError(f"box pass != won_pixel_boxes: "
+                             f"{int((box != box_p).any(-1).sum())} faces")
     if not torch.equal(got, again):
         raise AssertionError("reduction kernel differs between two launches")
     if not (err <= 1e-5 * mag + 1e-30).all():
@@ -342,7 +405,7 @@ def walk_variant_ms(TC, alpha, cot, invs, walk: int, eps: float):
                         os.path.join(TC.CSRC_DIR, "silhouette_walk.cu")],
                        check=True, capture_output=True, timeout=300)
         fn = ctypes.CDLL(lib).sdn3d_walk_grads
-    fn.argtypes = TC._ENTRY["silhouette_walk"][1]
+    fn.argtypes = TC._ENTRY["silhouette_walk"]["sdn3d_walk_grads"]
     fn.restype = ctypes.c_int
 
     def run(variant, a):
@@ -443,6 +506,23 @@ def main(argv=None) -> int:
                         colors.to(dev))
     max_err = max(max_err, err)
     log("[kernel] 2x37 random faces @128^2: equal")
+    # the wide list: at 144^2 (9 x 9 tiles, more than K = 64) a
+    # whole-image sliver in face 6 and the largest random faces go there
+    wfaces = faces.clone()
+    wfaces[:, 6, :, :2] = whole_image_sliver(TC, 144)
+    wfaces, wvalid = wfaces.to(dev), valid.to(dev)
+    err, _, _ = compare(TC, TR, wfaces, wvalid, 144, colors.to(dev))
+    max_err = max(max_err, err)
+    bins = check_bins(TC, wfaces, wvalid, 144, lists=True)
+    n_wide, n_listed = int(bins.wide_n.sum()), int(bins.tile_off[:, -1].sum())
+    sliver_wide = all(6 in bins.wide_faces[b, :int(bins.wide_n[b])].tolist()
+                      for b in range(2))
+    if not sliver_wide or n_listed == 0:
+        raise AssertionError(f"wide-list case: sliver on the wide lists "
+                             f"{sliver_wide}, {n_listed} tile entries")
+    log(f"[kernel] 2x37 faces with a whole-image sliver @144^2: "
+        f"equal; bin boxes == pack_faces boxes, lists == plain lists as "
+        f"sets ({n_wide} wide faces, {n_listed} tile entries)")
 
     # the silhouette VJP of the same faces, kernels against plain versions
     sf, sv = faces.to(dev), valid.to(dev)
@@ -454,10 +534,9 @@ def main(argv=None) -> int:
                    for w in (24, 128))
     sacc = [TC.walk_grads_cuda(salpha, scot, sinvs[a], 24, eps, a)
             for a in (1, 0)]                                # x, y planes
-    sbox = TC.pack_faces(sf, sv, 128)[1]
-    red_err = check_reduction(TC, TR, sacc[0], sacc[1], sfi, sbox)
+    red_err = check_reduction(TC, TR, sacc[0], sacc[1], sfi, sf.shape[1])
     g_k = TR.silhouette_grad_pixelwise(sf, sfi, salpha, scot, 128, eps,
-                                       walk=24, boxes=sbox)[..., :2]
+                                       walk=24)[..., :2]
     # the plain versions composed as silhouette_grad_pixelwise composes
     # the kernels
     pacc = [TR.walk_grads_plain(salpha, scot, sinvs[a], 24, eps, a)
@@ -469,7 +548,8 @@ def main(argv=None) -> int:
             g_k).all():
         raise AssertionError(f"silhouette VJP kernels vs plain: {g_err}")
     log(f"[kernel] silhouette VJP of 2x37 faces @128^2: walk bit-equal "
-        f"(windows 24, 128); reduction max err vs float64 {red_err:.3e}; "
+        f"(windows 24, 128); reduction boxes == won_pixel_boxes, max err "
+        f"vs float64 {red_err:.3e}; "
         f"face grads max diff {g_err:.3e} (max |g| "
         f"{float(g_p.abs().max()):.4g})")
 
@@ -492,6 +572,11 @@ def main(argv=None) -> int:
         log(f"[kernel] 2 x {fv.shape[1]} faces @768^2 "
             f"{'with' if c is not None else 'without'} colours: equal "
             f"({hits} covered pixels)")
+    bins = check_bins(TC, fv, fvalid, 768, lists=True)
+    log(f"[kernel] 2 x {fv.shape[1]} faces @768^2: bin boxes == pack_faces "
+        f"boxes, lists == plain lists as sets "
+        f"({int(bins.tile_off[:, -1].sum())} face-tile pairs, "
+        f"{int(bins.wide_n.sum())} wide faces)")
 
     # -- 4. main path -------------------------------------------------------
     from sdn3d_tpu_torch.cli import geometric_main
@@ -504,12 +589,11 @@ def main(argv=None) -> int:
     dispatch = TC.rasterize_face_index
 
     def recording(faces, face_valid, image_size, near=TR.DEFAULT_NEAR,
-                  far=TR.DEFAULT_FAR, colors=None, boxes=False):
+                  far=TR.DEFAULT_FAR, colors=None):
         captured.update(faces=faces.clone(), valid=face_valid.clone(),
                         size=image_size,
                         colors=None if colors is None else colors.clone())
-        return dispatch(faces, face_valid, image_size, near, far, colors,
-                        boxes)
+        return dispatch(faces, face_valid, image_size, near, far, colors)
 
     # the refine path's last backward inputs: references, not copies (each
     # call's tensors are fresh and never written after)
@@ -523,9 +607,9 @@ def main(argv=None) -> int:
                    "walk": n_steps})
         return walk_dispatch(alpha, grad_alpha, inv, n_steps, eps_, axis)
 
-    def seg_recording(acc_x, acc_y, face_index, num_faces, boxes=None):
-        bw.update(acc_x=acc_x, acc_y=acc_y, fi=face_index, boxes=boxes)
-        return seg_dispatch(acc_x, acc_y, face_index, num_faces, boxes)
+    def seg_recording(acc_x, acc_y, face_index, num_faces):
+        bw.update(acc_x=acc_x, acc_y=acc_y, fi=face_index, F=num_faces)
+        return seg_dispatch(acc_x, acc_y, face_index, num_faces)
 
     def refine_recording(blob, bank, masks, ignores, cfg, trace=None):
         steps = []
@@ -538,9 +622,16 @@ def main(argv=None) -> int:
         return (TR.rasterize_face_maps.calls, TR.walk_grads_plain.calls,
                 TR.segment_face_grads_plain.calls)
 
+    # the forward's two kernels and the reduction's box pass, which their
+    # wrappers launch with each forward and each reduction
+    inner = (TC.bin_faces_cuda, TC.raster_binned_cuda, TC.won_pixel_boxes_cuda)
+
     def kernel_counts():
         return (launch.launches, TC.walk_grads_cuda.launches,
                 TC.segment_face_grads_cuda.launches)
+
+    def inner_counts():
+        return tuple(fn.launches for fn in inner)
 
     def drive(frames, shapenet, tmp, extra, tag):
         """geometric_main over the frames; counts set to 0 just before and
@@ -550,6 +641,8 @@ def main(argv=None) -> int:
         launch.launches = 0
         TC.walk_grads_cuda.launches = 0
         TC.segment_face_grads_cuda.launches = 0
+        for fn in inner:
+            fn.launches = 0
         TR.rasterize_face_maps.calls = 0
         TR.walk_grads_plain.calls = 0
         TR.segment_face_grads_plain.calls = 0
@@ -565,6 +658,10 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts, plain = kernel_counts(), plain_counts()
+        if inner_counts() != (counts[0], counts[0], counts[2]):
+            raise AssertionError(f"{tag}: bin / raster / box-pass launches "
+                                 f"{inner_counts()} for {counts[0]} forwards "
+                                 f"and {counts[2]} reductions")
         snap = phases.snapshot()
         phases.reset(False)
         for name, rec in snap.items():
@@ -637,9 +734,32 @@ def main(argv=None) -> int:
                       captured["colors"])
     err, hits, plain_ms = compare(TC, TR, cf, cv, cs, cc)
     max_err = max(max_err, err)
+    bins = check_bins(TC, cf, cv, cs, lists=False)
     log(f"[kernel] main-path inputs {tuple(cf.shape)} @{cs}^2: equal "
-        f"({hits} covered pixels)")
+        f"({hits} covered pixels); bin boxes == pack_faces boxes")
+    # the wrapper (pre-pass, bin, raster) and its parts
+    rec = TC.face_records(cf, cv, cs)
     ms = cuda_ms(lambda: launch(cf, cv, cs, colors=cc), iters=20, warmup=3)
+    # the host's time to enqueue one wrapper call: at or above the device
+    # time, the wrapper is bound by its launches on the host
+    t0 = time.perf_counter()
+    for _ in range(20):
+        launch(cf, cv, cs, colors=cc)
+    host_ms = (time.perf_counter() - t0) * 1e3 / 20
+    torch.cuda.synchronize()
+    pre_ms = cuda_ms(lambda: TC.face_records(cf, cv, cs), iters=20, warmup=3)
+    bin_ms = cuda_ms(lambda: TC.bin_faces_cuda(rec, cs), iters=20, warmup=3)
+    raster_ms = cuda_ms(lambda: TC.raster_binned_cuda(rec, bins, cs,
+                                                      colors=cc),
+                        iters=20, warmup=3)
+    lens = bins.tile_off[:, 1:] - bins.tile_off[:, :-1]
+    log(f"[kernel] forward parts: pre-pass (face_records) {pre_ms:.4f} ms, "
+        f"bin {bin_ms:.4f} ms, raster {raster_ms:.4f} ms, wrapper {ms:.4f} "
+        f"ms (host enqueue {host_ms:.4f} ms a call); {int(bins.tile_off[:, -1].sum())} face-tile pairs, longest "
+        f"tile list {int(lens.max())}, mean non-empty list "
+        f"{float(lens[lens > 0].float().mean()):.1f}, wide faces "
+        f"{int(bins.wide_n.sum())} (most in one image "
+        f"{int(bins.wide_n.max())}), K = {TC.MAX_TILES} ({card})")
     # bound: bytes (inputs read once, outputs written once) and the edge
     # tests of every (face, pixel) pair inside the faces' pixel boxes
     B, F = cf.shape[:2]
@@ -661,13 +781,13 @@ def main(argv=None) -> int:
     alpha, cot, W = bw["alpha"], bw["cot"], bw["walk"]
     invs = [bw["inv0"], bw["inv1"]]
     walk_err = max(walk_err, check_walk(TC, TR, alpha, cot, invs, W, eps))
-    bbox = bw["boxes"]
     path_err = check_reduction(TC, TR, bw["acc_x"], bw["acc_y"], bw["fi"],
-                               bbox)
+                               bw["F"])
     red_err = max(red_err, path_err)
     log(f"[kernel] refine-path backward {tuple(alpha.shape)}, walk {W}: walk "
-        f"bit-equal; reduction within 1e-5 of |terms| of float64, max err "
-        f"{path_err:.3e}, bit-equal across launches")
+        f"bit-equal; reduction boxes == won_pixel_boxes, sums within 1e-5 "
+        f"of |terms| of float64, max err {path_err:.3e}, bit-equal across "
+        f"launches")
 
     def both_axes(fn):
         return lambda: [fn(a) for a in (0, 1)]
@@ -692,10 +812,8 @@ def main(argv=None) -> int:
         f"bit-equal, ms per launch (axis 0, axis 1; staged, global, global, "
         f"staged): staged {stag_ms}, global-memory {glob_ms} ({card})")
 
-    ax, ay, sfi_m = bw["acc_x"], bw["acc_y"], bw["fi"]
-    Bm, Fm = bbox.shape[:2]
-    red_ms = cuda_ms(lambda: TC.segment_face_grads_cuda(ax, ay, sfi_m, bbox),
-                     iters=20, warmup=3)
+    ax, ay, sfi_m, Fm = bw["acc_x"], bw["acc_y"], bw["fi"], bw["F"]
+    Bm = sfi_m.shape[0]
     red_plain_ms = cuda_ms(lambda: TR.segment_face_grads_plain(
         ax, ay, sfi_m, Fm), iters=3, warmup=1)
     hit = sfi_m >= 0
@@ -704,8 +822,18 @@ def main(argv=None) -> int:
     rows = torch.where(hit[:, None], -torch.stack(
         [p for v in range(3) for p in (ax[:, v], ay[:, v])], 1), 0.0)
     rows = rows.permute(0, 2, 3, 1).reshape(-1, 6).contiguous()
-    lib_ms = cuda_ms(lambda: torch.zeros(Bm * Fm, 6, device=dev).index_add_(
-        0, seg, rows), iters=20, warmup=3)
+    # the kernels (box pass included) and index_add_ in turns
+    runs = {"kernel": [], "index_add_": []}
+    for which in ("kernel", "index_add_", "index_add_", "kernel"):
+        fn = ((lambda: TC.segment_face_grads_cuda(ax, ay, sfi_m, Fm))
+              if which == "kernel" else
+              (lambda: torch.zeros(Bm * Fm, 6, device=dev).index_add_(
+                  0, seg, rows)))
+        runs[which].append(cuda_ms(fn, iters=20, warmup=3))
+    red_ms = sum(runs["kernel"]) / 2
+    lib_ms = sum(runs["index_add_"]) / 2
+    box_ms = cuda_ms(lambda: TC.won_pixel_boxes_cuda(sfi_m, Fm), iters=20,
+                     warmup=3)
     # bytes the function needs: the face index of every pixel, the six
     # planes of the won pixels only, the sums written once per face
     n_won = int(hit.sum())
@@ -714,14 +842,18 @@ def main(argv=None) -> int:
     red_bound_ms, red_bound_by = max(
         (r_bytes / H100_HBM_BYTES_PER_S * 1e3, "bytes"),
         (r_ops / H100_FP32_FLOPS * 1e3, "operations"))
-    box = bbox.float()
+    box = TC.won_pixel_boxes_cuda(sfi_m, Fm).float()
     box_px = float(((box[..., 1] - box[..., 0] + 1).clamp(min=0)
                     * (box[..., 3] - box[..., 2] + 1).clamp(min=0)).sum())
-    log(f"[kernel] reduction: {red_ms:.4f} ms/launch, plain "
-        f"{red_plain_ms:.3f} ms, index_add_ {lib_ms:.4f} ms; bound "
+    log(f"[kernel] reduction: {red_ms:.4f} ms/launch with its box pass "
+        f"({box_ms:.4f} ms), in turns with index_add_ (kernel, index_add_, "
+        f"index_add_, kernel: {runs['kernel'][0]:.4f}, "
+        f"{runs['index_add_'][0]:.4f}, {runs['index_add_'][1]:.4f}, "
+        f"{runs['kernel'][1]:.4f} ms), faster than index_add_: "
+        f"{red_ms < lib_ms}; plain {red_plain_ms:.3f} ms; bound "
         f"{red_bound_ms:.4f} ms by {red_bound_by} ({r_bytes} B); pixels in "
-        f"the faces' boxes {box_px:.0f}, won pixels {n_won} "
-        f"({card})")
+        f"the won-pixel boxes {box_px:.0f}, won pixels {n_won}, "
+        f"{box_px / max(n_won, 1):.3f} box pixels per won pixel ({card})")
 
     # -- 7. reference: CUDA path vs CPU path on a small input ---------------
     from sdn3d_tpu_torch.data.synthetic import make_sphere_mesh

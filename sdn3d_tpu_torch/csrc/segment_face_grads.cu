@@ -10,21 +10,38 @@
 //   out[b, f, 2v + c] = sum over pixels p with face_index[b, p] == f of
 //                       -acc_c[b, v, p],   c = 0: x (acc_x), 1: y (acc_y).
 //
-// One warp per (image, face).  The face's pixel box comes from the forward
-// rasterizer's pre-pass (`pack_faces`): it is proven to hold every pixel
-// the face can win, so no pixel is lost.  The lanes stride the box's
-// pixels in row-major order, each keeping six running sums of the pixels
-// whose face index is f, and a fixed xor-shuffle tree adds the 32 lanes.
-// Every face's sum is taken in the same order on every launch: the result
-// is deterministic, with no atomics.  The order differs from the plain
-// version's (pixel order), so the two agree to float32 rounding of the
-// sums, not bit for bit.
+// Two kernels, launched one after the other by the same wrapper:
 //
-// What bounds it on the H100: bytes.  Each pixel's face index and the six
-// planes are needed once; the kernel reads each box's face indices and,
-// where the face wins, its six planes.  Boxes overlap (a pixel lies in the
-// boxes of its neighbouring faces too) and widened boxes of slivers are
-// large, which is what a tighter box would cut (later work).
+//   won_box_kernel  one thread per pixel: where the pixel's face is f, it
+//                   widens f's box (x_lo, x_hi, y_lo, y_hi), which the
+//                   wrapper fills with (S, -1, S, -1), by integer atomicMin /
+//                   atomicMax.  A thread only touches an edge of the box its
+//                   neighbour on that side cannot set (the neighbour has
+//                   another face or lies outside the image), so the atomics
+//                   come from the boundary pixels of each face's region.
+//                   Integer min and max commute: the boxes are the same on
+//                   every launch whatever the atomics' order.  The plain
+//                   version of this pass is `won_pixel_boxes`.
+//   segment_kernel  one warp per (image, face) over the face's exact box of
+//                   won pixels: the lanes stride the box's pixels in
+//                   row-major order, each keeping six running sums of the
+//                   pixels whose face index is f, and a fixed xor-shuffle
+//                   tree adds the 32 lanes.  Every face's sum is taken in
+//                   the same order on every launch: the result is
+//                   deterministic.  The order differs from the plain
+//                   version's (pixel order), so the two agree to float32
+//                   rounding of the sums, not bit for bit.
+//
+// The boxes come from the face index alone, so the reduction cannot lose a
+// pixel whatever the forward rasterizer culls, and the forward does no
+// work for the backward.
+//
+// What bounds it on the H100: bytes.  Each pixel's face index is needed
+// once, the six planes only at the won pixels.  The box pass reads the face
+// index once (neighbours' reads hit the cache).  The sum kernel reads the
+// face indices of each face's box, and exact boxes of the won pixels hold
+// only a few pixels per won pixel (a face's box also covers some of its
+// neighbours' pixels).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,6 +50,26 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+
+__global__ void __launch_bounds__(kThreads)
+won_box_kernel(const int* __restrict__ fi,   // [B, H, W]
+               int B, int F, int H, int W,
+               int* __restrict__ box) {      // [B, F, 4] (x_lo, x_hi, y_lo, y_hi)
+  const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long plane = (long long)H * W;
+  if (g >= (long long)B * plane) return;
+  const int f = fi[g];
+  if (f < 0 || f >= F) return;
+  const int b = (int)(g / plane);
+  const int p = (int)(g - (long long)b * plane);
+  const int y = p / W;
+  const int x = p - y * W;
+  int* bx = box + ((size_t)b * F + f) * 4;
+  if (x == 0 || fi[g - 1] != f) atomicMin(bx + 0, x);
+  if (x == W - 1 || fi[g + 1] != f) atomicMax(bx + 1, x);
+  if (y == 0 || fi[g - W] != f) atomicMin(bx + 2, y);
+  if (y == H - 1 || fi[g + W] != f) atomicMax(bx + 3, y);
+}
 
 __global__ void __launch_bounds__(kThreads)
 segment_kernel(const float* __restrict__ acc_x,  // [B, 3, H, W]
@@ -86,8 +123,20 @@ segment_kernel(const float* __restrict__ acc_x,  // [B, 3, H, W]
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  Launches on `stream` and
+// Plain C entry points, bound with ctypes.  Each launches on `stream` and
 // returns the cudaError_t of the launch (0 = success); never synchronises.
+
+// box [B, F, 4] must hold (S, -1, S, -1) per face, S >= max(H, W).
+extern "C" int sdn3d_won_pixel_boxes(const int* fi, int B, int F, int H,
+                                     int W, int* box, void* stream) {
+  if (B <= 0 || F <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)B * H * W;
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  won_box_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(fi, B, F, H,
+                                                                  W, box);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int sdn3d_segment_face_grads(const float* acc_x,
                                         const float* acc_y, const int* fi,
                                         const int* bbox, int B, int F, int H,

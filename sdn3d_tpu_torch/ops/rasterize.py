@@ -405,6 +405,30 @@ def segment_face_grads_plain(acc_x: torch.Tensor, acc_y: torch.Tensor,
 segment_face_grads_plain.calls = 0
 
 
+def won_pixel_boxes(face_index: torch.Tensor, num_faces: int) -> torch.Tensor:
+    """Each face's box of the pixels it won: the plain version of the
+    reduction's box pass (csrc/segment_face_grads.cu `won_box_kernel`).
+
+    face_index [B, H, W].  Returns [B, F, 4] int32 (x_lo, x_hi, y_lo,
+    y_hi), inclusive; (S, -1, S, -1) with S = max(H, W) for a face that
+    won no pixel."""
+    B, H, W = face_index.shape
+    F = num_faces
+    dev = face_index.device
+    hit = (face_index >= 0).reshape(-1)
+    seg = (face_index.long() + torch.arange(B, device=dev)[:, None, None] * F
+           ).reshape(-1)[hit]
+    ys, xs = torch.meshgrid(torch.arange(H, device=dev),
+                            torch.arange(W, device=dev), indexing="ij")
+    coords = [c.expand(B, H, W).reshape(-1)[hit] for c in (xs, ys)]
+    cols = []
+    for c in coords:
+        for init, how in ((max(H, W), "amin"), (-1, "amax")):
+            cols.append(torch.full((B * F,), init, dtype=torch.long,
+                                   device=dev).scatter_reduce_(0, seg, c, how))
+    return torch.stack(cols, -1).reshape(B, F, 4).to(torch.int32)
+
+
 def silhouette_grad_pixelwise(
     faces: torch.Tensor,          # [B, F, 3, 3]
     face_index: torch.Tensor,     # [B, H, W] int32
@@ -413,7 +437,6 @@ def silhouette_grad_pixelwise(
     image_size: int,
     eps: float,
     walk: int = 0,
-    boxes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """NMR edge gradient (reference rasterize.py:514-745), pixel-parallel,
     as JAX's `_silhouette_grad_pixelwise` (rasterize.py:350-534).
@@ -421,10 +444,9 @@ def silhouette_grad_pixelwise(
     Every contribution of the reference's per-face edge walks belongs to
     a pixel whose own face is the walking face, so the backward is: per
     pixel invariants (PyTorch), a `walk`-step shifted accumulation per
-    axis (walk kernel), and a pixel->face reduction (reduction kernel).
-    Each kernel is dispatched on the device of its input, as the forward
-    is; on the card the reduction needs `boxes`, the forward's per-face
-    pixel boxes ([B, F, 4] from `rasterize_cuda.pack_faces`).
+    axis (walk kernel), and a pixel->face reduction (reduction kernels,
+    over the boxes of each face's won pixels).  Each kernel is dispatched
+    on the device of its input, as the forward is.
 
     walk: max walk length; 0 = image_size (exact reference semantics).
     Returns grad_faces [B, F, 3, 3] (z component 0)."""
@@ -443,7 +465,7 @@ def silhouette_grad_pixelwise(
             for axis in range(2)]
     # axis 0 walks along y and yields the y components, axis 1 the x ones
     acc_y, acc_x = accs
-    g = TC.segment_face_grads(acc_x, acc_y, face_index, F, boxes)
+    g = TC.segment_face_grads(acc_x, acc_y, face_index, F)
     g = g.reshape(B, F, 3, 2)
     return torch.cat([g, torch.zeros_like(g[..., :1])], dim=-1)
 
@@ -452,28 +474,26 @@ class SilhouetteFn(torch.autograd.Function):
     """Differentiable silhouette (JAX `_make_silhouette_fn`,
     rasterize.py:828-866): the forward is the rasterizer (kernel on the
     card), alpha = face index >= 0; the backward is
-    `silhouette_grad_pixelwise` on the saved face index and, on the card,
-    the forward's face boxes.  The port rasterizes in original face order,
-    so there is no permutation."""
+    `silhouette_grad_pixelwise` on the saved face index.  The port
+    rasterizes in original face order, so there is no permutation."""
 
     @staticmethod
     def forward(ctx, faces, face_valid, image_size, near, far, eps, walk):
         from sdn3d_tpu_torch.ops.rasterize_cuda import rasterize_face_index
-        fi, _, boxes = rasterize_face_index(faces.detach(), face_valid,
-                                            image_size, near, far, boxes=True)
+        fi, _ = rasterize_face_index(faces.detach(), face_valid, image_size,
+                                     near, far)
         alpha = (fi >= 0).to(torch.float32)
-        ctx.save_for_backward(faces, fi, alpha, boxes)
+        ctx.save_for_backward(faces, fi, alpha)
         ctx.cfg = (image_size, eps, walk)
         return alpha
 
     @staticmethod
     def backward(ctx, g):
-        faces, fi, alpha, boxes = ctx.saved_tensors
+        faces, fi, alpha = ctx.saved_tensors
         image_size, eps, walk = ctx.cfg
         # alpha is the forward's output: detach it from the graph
         gf = silhouette_grad_pixelwise(faces.detach(), fi, alpha.detach(), g,
-                                       image_size, eps, walk=walk,
-                                       boxes=boxes)
+                                       image_size, eps, walk=walk)
         return gf.to(faces.dtype), None, None, None, None, None, None
 
 

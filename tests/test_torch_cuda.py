@@ -35,20 +35,84 @@ def _faces(seed, batch, num_faces):
     return faces, valid, colors
 
 
+def _sliver(faces, isz):
+    """Face 6 of every image becomes a front-facing, non-degenerate sliver
+    across the image whose box is the whole image (its cross product's
+    lower bound is <= 0), so that it lands on the wide list whenever the
+    image has more than K = MAX_TILES tiles."""
+    a = np.asarray([-0.9, -0.8], np.float32)
+    c = np.asarray([0.9, 0.85], np.float32)
+    whole = torch.tensor([0, isz - 1, 0, isz - 1], dtype=torch.int32)
+    for off in (1e-7, 2e-7, 4e-7, 8e-7):
+        m = (a + c) / 2 + np.float32(off)
+        for tri in ((a, m, c), (a, c, m)):
+            faces[:, 6, :, :2] = np.stack(tri)
+            _, box = TC.pack_faces(torch.from_numpy(faces), None, isz)
+            if (box[:, 6] == whole).all():
+                return faces
+    raise AssertionError("no whole-image sliver found")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("isz", [128, 100])
+@pytest.mark.parametrize("isz", [128, 100, 144, 136])
 def test_rasterize_kernel_matches_plain(cuda, isz):
     """Face index, depth and colours bit-equal to the plain version on the
-    same card (100^2 has a ragged tile edge)."""
+    same card, with an exact depth tie (faces 1 and 3), an invalid and a
+    back face, and a whole-image sliver, which lands on the wide list from
+    9 x 9 tiles (144^2, 136^2) on, while other faces fill the tile lists
+    (100^2 and 136^2 have a ragged tile edge)."""
+    faces, valid, colors = _faces(isz, 2, 37)
+    faces = _sliver(faces, isz)
     faces, valid, colors = (torch.from_numpy(a).to(cuda)
-                            for a in _faces(isz, 2, 37))
-    fi, depth, rgb = TC.rasterize_face_index(faces, valid, isz,
-                                             colors=colors)
+                            for a in (faces, valid, colors))
+    fi, depth, rgb = TC.rasterize_face_index_cuda(faces, valid, isz,
+                                                  colors=colors)
     fi_p, depth_p = TR.rasterize_face_maps(faces, valid, isz)
     rgb_p = TR._gather_face_colors(fi_p, colors).permute(0, 3, 1, 2)
+    bins = TC.bin_faces_cuda(TC.face_records(faces, valid, isz), isz)
+    torch.cuda.synchronize()
     assert torch.equal(fi, fi_p)
     assert torch.equal(depth, depth_p)
     assert torch.equal(rgb, rgb_p)
+    wide = [set(bins.wide_faces[b, :int(bins.wide_n[b])].tolist())
+            for b in range(2)]
+    assert all((6 in w) == (TC.tile_grid(isz) ** 2 > TC.MAX_TILES)
+               for w in wide)
+    assert int(bins.tile_off[:, -1].min()) > 0
+
+
+def _as_sets(bins, num_faces):
+    """(tile_off, per image the sorted list of each tile, the sorted wide
+    list) of `Bins` on the host."""
+    off = bins.tile_off.cpu()
+    tf, wf, wn = (bins.tile_faces.cpu(), bins.wide_faces.cpu(),
+                  bins.wide_n.cpu())
+    lists = [[sorted(tf[b, off[b, t]:off[b, t + 1]].tolist())
+              for t in range(off.shape[1] - 1)] for b in range(off.shape[0])]
+    wide = [sorted(wf[b, :wn[b]].tolist()) for b in range(off.shape[0])]
+    return off, lists, wide
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("isz", [100, 144])
+def test_bin_kernel_matches_plain(cuda, isz):
+    """The bin kernels' boxes equal the PyTorch `face_boxes` (pack_faces)
+    exactly, and their tile and wide lists, read as sets, equal
+    `bin_faces_plain`'s (the kernel's list order depends on atomics)."""
+    faces, valid, _ = _faces(isz + 5, 2, 37)
+    faces = _sliver(faces, isz)
+    rec, box = TC.pack_faces(torch.from_numpy(faces).to(cuda),
+                             torch.from_numpy(valid).to(cuda), isz)
+    got = TC.bin_faces_cuda(rec, isz)
+    want = TC.bin_faces_plain(box, isz)
+    torch.cuda.synchronize()
+    assert torch.equal(got.box, box)
+    off, lists, wide = _as_sets(got, 37)
+    off_p, lists_p, wide_p = _as_sets(want, 37)
+    assert torch.equal(off, off_p)
+    assert lists == lists_p and wide == wide_p
+    assert (sum(len(w) for w in wide) > 0) == (TC.tile_grid(isz) ** 2
+                                               > TC.MAX_TILES)
 
 
 def _backward_inputs(dev, isz, seed=0, batch=2, num_faces=37):
@@ -87,23 +151,25 @@ def test_walk_kernel_matches_plain(cuda, isz, walk):
 @pytest.mark.cuda
 @pytest.mark.parametrize("isz", [128, 100])
 def test_reduction_kernel_matches_float64(cuda, isz):
-    """The reduction kernel against a float64 segment sum of the same
+    """The reduction kernels against a float64 segment sum of the same
     planes: |err| <= 1e-5 * sum of |terms| per face (float32 sums of up to
-    a few hundred terms per lane), and bit-equal across two launches."""
+    a few hundred terms per lane), and bit-equal across two launches; the
+    box pass equals the plain `won_pixel_boxes` exactly."""
     faces, valid, fi, _, _, _ = _backward_inputs(cuda, isz, seed=isz)
     B, F = faces.shape[:2]
     rng = np.random.RandomState(7)
     acc_x, acc_y = (torch.from_numpy(rng.randn(B, 3, isz, isz)
                                      .astype(np.float32)).to(cuda)
                     for _ in range(2))
-    bbox = TC.pack_faces(faces, valid, isz)[1]
-    got = TC.segment_face_grads_cuda(acc_x, acc_y, fi, bbox)
-    again = TC.segment_face_grads_cuda(acc_x, acc_y, fi, bbox)
+    box = TC.won_pixel_boxes_cuda(fi, F)
+    got = TC.segment_face_grads_cuda(acc_x, acc_y, fi, F)
+    again = TC.segment_face_grads_cuda(acc_x, acc_y, fi, F)
     # the plain version in float64, and the sums of |terms| per face
     ref = TR.segment_face_grads_plain(acc_x.double(), acc_y.double(), fi, F)
     mag = TR.segment_face_grads_plain(acc_x.double().abs(),
                                       acc_y.double().abs(), fi, F).abs()
     torch.cuda.synchronize()
+    assert torch.equal(box, TR.won_pixel_boxes(fi, F))
     assert torch.equal(got, again)
     assert ref.abs().max() > 0
     assert ((got.double() - ref).abs() <= 1e-5 * mag + 1e-30).all()
@@ -116,12 +182,10 @@ def test_silhouette_vjp_kernels_match_plain(cuda):
     the largest (the walks agree bit for bit; the reduction sums in
     another order)."""
     faces, valid, fi, alpha, cot, invs = _backward_inputs(cuda, 128, seed=3)
-    bbox = TC.pack_faces(faces, valid, 128)[1]
     launches = (TC.walk_grads_cuda.launches,
                 TC.segment_face_grads_cuda.launches)
     got = TR.silhouette_grad_pixelwise(faces, fi, alpha, cot, 128,
-                                       TR.DEFAULT_EPS, walk=24,
-                                       boxes=bbox)[..., :2]
+                                       TR.DEFAULT_EPS, walk=24)[..., :2]
     acc_x, acc_y = (TR.walk_grads_plain(alpha, cot, invs[a], 24,
                                         TR.DEFAULT_EPS, a) for a in (1, 0))
     want = TR.segment_face_grads_plain(acc_x, acc_y, fi, faces.shape[1]

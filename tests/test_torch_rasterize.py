@@ -1,6 +1,7 @@
 """The port's plain forward rasterizer against the JAX package's
 (sdn3d_tpu_torch/ops/rasterize.py vs sdn3d_tpu/ops/rasterize.py), and the
-CUDA kernel's CPU-checkable parts (pre-pass cull, dispatch)."""
+CUDA kernels' CPU-checkable parts (the pre-pass cull, the bin lists and
+the order-free tie rule of the binned forward, dispatch)."""
 
 import numpy as np
 import pytest
@@ -132,12 +133,28 @@ def test_wrapper_dispatches_cpu_to_plain():
         TC.rasterize_face_index_cuda(torch.from_numpy(faces), None, 16)
 
 
+def _bin_members(bins, num_faces, isz):
+    """member [B, F, T] bool: face f is in tile t's list or in the wide
+    list of its image (`Bins` read back as sets)."""
+    B = bins.tile_off.shape[0]
+    T = TC.tile_grid(isz) ** 2
+    member = torch.zeros(B, num_faces, T, dtype=torch.bool)
+    for b in range(B):
+        off = bins.tile_off[b].long()
+        tid = torch.repeat_interleave(torch.arange(T), off[1:] - off[:-1])
+        member[b, bins.tile_faces[b, :int(off[-1])].long(), tid] = True
+        member[b, bins.wide_faces[b, :int(bins.wide_n[b])].long()] = True
+    return member
+
+
 def _accepted_outside_boxes(faces, isz):
     """(number of (face, pixel) pairs the plain inside test accepts, number
-    of those outside the face's or its chunk's kernel box)."""
+    of those outside the face's kernel box or missing from the face lists
+    of the pixel's tile)."""
     f = torch.from_numpy(faces)
-    fdata, bbox, cbbox = TC.pack_faces(f, None, isz)
-    assert fdata.shape == faces.shape[:2] + (18,) and bbox.dtype == torch.int32
+    rec, bbox = TC.pack_faces(f, None, isz)
+    assert rec.shape == faces.shape[:2] + (TC.RECORD,)
+    assert bbox.dtype == torch.int32
     ff, _, ok = TR.face_setup(f, None, isz)
     xp, _ = TR.pixel_centers(isz, "cpu")
     XP, YP = xp[None, None, None, :], xp[None, None, :, None]
@@ -148,10 +165,13 @@ def _accepted_outside_boxes(faces, isz):
               & ((YP - y[2]) * (x[0] - x[2]) >= (XP - x[2]) * (y[0] - y[2])))
     b, fidx, py, px = torch.nonzero(inside & ok[..., None, None],
                                     as_tuple=True)
-    bad = 0
-    for box in (bbox[b, fidx], cbbox[b, fidx // TC.CHUNK]):
-        bad += int((~((box[:, 0] <= px) & (px <= box[:, 1])
-                      & (box[:, 2] <= py) & (py <= box[:, 3]))).sum())
+    box = bbox[b, fidx]
+    bad = int((~((box[:, 0] <= px) & (px <= box[:, 1])
+                 & (box[:, 2] <= py) & (py <= box[:, 3]))).sum())
+    member = _bin_members(TC.bin_faces_plain(bbox, isz), faces.shape[1],
+                          isz)
+    tile = (py // TC.TILE) * TC.tile_grid(isz) + px // TC.TILE
+    bad += int((~member[b, fidx, tile]).sum())
     # faces the plain version rejects outright get an empty box
     assert (bbox[..., 0][~ok] > bbox[..., 1][~ok]).all()
     return len(b), bad
@@ -159,10 +179,12 @@ def _accepted_outside_boxes(faces, isz):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_kernel_cull_is_conservative(seed):
-    """The kernel's per-face pixel boxes (pack_faces) may only cull pairs
-    the plain version rejects: every (face, pixel) its inside test accepts
-    lies inside the face's box and its chunk's box.  Random faces, faces
-    reaching far off screen, reversed windings and slivers down to a
+    """The kernel's per-face pixel boxes (pack_faces) and the tile lists
+    binned from them may only cull pairs the plain version rejects: every
+    (face, pixel) its inside test accepts lies inside the face's box, and
+    the face is in the list of the pixel's tile or in the wide list.
+    Random faces,
+    faces reaching far off screen, reversed windings and slivers down to a
     1e-7-wide one, whose rounded edge tests accept pixels along their
     line beyond the vertices."""
     rng = np.random.RandomState(seed)
@@ -180,7 +202,8 @@ def test_kernel_cull_is_conservative(seed):
 
 
 def test_kernel_cull_is_conservative_at_768():
-    """Slivers of every width at the main path's raster size."""
+    """Slivers of every width at the main path's raster size (those whose
+    box is the whole image go to the wide list)."""
     rng = np.random.RandomState(2)
     faces = random_faces(rng, batch=1, num_faces=24)
     a, b = faces[:, :, 0, :2], faces[:, :, 1, :2]
@@ -189,3 +212,112 @@ def test_kernel_cull_is_conservative_at_768():
         * rng.normal(size=(1, 24, 2)).astype(np.float32)
     n, bad = _accepted_outside_boxes(faces, 768)
     assert n > 0 and bad == 0
+
+
+def sliver_faces(seed, batch, num_faces, isz):
+    """tricky_faces with faces 1 and 3 front-facing, plus, in face 6 of
+    every image, a front-facing, non-degenerate sliver across the image
+    whose box is the whole image (its cross product's lower bound is
+    <= 0), and in face 8 a face far off screen."""
+    faces, valid = tricky_faces(seed, batch, num_faces)
+    # the duplicates 1 and 3 front-facing, so that their depths tie
+    back = ~TR._frontface(torch.from_numpy(faces[:, 1])).numpy()
+    faces[back, 1] = faces[back, 1, ::-1]
+    faces[:, 3] = faces[:, 1]
+    a = np.asarray([-0.9, -0.8], np.float32)
+    c = np.asarray([0.9, 0.85], np.float32)
+    for off, tri in ((o, t) for o in (1e-7, 2e-7, 4e-7, 8e-7)
+                     for t in ("amc", "acm")):
+        m = (a + c) / 2 + np.float32(off)
+        faces[:, 6, :, :2] = np.stack([dict(a=a, m=m, c=c)[k] for k in tri])
+        _, box = TC.pack_faces(torch.from_numpy(faces), None, isz)
+        if (box[:, 6] == torch.tensor([0, isz - 1, 0, isz - 1])).all():
+            break
+    else:
+        raise AssertionError("no whole-image sliver found")
+    faces[:, 8, :, :2] += 5.0
+    return faces, valid
+
+
+@pytest.mark.parametrize("isz", [40, 100, 144, 200])
+def test_bin_lists_match_boxes(isz):
+    """bin_faces_plain (the bin kernel's plain version), read as sets: each
+    tile's list holds exactly the faces whose pack_faces box touches the
+    tile and spans at most K tiles; each wide list exactly the faces over
+    K tiles (the whole-image sliver among them from 144^2, 9 x 9 tiles, on);
+    faces with an empty box (invalid, back-facing, off screen) nowhere.
+    Against a loop over the faces in numpy."""
+    faces, valid = sliver_faces(isz, 2, 40, isz)
+    _, bbox = TC.pack_faces(torch.from_numpy(faces), torch.from_numpy(valid),
+                            isz)
+    bins = TC.bin_faces_plain(bbox, isz)
+    member = _bin_members(bins, 40, isz).numpy()
+    n_tiles = TC.tile_grid(isz)
+    want = np.zeros_like(member)
+    want_wide = np.zeros((2, 40), bool)
+    for b in range(2):
+        for f in range(40):
+            x0, x1, y0, y1 = bbox[b, f].tolist()
+            if x0 > x1 or y0 > y1:
+                continue
+            tiles = [ty * n_tiles + tx
+                     for ty in range(y0 // TC.TILE, y1 // TC.TILE + 1)
+                     for tx in range(x0 // TC.TILE, x1 // TC.TILE + 1)]
+            if len(tiles) > TC.MAX_TILES:
+                want_wide[b, f] = True
+                want[b, f] = True
+            else:
+                want[b, f, tiles] = True
+    np.testing.assert_array_equal(member, want)
+    for b in range(2):
+        wide = bins.wide_faces[b, :int(bins.wide_n[b])].numpy()
+        np.testing.assert_array_equal(np.sort(wide), np.nonzero(want_wide[b])[0])
+    off = bins.tile_off.numpy()
+    assert (np.diff(off, axis=1) >= 0).all() and off[:, 0].tolist() == [0, 0]
+    assert not member[:, 2].any() and not member[:, 8].any()
+    # the sliver's box is the whole image
+    assert (bbox[:, 6] == torch.tensor([0, isz - 1, 0, isz - 1])).all()
+    assert want_wide[:, 6].all() == (n_tiles ** 2 > TC.MAX_TILES)
+
+
+@pytest.mark.parametrize("isz", [40, 100, 144, 200])
+def test_binned_walk_matches_plain(isz):
+    """The raster kernel's scheme on the CPU: each pixel walks only its
+    tile's list and the wide list, in any order, and keeps the
+    lexicographic minimum of (depth, face index) over the faces that cover
+    it with a depth inside (near, far).  Bit-equal to rasterize_face_maps
+    (ascending faces, strictly smaller depth wins), exact depth ties
+    included (faces 1 and 3 are duplicates, so are 2 and 9, with 2
+    invalid).  The depth of each (face, pixel) pair is the plain version's
+    own, rasterizing one face at a time.  From 144^2 (9 x 9 tiles) on,
+    faces over K tiles walk from the wide list; 100^2 and 200^2 have ragged
+    tiles."""
+    faces, valid = sliver_faces(isz + 1, 2, 40, isz)
+    f, v = torch.from_numpy(faces), torch.from_numpy(valid)
+    fi_p, d_p = TR.rasterize_face_maps(f, v, isz)
+    one = [TR.rasterize_face_maps(f[:, k:k + 1], v[:, k:k + 1], isz)
+           for k in range(40)]
+    cover = torch.stack([o[0] == 0 for o in one], 1).reshape(2, 40, -1)
+    zp = torch.stack([o[1] for o in one], 1).reshape(2, 40, -1)
+    _, bbox = TC.pack_faces(f, v, isz)
+    bins = TC.bin_faces_plain(bbox, isz)
+    member = _bin_members(bins, 40, isz)
+    py, px = torch.meshgrid(torch.arange(isz), torch.arange(isz),
+                            indexing="ij")
+    tile = ((py // TC.TILE) * TC.tile_grid(isz) + px // TC.TILE).reshape(-1)
+    cand = cover & member[:, :, tile]
+    # the walk of a candidate list in a shuffled order
+    order = torch.from_numpy(np.random.RandomState(isz).permutation(40))
+    best_z = torch.full((2, isz * isz), TR.DEFAULT_FAR)
+    best = torch.full((2, isz * isz), -1, dtype=torch.int32)
+    for k in order.tolist():
+        z = zp[:, k]
+        take = cand[:, k] & ((z < best_z) | ((z == best_z) & (k < best)))
+        best_z = torch.where(take, z, best_z)
+        best = torch.where(take, torch.full_like(best, k), best)
+    assert torch.equal(best.reshape(2, isz, isz), fi_p)
+    assert torch.equal(best_z.reshape(2, isz, isz), d_p)
+    # pixels where two candidates tie at the winning depth
+    ties = ((cand & (zp == best_z[:, None])).sum(1) >= 2).sum()
+    assert ties > 0 and not (fi_p == 3).any() and not (fi_p == 2).any()
+    assert (bins.wide_n > 0).all() == (TC.tile_grid(isz) ** 2 > TC.MAX_TILES)

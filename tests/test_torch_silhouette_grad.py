@@ -304,9 +304,8 @@ def test_backward_wrappers_dispatch_cpu_to_plain():
                 TC.segment_face_grads_cuda.launches)
     acc = TC.walk_grads(alpha, cot, inv, 4, EPS, 0)
     g = TC.segment_face_grads(acc, acc, fi, faces.shape[1])
-    assert TC.rasterize_face_index(torch.from_numpy(faces),
-                                   torch.from_numpy(valid), isz,
-                                   boxes=True)[2] is None
+    assert len(TC.rasterize_face_index(torch.from_numpy(faces),
+                                       torch.from_numpy(valid), isz)) == 2
     assert acc.shape == (1, 3, isz, isz) and g.shape == (1, 9, 6)
     assert (TR.walk_grads_plain.calls, TR.segment_face_grads_plain.calls) \
         == (calls[0] + 1, calls[1] + 1)
@@ -315,5 +314,32 @@ def test_backward_wrappers_dispatch_cpu_to_plain():
     with pytest.raises(ValueError):
         TC.walk_grads_cuda(alpha, cot, inv, 4, EPS, 0)
     with pytest.raises(ValueError):
-        TC.segment_face_grads_cuda(acc, acc, fi, torch.zeros(1, 9, 4,
-                                                             dtype=torch.int32))
+        TC.segment_face_grads_cuda(acc, acc, fi, 9)
+    with pytest.raises(ValueError):
+        TC.won_pixel_boxes_cuda(fi, 9)
+
+
+@pytest.mark.parametrize("isz,num_faces", [(40, 23), (57, 61)])
+def test_won_pixel_boxes_match_numpy(isz, num_faces):
+    """won_pixel_boxes (the plain version of the reduction's box pass)
+    against a numpy min / max over the pixels of each face: exact.  Faces
+    that win no pixel (invalid, hidden, off screen) get the empty box
+    (S, -1, S, -1), and so does every face of a padded slot (an image of
+    invalid faces, as the refinement's padded objects).  Every won pixel
+    lies in its face's box; 57^2 is not a multiple of any tile."""
+    faces, valid, fi, _, _ = _scene(isz, 3, num_faces, isz)
+    fi[2] = -1                                   # a padded slot
+    got = TR.won_pixel_boxes(fi, num_faces).numpy()
+    want = np.tile(np.asarray([isz, -1, isz, -1], np.int32),
+                   (3, num_faces, 1))
+    f = fi.numpy()
+    for b in range(3):
+        for k in range(num_faces):
+            ys, xs = np.nonzero(f[b] == k)
+            if len(xs):
+                want[b, k] = [xs.min(), xs.max(), ys.min(), ys.max()]
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    won = np.isin(np.arange(num_faces), f[0])
+    assert won.any() and not won.all() and not won[3]
+    assert (got[2] == [isz, -1, isz, -1]).all()
