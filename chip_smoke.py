@@ -14,10 +14,12 @@ Phases, each of which must pass (any failure exits non-zero):
      ~4k-face mesh, with and without colours): face index and colours
      equal, depth bit-equal; the bin kernels' boxes equal pack_faces'
      boxes and their lists, as sets, the plain bin lists; then the
-     silhouette VJP of the 128^2 faces: walk accumulators bit-equal to
-     the plain walk (windows 24 and 128), the reduction's boxes equal to
-     won_pixel_boxes, its sums within 1e-5 of |terms| of a float64 sum and
-     bit-equal across two launches;
+     silhouette VJP of the 128^2 faces: the fused walk's accumulators
+     (invariants computed in the kernel) bit-equal to its plain version
+     (invariant stack + plain walk), both axes of one launch (windows
+     24, 64 and 128; 128 reads global memory), the
+     reduction's boxes equal to won_pixel_boxes, its sums within 1e-5 of
+     |terms| of a float64 sum and bit-equal across two launches;
   4. main path: cli/geometric_main.main --source gt over three synthetic
      375x1242 frames (5, 11, 16 cars) with a two-item edit JSON, at the CLI
      defaults (16 slots, render_size 384 -> 768^2 rasterization) with
@@ -28,19 +30,24 @@ Phases, each of which must pass (any failure exits non-zero):
   4b. refinement path: the same with --num_opts 10 (silhouette refinement,
      walk window 64): the kernels' launch counts (>= num_opts per refined
      item; the reduction's box pass with each reduction), no plain version
-     run, the refine loss of the real objects (silhouette and reg terms)
-     at the first and last step (the silhouette term's mean over items
-     must fall), and the steady-state geo.refine time;
+     run and no invariant stack built (edge_invariant_stack and
+     face_pixel_coords called 0 times), the refine loss of the real
+     objects (silhouette and reg terms) at the first and last step (the
+     silhouette term's mean over items must fall), and the steady-state
+     geo.refine time;
   5. kernels vs plain at the main paths' own inputs (the last forward of
      phase 4, the last refine step's backward of 4b): equality as in 3, the
-     kernels' and plain versions' times, each kernel's bound, the walk
-     against its global-memory build (no shared-memory staging); for the
+     kernels' and plain versions' times, each kernel's bound; for the walk
+     its time per backward (one launch, both axes), the hit pixels that
+     walk at all, and the same source built without staging
+     (global-memory scans), timed in turns with it; for the
      forward the pre-pass, bin and raster times beside the wrapper's, the
      face-tile pairs, the longest tile list and the wide lists; for the
      reduction the box pass's time, box pixels per won pixel, and the time
      of one index_add_ computing the same sums;
   6. profile: one 16-car frame, unrefined and refined: wall time, device
-     busy time and idle share, and device time by kernel (torch.profiler);
+     busy time and idle share, PyTorch's elementwise kernels (device time
+     and launches), and device time by kernel (torch.profiler);
   7. reference: the port's CUDA path against its CPU path on a small input,
      unrefined and with 2 refinement steps.
 The line before last is the card's name and power limit, the line before
@@ -64,12 +71,21 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 H100_HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 H100_FP32_FLOPS = 67e12               # H100 SXM, fp32 outside tensor cores
 EDGE_TEST_FLOPS = 15                  # 3 edge functions: 6 sub, 6 mul, 3 cmp
-# walk: an OUT step of an edge inside the image (d1k, 2 bounds, diff, gate:
-# 7 ops) plus, when gated, two distance terms (sub, mul, cmp, add, div)
-# and two adds: counted for every in-image step, gated or not; an IN term
-# (diff, gate, two divisions, two adds)
+# walk, per (pixel, edge) and step: where alpha there equals the pixel's,
+# the compare that rules the step out; where it differs, an OUT step of an
+# edge inside the image (d1k, 2 bounds, diff, gate: 7 ops) plus, when
+# gated, two distance terms (sub, mul, cmp, add, div) and two adds, and an
+# IN term (diff, gate, two divisions, two adds) with its two distances
+# (sub, mul, cmp, add each)
+WALK_SKIP_FLOPS = 1
 WALK_OUT_STEP_FLOPS = 19
-WALK_IN_TERM_FLOPS = 7
+WALK_IN_TERM_FLOPS = 15
+# one edge's invariants: the elementwise operations of
+# ops/rasterize._edge_invariants, each counted once (nonvert 1, slope 4,
+# d1_cross 3, direction 2, d1_in 4, d1_out 1, col_ok 16, base_k 3, kA 5,
+# kB 5, use_ac 3, slope_ac 5, slope_bc 5, d0_cross2 5, d1_lim_in 3, lo_in 2,
+# hi_in 2, in_range 4, j_gate 3, is_in_pixel 2)
+EDGE_INVARIANT_FLOPS = 78
 REDUCE_FLOPS = 6                      # one add per plane for a won pixel
 NUM_OPTS = 10
 
@@ -286,6 +302,7 @@ def profile_frame(frame, shapenet: str, seed: int, card: str,
     from sdn3d_tpu_torch.data.vkitti import load_edit_json
     from sdn3d_tpu_torch.pipelines.derender_infer import (
         DerenderInferConfig, derender_image, keep_largest_detections)
+    from sdn3d_tpu_torch.utils import phases
 
     img, npz, edit, n_cars = frame
     args = geometric_main.build_argparser().parse_args(
@@ -310,6 +327,15 @@ def profile_frame(frame, shapenet: str, seed: int, card: str,
     for _ in range(n):
         run()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    if num_opts:
+        # geo.refine, with the card synchronised at each phase's end
+        phases.reset(True)
+        for _ in range(n):
+            run()
+        rec = phases.snapshot()["geo.refine"]
+        phases.reset(False)
+        log(f"[profile] {n_cars}-car frame, num_opts {num_opts}: geo.refine "
+            f"steady {rec['steady_avg_s']:.4f} s/item ({card})")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
@@ -329,33 +355,32 @@ def profile_frame(frame, shapenet: str, seed: int, card: str,
     log(f"[profile] {what}: wall {wall_ms:.3f} ms/frame, device busy "
         f"{busy_ms:.3f} ms/frame, idle share {1.0 - busy_ms / wall_ms:.4f} "
         f"({card})")
+    elem = [v for k, v in by_name.items() if "elementwise_kernel" in k]
+    log(f"[profile] {what}: PyTorch elementwise kernels "
+        f"{sum(v[0] for v in elem):.4f} ms/frame, "
+        f"{sum(v[1] for v in elem) // n} launches/frame ({card})")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     for name, (ms, count) in top:
         log(f"[profile]   {ms:9.4f} ms/frame  {count // n:4d} launches/frame"
             f"  {name[:90]}")
 
 
-def walk_invariants(TR, faces, fi, isz: int):
-    """The walk's invariant stacks of both axes, as
-    silhouette_grad_pixelwise makes them."""
-    pp_px = TR.face_pixel_coords(faces, fi, isz)
-    return [TR.edge_invariant_stack(pp_px, fi >= 0, isz, a) for a in (0, 1)]
-
-
-def check_walk(TC, TR, alpha, cot, invs, walk: int, eps: float) -> float:
-    """The walk kernel against its plain version, both axes: bit-equal or
-    the run fails.  Returns the max |kernel - plain| (0.0)."""
+def check_walk(TC, TR, alpha, cot, pp, fi, walk: int, eps: float) -> float:
+    """The fused walk kernel against its plain version, both axes of one
+    launch: bit-equal or the run fails.  Returns the max |kernel - plain|
+    (0.0)."""
     import torch
+    both = TC.walk_grads_cuda(alpha, cot, pp, fi, walk, eps)
     err = 0.0
     for axis in (0, 1):
-        got = TC.walk_grads_cuda(alpha, cot, invs[axis], walk, eps, axis)
-        want = TR.walk_grads_plain(alpha, cot, invs[axis], walk, eps, axis)
+        want = TR.walk_grads_faces_plain(alpha, cot, pp, fi, walk, eps, axis)
         torch.cuda.synchronize()
-        e = float((got - want).abs().max())
-        if not torch.equal(got, want):
+        e = float((both[axis] - want).abs().max())
+        if not torch.equal(both[axis], want):
             raise AssertionError(f"walk kernel != plain (axis {axis}, walk "
                                  f"{walk}, {tuple(alpha.shape)}): max diff "
-                                 f"{e}, {int((got != want).sum())} values")
+                                 f"{e}, {int((both[axis] != want).sum())} "
+                                 f"values")
         err = max(err, e)
     return err
 
@@ -387,72 +412,116 @@ def check_reduction(TC, TR, acc_x, acc_y, fi, F: int) -> float:
     return float(err.max())
 
 
-def walk_variant_ms(TC, alpha, cot, invs, walk: int, eps: float):
+def walk_variant_ms(TC, alpha, cot, pp, fi, walk: int, eps: float):
     """The walk kernel as built (alpha and grad staged in shared memory
-    for windows up to 64) against the same source built with
-    -DSDN3D_WALK_MAX_STAGED_STEPS=-1 (global-memory reads at every
-    window): bit-equal or the run fails; then each one's ms per launch,
-    per axis, timed staged, global, global, staged.  Returns (staged,
-    global) lists of [axis 0, axis 1] ms."""
+    with run masks for windows up to 64) against the same source built
+    with -DSDN3D_WALK_MAX_STAGED_STEPS=-1 (global-memory reads and
+    step-by-step scans at every window), both axes a launch: bit-equal or
+    the run fails; then each one's ms per launch, timed staged, global,
+    global, staged.  Returns (staged, global) lists of ms."""
     import ctypes
 
     import torch
-    B, H, W = alpha.shape
+    B, S, _ = alpha.shape
+    F = pp.shape[1]
     with tempfile.TemporaryDirectory(prefix="sdn3d_walk_") as tmp:
         lib = os.path.join(tmp, "libwalk_global.so")
         subprocess.run([TC._nvcc(), *TC.NVCC_FLAGS,
                         "-DSDN3D_WALK_MAX_STAGED_STEPS=-1", "-o", lib,
                         os.path.join(TC.CSRC_DIR, "silhouette_walk.cu")],
                        check=True, capture_output=True, timeout=300)
-        fn = ctypes.CDLL(lib).sdn3d_walk_grads
-    fn.argtypes = TC._ENTRY["silhouette_walk"]["sdn3d_walk_grads"]
+        fn = ctypes.CDLL(lib).sdn3d_walk_faces
+    fn.argtypes = TC._ENTRY["silhouette_walk"]["sdn3d_walk_faces"]
     fn.restype = ctypes.c_int
 
-    def run(variant, a):
+    def run(variant):
         if variant == "staged":
-            return TC.walk_grads_cuda(alpha, cot, invs[a], walk, eps, a)
-        out = torch.empty((B, 3, H, W), device=alpha.device)
-        err = fn(alpha.data_ptr(), cot.data_ptr(), invs[a].data_ptr(),
-                 out.data_ptr(), B, H, W, walk, eps, a,
+            return TC.walk_grads_cuda(alpha, cot, pp, fi, walk, eps)
+        out = torch.empty((2, B, 3, S, S), device=alpha.device)
+        err = fn(alpha.data_ptr(), cot.data_ptr(), fi.data_ptr(),
+                 pp.data_ptr(), out.data_ptr(), B, S, F, walk, eps,
                  torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"global-memory walk launch failed: {err}")
         return out
 
-    for a in (0, 1):
-        if not torch.equal(run("staged", a), run("global", a)):
-            raise AssertionError(f"walk variants differ on axis {a}")
-    ms = {"staged": [[], []], "global": [[], []]}
+    if not torch.equal(run("staged"), run("global")):
+        raise AssertionError("walk variants differ")
+    ms = {"staged": [], "global": []}
     for variant in ("staged", "global", "global", "staged"):
-        for a in (0, 1):
-            ms[variant][a].append(cuda_ms(lambda: run(variant, a), iters=10,
-                                          warmup=2))
+        ms[variant].append(cuda_ms(lambda: run(variant), iters=10, warmup=2))
     return ms["staged"], ms["global"]
 
 
-def walk_bound(invs, walk: int):
-    """(bytes, operations) of one walk launch per axis, averaged over the
-    two axes: alpha, grad and 18 invariant planes read once, 3 planes
-    written; operations of this data: every in-image OUT step of every
-    in-boundary (pixel, edge), one IN term per (pixel, edge) within the
-    window."""
+def walk_bound(TR, alpha, pp, fi, walk: int):
+    """(bytes, operations, walking) of the fused walk over both axes, as
+    one launch on the main path computes it.  Bytes: alpha, grad, the face
+    index and the face table read once, 3 planes written per axis.
+    Operations this data needs: the invariants of the three edges of each
+    hit pixel that walks at all (some alpha within the window along the
+    walk differs from its own, counting the zero halo past the image as
+    the kernel does); for each in-boundary (pixel, edge), every in-image
+    OUT step within the window, a compare where alpha there equals the
+    pixel's and the full step where it differs; for each (pixel, edge)
+    whose IN step lies in the window, a compare or, where alpha there
+    differs, the full IN term.  walking: the share of hit pixels that walk,
+    [axis 0, axis 1] (alpha is binary on the main path)."""
     import torch
-    B, _, H, W = invs[0].shape
-    nbytes = (2 + 18 + 3) * 4 * B * H * W
+    import torch.nn.functional as Fn
+    B, S, _ = alpha.shape
+    hit = fi >= 0
+    n_hit = int(hit.sum())
+    nbytes = 3 * 4 * B * S * S + pp.numel() * 4 + 2 * 3 * 4 * B * S * S
     ops = 0.0
-    for axis, inv in enumerate(invs):
-        size = H if axis == 0 else W
-        idx = torch.arange(size, device=inv.device, dtype=torch.float32)
+    walking = []
+    idx = torch.arange(S, device=alpha.device, dtype=torch.float32)
+    for axis in (0, 1):
+        dim = 1 if axis == 0 else 2              # the walk's dimension
         d1 = idx[None, :, None] if axis == 0 else idx[None, None, :]
+        # in-image steps within the window whose alpha differs from the
+        # pixel's, forwards and backwards
+        differ_f = torch.zeros_like(alpha)
+        differ_b = torch.zeros_like(alpha)
+        for k in range(1, min(walk, S - 1) + 1):
+            ne = (alpha.narrow(dim, k, S - k)
+                  != alpha.narrow(dim, 0, S - k)).float()
+            differ_f.narrow(dim, 0, S - k).add_(ne)
+            differ_b.narrow(dim, k, S - k).add_(ne)
+        inv = TR.edge_invariant_stack(TR._gather_pixel_faces(pp, fi), hit,
+                                      S, axis)
         for e in range(3):
-            direction, j_gate, is_in = (inv[:, 6 * e + 1], inv[:, 6 * e + 4],
-                                        inv[:, 6 * e + 5])
-            border = torch.where(direction > 0, size - 1 - d1, d1)
-            steps = torch.clamp(border, max=float(walk)) * (is_in > 0)
-            n_in = ((j_gate >= 0) & (j_gate + 1 <= walk)).sum()
-            ops += (float(steps.sum()) * WALK_OUT_STEP_FLOPS
-                    + float(n_in) * WALK_IN_TERM_FLOPS)
-    return nbytes, ops / 2
+            direction, j_gate = inv[:, 6 * e + 1], inv[:, 6 * e + 4]
+            is_in = inv[:, 6 * e + 5] > 0
+            fwd = direction > 0
+            border = torch.where(fwd, S - 1 - d1, d1)
+            steps = torch.clamp(border, max=float(walk)) * is_in
+            differ = torch.where(fwd, differ_f, differ_b) * is_in
+            n_steps, n_differ = float(steps.sum()), float(differ.sum())
+            ops += (n_differ * WALK_OUT_STEP_FLOPS
+                    + (n_steps - n_differ) * WALK_SKIP_FLOPS)
+            # the IN step, k = j_gate + 1 along the walk (zero past the
+            # image)
+            in_win = (j_gate >= 0) & (j_gate + 1 <= walk)
+            pos = d1 + direction * (j_gate + 1)
+            inside = (pos >= 0) & (pos <= S - 1)
+            a_k = torch.gather(alpha, dim, pos.clamp(0, S - 1).long())
+            a_k = torch.where(inside, a_k, torch.zeros_like(a_k))
+            n_in = int(in_win.sum())
+            n_in_differ = int((in_win & (a_k != alpha)).sum())
+            ops += (n_in_differ * WALK_IN_TERM_FLOPS
+                    + (n_in - n_in_differ) * WALK_SKIP_FLOPS)
+        # binary alpha: a pixel walks unless the window's max equals its min
+        lines = alpha if axis == 1 else alpha.transpose(1, 2)
+        lines = lines.reshape(B * S, 1, S)
+        hi = Fn.max_pool1d(Fn.pad(lines, (walk, walk)), 2 * walk + 1, 1)
+        lo = -Fn.max_pool1d(Fn.pad(-lines, (walk, walk)), 2 * walk + 1, 1)
+        moves = (hi != lo).reshape(B, S, S)
+        if axis == 0:
+            moves = moves.transpose(1, 2)
+        n_walk = int((moves & hit).sum())
+        ops += n_walk * 3 * EDGE_INVARIANT_FLOPS
+        walking.append(n_walk / max(n_hit, 1))
+    return nbytes, ops, walking
 
 
 def main(argv=None) -> int:
@@ -529,17 +598,16 @@ def main(argv=None) -> int:
     sfi, _ = TC.rasterize_face_index(sf, sv, 128)
     salpha = (sfi >= 0).float()
     scot = torch.from_numpy(rng.randn(2, 128, 128).astype(np.float32)).to(dev)
-    sinvs = walk_invariants(TR, sf, sfi, 128)
-    walk_err = max(check_walk(TC, TR, salpha, scot, sinvs, w, eps)
-                   for w in (24, 128))
-    sacc = [TC.walk_grads_cuda(salpha, scot, sinvs[a], 24, eps, a)
-            for a in (1, 0)]                                # x, y planes
-    red_err = check_reduction(TC, TR, sacc[0], sacc[1], sfi, sf.shape[1])
+    spp = TR.face_pixel_table(sf, 128)
+    walk_err = max(check_walk(TC, TR, salpha, scot, spp, sfi, w, eps)
+                   for w in (24, 64, 128))
+    sacc = TC.walk_grads_cuda(salpha, scot, spp, sfi, 24, eps)
+    red_err = check_reduction(TC, TR, sacc[1], sacc[0], sfi, sf.shape[1])
     g_k = TR.silhouette_grad_pixelwise(sf, sfi, salpha, scot, 128, eps,
                                        walk=24)[..., :2]
     # the plain versions composed as silhouette_grad_pixelwise composes
     # the kernels
-    pacc = [TR.walk_grads_plain(salpha, scot, sinvs[a], 24, eps, a)
+    pacc = [TR.walk_grads_faces_plain(salpha, scot, spp, sfi, 24, eps, a)
             for a in (1, 0)]
     g_p = TR.segment_face_grads_plain(pacc[0], pacc[1], sfi,
                                       sf.shape[1]).reshape(g_k.shape)
@@ -548,8 +616,9 @@ def main(argv=None) -> int:
             g_k).all():
         raise AssertionError(f"silhouette VJP kernels vs plain: {g_err}")
     log(f"[kernel] silhouette VJP of 2x37 faces @128^2: walk bit-equal "
-        f"(windows 24, 128); reduction boxes == won_pixel_boxes, max err "
-        f"vs float64 {red_err:.3e}; "
+        f"(windows 24, 64, 128; both axes of one launch); "
+        f"reduction boxes == won_pixel_boxes, max err vs float64 "
+        f"{red_err:.3e}; "
         f"face grads max diff {g_err:.3e} (max |g| "
         f"{float(g_p.abs().max()):.4g})")
 
@@ -602,10 +671,11 @@ def main(argv=None) -> int:
     refine = TI.refine_silhouettes
     traces = []
 
-    def walk_recording(alpha, grad_alpha, inv, n_steps, eps_, axis):
-        bw.update({f"inv{axis}": inv, "alpha": alpha, "cot": grad_alpha,
-                   "walk": n_steps})
-        return walk_dispatch(alpha, grad_alpha, inv, n_steps, eps_, axis)
+    def walk_recording(alpha, grad_alpha, pp, face_index, n_steps, eps_):
+        # face_index is the reduction's too: seg_recording keeps it
+        bw.update(pp=pp, alpha=alpha, cot=grad_alpha, walk=n_steps)
+        return walk_dispatch(alpha, grad_alpha, pp, face_index, n_steps,
+                             eps_)
 
     def seg_recording(acc_x, acc_y, face_index, num_faces):
         bw.update(acc_x=acc_x, acc_y=acc_y, fi=face_index, F=num_faces)
@@ -618,9 +688,14 @@ def main(argv=None) -> int:
         traces.append(np.asarray([t[:, real].sum(1).tolist() for t in steps]))
         return out
 
+    # the plain versions, and the invariant stack and its gather, which
+    # only the walk's plain version builds
+    plain_fns = (TR.rasterize_face_maps, TR.walk_grads_plain,
+                 TR.segment_face_grads_plain, TR.edge_invariant_stack,
+                 TR.face_pixel_coords)
+
     def plain_counts():
-        return (TR.rasterize_face_maps.calls, TR.walk_grads_plain.calls,
-                TR.segment_face_grads_plain.calls)
+        return tuple(fn.calls for fn in plain_fns)
 
     # the forward's two kernels and the reduction's box pass, which their
     # wrappers launch with each forward and each reduction
@@ -643,9 +718,8 @@ def main(argv=None) -> int:
         TC.segment_face_grads_cuda.launches = 0
         for fn in inner:
             fn.launches = 0
-        TR.rasterize_face_maps.calls = 0
-        TR.walk_grads_plain.calls = 0
-        TR.segment_face_grads_plain.calls = 0
+        for fn in plain_fns:
+            fn.calls = 0
         t0 = time.perf_counter()
         for k, (img, npz, edit, n) in enumerate(frames):
             out_dir = os.path.join(tmp, f"{tag}{k}")
@@ -682,7 +756,8 @@ def main(argv=None) -> int:
             raise AssertionError(f"main path: kernel launches {counts}, "
                                  f"plain calls {plain}")
         log(f"[main] {len(frames)} frames x 2 items in {wall:.2f} s; kernel "
-            f"launches {launches}, plain rasterizer calls {plain[0]}")
+            f"launches {launches}; plain calls (rasterizer, walk, reduction, "
+            f"edge_invariant_stack, face_pixel_coords) {plain}")
 
         # -- 4b. refinement path ----------------------------------------------
         TC.walk_grads, TC.segment_face_grads = walk_recording, seg_recording
@@ -692,7 +767,7 @@ def main(argv=None) -> int:
         TC.walk_grads, TC.segment_face_grads = walk_dispatch, seg_dispatch
         TI.refine_silhouettes = refine
         items = len(frames) * 2
-        need = (items * (NUM_OPTS + 1), items * NUM_OPTS * 2, items * NUM_OPTS)
+        need = (items * (NUM_OPTS + 1), items * NUM_OPTS, items * NUM_OPTS)
         if any(c < n for c, n in zip(r_counts, need)) or any(r_plain):
             raise AssertionError(f"refine path: kernel launches {r_counts} "
                                  f"(need >= {need}), plain calls {r_plain}")
@@ -718,7 +793,9 @@ def main(argv=None) -> int:
                                             r_snap["geo.refine"]["s"])
         log(f"[refine] {len(frames)} frames x 2 items x {NUM_OPTS} steps in "
             f"{r_wall:.2f} s; launches forward {r_counts[0]}, walk "
-            f"{r_counts[1]}, reduction {r_counts[2]}; plain calls {r_plain}; "
+            f"{r_counts[1]}, reduction {r_counts[2]}; plain calls "
+            f"(rasterizer, walk, reduction, edge_invariant_stack, "
+            f"face_pixel_coords) {r_plain}; "
             f"mean silhouette loss {firsts[:, 0].mean():.6f} -> "
             f"{lasts[:, 0].mean():.6f}, mean loss {firsts.sum(1).mean():.6f} "
             f"-> {lasts.sum(1).mean():.6f}; "
@@ -779,38 +856,37 @@ def main(argv=None) -> int:
 
     # the last refine step's backward: walk (both axes) and reduction
     alpha, cot, W = bw["alpha"], bw["cot"], bw["walk"]
-    invs = [bw["inv0"], bw["inv1"]]
-    walk_err = max(walk_err, check_walk(TC, TR, alpha, cot, invs, W, eps))
+    wpp, wfi = bw["pp"], bw["fi"]
+    walk_err = max(walk_err, check_walk(TC, TR, alpha, cot, wpp, wfi, W, eps))
     path_err = check_reduction(TC, TR, bw["acc_x"], bw["acc_y"], bw["fi"],
                                bw["F"])
     red_err = max(red_err, path_err)
-    log(f"[kernel] refine-path backward {tuple(alpha.shape)}, walk {W}: walk "
-        f"bit-equal; reduction boxes == won_pixel_boxes, sums within 1e-5 "
-        f"of |terms| of float64, max err {path_err:.3e}, bit-equal across "
-        f"launches")
+    log(f"[kernel] refine-path backward {tuple(alpha.shape)}, "
+        f"{wpp.shape[1]} faces, walk {W}: walk bit-equal (both axes of one "
+        f"launch); reduction boxes == won_pixel_boxes, sums "
+        f"within 1e-5 of |terms| of float64, max err {path_err:.3e}, "
+        f"bit-equal across launches")
 
-    def both_axes(fn):
-        return lambda: [fn(a) for a in (0, 1)]
-
-    walk_ms = cuda_ms(both_axes(lambda a: TC.walk_grads_cuda(
-        alpha, cot, invs[a], W, eps, a)), iters=10, warmup=2) / 2
-    walk_plain_ms = cuda_ms(both_axes(lambda a: TR.walk_grads_plain(
-        alpha, cot, invs[a], W, eps, a)), iters=1, warmup=0) / 2
-    w_bytes, w_ops = walk_bound(invs, W)
+    # why the walk keeps its shared-memory staging: the same kernel built
+    # to read alpha and grad from global memory, at the same inputs, in
+    # turns; the main path's launch is the staged one
+    stag_ms, glob_ms = walk_variant_ms(TC, alpha, cot, wpp, wfi, W, eps)
+    walk_ms = sum(stag_ms) / 2
+    walk_plain_ms = sum(cuda_ms(lambda: TR.walk_grads_faces_plain(
+        alpha, cot, wpp, wfi, W, eps, a), iters=1, warmup=0)
+        for a in (0, 1))
+    w_bytes, w_ops, walking = walk_bound(TR, alpha, wpp, wfi, W)
     walk_bound_ms, walk_bound_by = max(
         (w_bytes / H100_HBM_BYTES_PER_S * 1e3, "bytes"),
         (w_ops / H100_FP32_FLOPS * 1e3, "operations"))
-    log(f"[kernel] walk: {walk_ms:.4f} ms/launch (mean of both axes), plain "
-        f"{walk_plain_ms:.1f} ms; bound {walk_bound_ms:.4f} ms by "
-        f"{walk_bound_by} ({w_bytes} B, {w_ops:.0f} operations per launch) "
-        f"({card})")
-
-    # why the walk keeps its shared-memory staging: the same kernel built
-    # to read alpha and grad from global memory, at the same inputs
-    stag_ms, glob_ms = walk_variant_ms(TC, alpha, cot, invs, W, eps)
+    log(f"[kernel] walk: {walk_ms:.4f} ms/launch (one backward: both axes "
+        f"in one launch); plain {walk_plain_ms:.1f} ms (both axes); bound "
+        f"{walk_bound_ms:.4f} ms by {walk_bound_by} ({w_bytes:.0f} B, "
+        f"{w_ops:.0f} operations, both axes); hit pixels that walk: axis 0 "
+        f"{walking[0]:.4f}, axis 1 {walking[1]:.4f} ({card})")
     log(f"[kernel] walk variants at {tuple(alpha.shape)}, window {W}, "
-        f"bit-equal, ms per launch (axis 0, axis 1; staged, global, global, "
-        f"staged): staged {stag_ms}, global-memory {glob_ms} ({card})")
+        f"bit-equal, ms per launch (staged, global, global, staged): staged "
+        f"{stag_ms}, global-memory {glob_ms} ({card})")
 
     ax, ay, sfi_m, Fm = bw["acc_x"], bw["acc_y"], bw["fi"], bw["F"]
     Bm = sfi_m.shape[0]

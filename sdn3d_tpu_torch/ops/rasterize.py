@@ -201,12 +201,6 @@ def _rasterize_sorted(faces, face_valid, image_size: int, near: float,
 # NR-4: approximate silhouette gradient, pixel-parallel
 # ---------------------------------------------------------------------------
 
-# Edge-invariant stack layout (per edge e: planes 6e..6e+5), as the JAX
-# package's walk_grads_pallas takes it:
-#   d1_cross, direction, kA, kB, j_gate, is_in_pixel (f32 0/1)
-WALK_INV_ROWS = 18
-
-
 def _div(t: torch.Tensor, c: float) -> torch.Tensor:
     """t / c as one IEEE division on every device (a Python number as the
     divisor is a reciprocal multiply on a card)."""
@@ -270,29 +264,48 @@ def _edge_invariants(u_all, v_all, d0, d1, hit, isz: int, axis: int,
                 j_gate=j_gate, is_in_pixel=is_in_pixel)
 
 
+def face_pixel_table(faces: torch.Tensor, isz: int) -> torch.Tensor:
+    """Pixel-space vertex coordinates of every face, [B, F, 6] (x0 y0 x1 y1
+    x2 y2): the face table the walk kernel gathers from."""
+    B, F = faces.shape[:2]
+    pp = 0.5 * (faces[..., :2] * isz + isz - 1)               # [B, F, 3, 2]
+    return pp.reshape(B, F, 6).contiguous()
+
+
+def _gather_pixel_faces(pp: torch.Tensor,
+                        face_index: torch.Tensor) -> torch.Tensor:
+    """Rows of the face table pp [B, F, 6] for each pixel's face,
+    [B, S, S, 3, 2] (face 0's where the pixel is background)."""
+    B, H, W = face_index.shape
+    hit = face_index >= 0
+    fi_c = torch.where(hit, face_index, torch.zeros_like(face_index)).long()
+    return torch.gather(pp, 1, fi_c.reshape(B, H * W, 1).expand(B, H * W, 6)
+                        ).reshape(B, H, W, 3, 2)
+
+
 def face_pixel_coords(faces: torch.Tensor, face_index: torch.Tensor,
                       isz: int) -> torch.Tensor:
     """Pixel-space vertex coordinates of each pixel's face, [B, S, S, 3, 2]
     (face 0's where the pixel is background): the gather that feeds
     `edge_invariant_stack`."""
-    B, F = faces.shape[:2]
-    hit = face_index >= 0
-    fi_c = torch.where(hit, face_index, torch.zeros_like(face_index)).long()
-    pp_all = 0.5 * (faces[..., :2] * isz + isz - 1)          # [B, F, 3, 2]
-    P = face_index.shape[1] * face_index.shape[2]
-    return torch.gather(pp_all.reshape(B, F, 6), 1,
-                        fi_c.reshape(B, P, 1).expand(B, P, 6)
-                        ).reshape(B, isz, isz, 3, 2)
+    face_pixel_coords.calls += 1
+    return _gather_pixel_faces(face_pixel_table(faces, isz), face_index)
+
+
+face_pixel_coords.calls = 0
 
 
 def edge_invariant_stack(pp_px: torch.Tensor, hit: torch.Tensor, isz: int,
                          axis: int) -> torch.Tensor:
     """The walk's 18 invariant planes [B, 18, S, S] for one axis, in image
     layout: axis 0 walks along rows (d1 = y, d0 = x), axis 1 along
-    columns (d1 = x, d0 = y), as the JAX package's XLA loop does.
+    columns (d1 = x, d0 = y), as the JAX package's XLA loop does.  Per
+    edge e, planes 6e..6e+5 hold d1_cross, direction, kA, kB, j_gate and
+    is_in_pixel (f32 0/1), the layout walk_grads_pallas takes.
 
     pp_px [B, S, S, 3, 2]: pixel-space vertex coordinates of each pixel's
     face; hit [B, S, S] bool."""
+    edge_invariant_stack.calls += 1
     idx = torch.arange(isz, dtype=torch.float32, device=pp_px.device)
     yi, xi = idx[None, :, None], idx[None, None, :]
     if axis == 0:
@@ -305,6 +318,9 @@ def edge_invariant_stack(pp_px: torch.Tensor, hit: torch.Tensor, isz: int,
         planes += [E["d1_cross"], E["direction"], E["kA"], E["kB"],
                    E["j_gate"], E["is_in_pixel"].to(torch.float32)]
     return torch.stack(planes, dim=1).contiguous()
+
+
+edge_invariant_stack.calls = 0
 
 
 def _dist_terms(kA, kB, d1_cross, d1_at, diff, gate, eps: float):
@@ -321,10 +337,11 @@ def _dist_terms(kA, kB, d1_cross, d1_at, diff, gate, eps: float):
 def walk_grads_plain(alpha: torch.Tensor, grad_alpha: torch.Tensor,
                      inv: torch.Tensor, n_steps: int, eps: float,
                      axis: int) -> torch.Tensor:
-    """Silhouette walk accumulators for one axis: the plain version of the
-    CUDA walk kernel (csrc/silhouette_walk.cu), the JAX package's
-    fori+roll loop (rasterize.py:462-531) written one IEEE operation at a
-    time in the order the kernel repeats.
+    """Silhouette walk accumulators for one axis from an invariant stack:
+    the walk half of the fused walk kernel's plain version
+    (`walk_grads_faces_plain`), the JAX package's fori+roll loop
+    (rasterize.py:462-531) written one IEEE operation at a time in the
+    order the kernel repeats.
 
     alpha, grad_alpha [B, H, W]; inv [B, 18, H, W] from
     `edge_invariant_stack` for the same axis.  Axis 0 walks along rows,
@@ -374,6 +391,20 @@ def walk_grads_plain(alpha: torch.Tensor, grad_alpha: torch.Tensor,
 
 
 walk_grads_plain.calls = 0
+
+
+def walk_grads_faces_plain(alpha: torch.Tensor, grad_alpha: torch.Tensor,
+                           pp: torch.Tensor, face_index: torch.Tensor,
+                           n_steps: int, eps: float,
+                           axis: int) -> torch.Tensor:
+    """The plain version of the fused walk kernel (csrc/silhouette_walk.cu):
+    the invariant stack of each pixel's face (`edge_invariant_stack` over
+    the face table pp [B, F, 6] gathered by face_index [B, S, S]), then
+    `walk_grads_plain`.  Returns [B, 3, S, S] for one axis."""
+    isz = face_index.shape[1]
+    inv = edge_invariant_stack(_gather_pixel_faces(pp, face_index),
+                               face_index >= 0, isz, axis)
+    return walk_grads_plain(alpha, grad_alpha, inv, n_steps, eps, axis)
 
 
 def segment_face_grads_plain(acc_x: torch.Tensor, acc_y: torch.Tensor,
@@ -443,10 +474,12 @@ def silhouette_grad_pixelwise(
 
     Every contribution of the reference's per-face edge walks belongs to
     a pixel whose own face is the walking face, so the backward is: per
-    pixel invariants (PyTorch), a `walk`-step shifted accumulation per
-    axis (walk kernel), and a pixel->face reduction (reduction kernels,
-    over the boxes of each face's won pixels).  Each kernel is dispatched
-    on the device of its input, as the forward is.
+    axis, a `walk`-step shifted accumulation from each pixel's edge
+    invariants (the walk kernel computes them from the face table; its
+    plain version builds `edge_invariant_stack`), and a pixel->face
+    reduction (reduction kernels, over the boxes of each face's won
+    pixels).  Each kernel is dispatched on the device of its input, as the
+    forward is.
 
     walk: max walk length; 0 = image_size (exact reference semantics).
     Returns grad_faces [B, F, 3, 3] (z component 0)."""
@@ -455,16 +488,11 @@ def silhouette_grad_pixelwise(
     B, F = faces.shape[:2]
     isz = image_size
     W = isz if walk <= 0 else min(walk, isz)
-    pp_px = face_pixel_coords(faces.float(), face_index, isz)
-    hit = face_index >= 0
+    pp = face_pixel_table(faces.float(), isz)
     alpha = alpha.float().contiguous()
     grad_alpha = grad_alpha.float().contiguous()
-    accs = [TC.walk_grads(alpha, grad_alpha,
-                          edge_invariant_stack(pp_px, hit, isz, axis), W, eps,
-                          axis)
-            for axis in range(2)]
     # axis 0 walks along y and yields the y components, axis 1 the x ones
-    acc_y, acc_x = accs
+    acc_y, acc_x = TC.walk_grads(alpha, grad_alpha, pp, face_index, W, eps)
     g = TC.segment_face_grads(acc_x, acc_y, face_index, F)
     g = g.reshape(B, F, 3, 2)
     return torch.cat([g, torch.zeros_like(g[..., :1])], dim=-1)

@@ -57,7 +57,7 @@ _ENTRY = {
                                 _I, _F, _F, _P, _P, _P, _P],
     },
     "silhouette_walk": {
-        "sdn3d_walk_grads": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+        "sdn3d_walk_faces": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     },
     "segment_face_grads": {
         "sdn3d_won_pixel_boxes": [_P, _I, _I, _I, _I, _P, _P],
@@ -423,29 +423,34 @@ def _check_planes(name: str, t: torch.Tensor, shape, dtype, dev) -> None:
 
 
 def walk_grads_cuda(alpha: torch.Tensor, grad_alpha: torch.Tensor,
-                    inv: torch.Tensor, n_steps: int, eps: float,
-                    axis: int) -> torch.Tensor:
-    """Launch the walk kernel (csrc/silhouette_walk.cu) for one axis.
-    alpha, grad_alpha [B, H, W] float32 CUDA; inv [B, 18, H, W] from
-    `rasterize.edge_invariant_stack`.  Returns [B, 3, H, W] float32, the
-    same values as `rasterize.walk_grads_plain`."""
+                    pp: torch.Tensor, face_index: torch.Tensor,
+                    n_steps: int, eps: float) -> torch.Tensor:
+    """Launch the fused walk kernel (csrc/silhouette_walk.cu), which
+    computes each pixel's edge invariants from the face table itself, for
+    both axes in one launch.  alpha, grad_alpha [B, S, S] float32 CUDA; pp
+    [B, F, 6] float32 from `rasterize.face_pixel_table`; face_index
+    [B, S, S] int32.  Returns [2, B, 3, S, S] (axis 0 first), the values of
+    `rasterize.walk_grads_faces_plain` for each axis."""
     if not alpha.is_cuda:
         raise ValueError("walk_grads_cuda needs CUDA tensors")
-    if alpha.dim() != 3 or axis not in (0, 1) or n_steps < 0:
-        raise ValueError(f"alpha must be [B, H, W] and axis 0 or 1, got "
-                         f"{tuple(alpha.shape)}, axis {axis}")
-    B, H, W = alpha.shape
+    if alpha.dim() != 3 or alpha.shape[1] != alpha.shape[2] or n_steps < 0:
+        raise ValueError(f"alpha must be [B, S, S] and n_steps >= 0, got "
+                         f"{tuple(alpha.shape)}, {n_steps}")
+    B, S, _ = alpha.shape
+    F = pp.shape[1] if pp.dim() == 3 else -1
     dev = alpha.device
-    _check_planes("alpha", alpha, (B, H, W), torch.float32, dev)
-    _check_planes("grad_alpha", grad_alpha, (B, H, W), torch.float32, dev)
-    _check_planes("inv", inv, (B, R.WALK_INV_ROWS, H, W), torch.float32, dev)
-    if B == 0 or H == 0 or W == 0:
-        raise ValueError("empty batch or image")
-    out = torch.empty((B, 3, H, W), dtype=torch.float32, device=dev)
+    _check_planes("alpha", alpha, (B, S, S), torch.float32, dev)
+    _check_planes("grad_alpha", grad_alpha, (B, S, S), torch.float32, dev)
+    _check_planes("face_index", face_index, (B, S, S), torch.int32, dev)
+    _check_planes("pp", pp, (B, F, 6), torch.float32, dev)
+    if B == 0 or S == 0 or F <= 0:
+        raise ValueError("empty batch, image or face table")
+    out = torch.empty((2, B, 3, S, S), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _launch("silhouette_walk", "sdn3d_walk_grads", alpha.data_ptr(),
-                grad_alpha.data_ptr(), inv.data_ptr(), out.data_ptr(), B, H,
-                W, int(n_steps), float(eps), int(axis), _stream(dev))
+        _launch("silhouette_walk", "sdn3d_walk_faces", alpha.data_ptr(),
+                grad_alpha.data_ptr(), face_index.data_ptr(), pp.data_ptr(),
+                out.data_ptr(), B, S, F, int(n_steps), float(eps),
+                _stream(dev))
     walk_grads_cuda.launches += 1
     return out
 
@@ -454,16 +459,20 @@ walk_grads_cuda.launches = 0
 
 
 def walk_grads(alpha: torch.Tensor, grad_alpha: torch.Tensor,
-               inv: torch.Tensor, n_steps: int, eps: float,
-               axis: int) -> torch.Tensor:
-    """Silhouette walk accumulators for one axis on the device of
-    `alpha`: the kernel for a CUDA tensor, the plain version for a CPU
-    tensor."""
+               pp: torch.Tensor, face_index: torch.Tensor, n_steps: int,
+               eps: float) -> torch.Tensor:
+    """Silhouette walk accumulators of both axes, [2, B, 3, S, S] (axis 0
+    first), on the device of `alpha`: one launch of the fused kernel for a
+    CUDA tensor, its plain version (`walk_grads_faces_plain`, per axis) for
+    a CPU tensor."""
     if alpha.is_cuda:
-        return walk_grads_cuda(alpha, grad_alpha, inv, n_steps, eps, axis)
+        return walk_grads_cuda(alpha, grad_alpha, pp, face_index, n_steps,
+                               eps)
     if alpha.device.type != "cpu":
         raise ValueError(f"no walk kernel for device {alpha.device}")
-    return R.walk_grads_plain(alpha, grad_alpha, inv, n_steps, eps, axis)
+    return torch.stack([R.walk_grads_faces_plain(
+        alpha, grad_alpha, pp, face_index, n_steps, eps, axis)
+        for axis in (0, 1)])
 
 
 def won_pixel_boxes_cuda(face_index: torch.Tensor,

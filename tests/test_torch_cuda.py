@@ -117,35 +117,54 @@ def test_bin_kernel_matches_plain(cuda, isz):
 
 def _backward_inputs(dev, isz, seed=0, batch=2, num_faces=37):
     """Random faces, their forward face index and alpha, a cotangent, and
-    the walk's invariant stacks of both axes, on `dev`."""
+    the walk's face table, on `dev`."""
     faces, valid, _ = (torch.from_numpy(a).to(dev)
                        for a in _faces(seed, batch, num_faces))
     fi, _ = TC.rasterize_face_index(faces, valid, isz)
     alpha = (fi >= 0).float()
     cot = torch.from_numpy(np.random.RandomState(seed + 1).randn(
         batch, isz, isz).astype(np.float32)).to(dev)
-    pp_px = TR.face_pixel_coords(faces, fi, isz)
-    invs = [TR.edge_invariant_stack(pp_px, fi >= 0, isz, a) for a in (0, 1)]
-    return faces, valid, fi, alpha, cot, invs
+    return faces, valid, fi, alpha, cot, TR.face_pixel_table(faces, isz)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("isz,walk", [(128, 24), (128, 128), (100, 64),
-                                      (100, 100)])
+                                      (100, 100), (144, 64)])
 def test_walk_kernel_matches_plain(cuda, isz, walk):
-    """The walk kernel against its plain version on the same card inputs,
-    both axes: bit-equal (same IEEE operations in the same order, built
-    with -fmad=false).  Walks up to 64 run staged in shared memory, longer
-    ones read global memory; 100^2 has ragged tiles."""
-    _, _, _, alpha, cot, invs = _backward_inputs(cuda, isz, seed=isz + walk)
+    """The fused walk kernel (invariants computed in the kernel) against
+    its plain version (`edge_invariant_stack` + `walk_grads_plain`) on the
+    same card inputs, both axes of one launch: bit-equal (the same IEEE
+    operations in the same order, built with -fmad=false).  Windows up to
+    64 run staged in shared memory, longer ones read global memory; 100^2
+    and 144^2 have ragged tiles."""
+    _, _, fi, alpha, cot, pp = _backward_inputs(cuda, isz, seed=isz + walk)
+    eps = TR.DEFAULT_EPS
+    both = TC.walk_grads_cuda(alpha, cot, pp, fi, walk, eps)
     for axis in (0, 1):
-        got = TC.walk_grads_cuda(alpha, cot, invs[axis], walk, TR.DEFAULT_EPS,
-                                 axis)
-        want = TR.walk_grads_plain(alpha, cot, invs[axis], walk,
-                                   TR.DEFAULT_EPS, axis)
+        want = TR.walk_grads_faces_plain(alpha, cot, pp, fi, walk, eps, axis)
         torch.cuda.synchronize()
         assert want.abs().max() > 0
-        assert torch.equal(got, want), (axis, (got - want).abs().max())
+        assert torch.equal(both[axis], want), (
+            axis, (both[axis] - want).abs().max())
+
+
+@pytest.mark.cuda
+def test_walk_kernel_all_background(cuda):
+    """An image without a face (every pixel background, alpha and
+    cotangent still random): every accumulator is +0.0 in the kernel and
+    in the plain version."""
+    _, _, fi, _, cot, pp = _backward_inputs(cuda, 96, seed=11)
+    fi = torch.full_like(fi, -1)
+    alpha = (torch.rand(fi.shape, generator=torch.Generator().manual_seed(0))
+             > 0.5).float().to(cuda)
+    both = TC.walk_grads_cuda(alpha, cot, pp, fi, 64, TR.DEFAULT_EPS)
+    for axis in (0, 1):
+        got = both[axis]
+        want = TR.walk_grads_faces_plain(alpha, cot, pp, fi, 64,
+                                         TR.DEFAULT_EPS, axis)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and not got.signbit().any()
+        assert (got == 0).all()
 
 
 @pytest.mark.cuda
@@ -181,18 +200,24 @@ def test_silhouette_vjp_kernels_match_plain(cuda):
     composed the same way on the same card: face gradients to 1e-5 of
     the largest (the walks agree bit for bit; the reduction sums in
     another order)."""
-    faces, valid, fi, alpha, cot, invs = _backward_inputs(cuda, 128, seed=3)
+    faces, valid, fi, alpha, cot, pp = _backward_inputs(cuda, 128, seed=3)
     launches = (TC.walk_grads_cuda.launches,
                 TC.segment_face_grads_cuda.launches)
+    stacks = (TR.edge_invariant_stack.calls, TR.face_pixel_coords.calls)
     got = TR.silhouette_grad_pixelwise(faces, fi, alpha, cot, 128,
                                        TR.DEFAULT_EPS, walk=24)[..., :2]
-    acc_x, acc_y = (TR.walk_grads_plain(alpha, cot, invs[a], 24,
-                                        TR.DEFAULT_EPS, a) for a in (1, 0))
+    # the card path builds no invariant stack
+    assert (TR.edge_invariant_stack.calls,
+            TR.face_pixel_coords.calls) == stacks
+    acc_x, acc_y = (TR.walk_grads_faces_plain(alpha, cot, pp, fi, 24,
+                                              TR.DEFAULT_EPS, a)
+                    for a in (1, 0))
     want = TR.segment_face_grads_plain(acc_x, acc_y, fi, faces.shape[1]
                                        ).reshape(got.shape)
     torch.cuda.synchronize()
+    # one walk launch serves both axes
     assert (TC.walk_grads_cuda.launches,
-            TC.segment_face_grads_cuda.launches) == (launches[0] + 2,
+            TC.segment_face_grads_cuda.launches) == (launches[0] + 1,
                                                      launches[1] + 1)
     assert want.abs().max() > 0
     torch.testing.assert_close(got, want, rtol=0,

@@ -91,21 +91,56 @@ def test_edge_invariants_match_jax():
                                                atol=1e-6)
 
 
-@pytest.mark.parametrize("walk", [8, 24])
-def test_walk_plain_matches_pallas_interp(walk):
-    """The port's plain walk (the CUDA walk kernel's plain version) against
-    the TPU kernel `walk_grads_pallas` in interpret mode, as
-    tests/test_rasterize.py runs it, on the same invariant planes, both
-    axes at 128^2 (the TPU kernel walks along dim 1: axis 1 runs on
-    transposed planes).  Bit-equal: the same IEEE operations on both
-    sides, and the zero halo and torch.roll differ only in reads the gates
-    discard."""
+def _jax_invariants(faces, fi, isz, axis):
+    """JAX's own invariant stack for one axis, [B, 18, S, S] in image
+    layout: `_edge_invariants` over JAX's gather of the face table."""
+    pp = 0.5 * (jnp.asarray(faces)[..., :2] * isz + isz - 1)
+    hit = np.asarray(fi) >= 0
+    pp_px = jax.vmap(lambda pb, fb: pb[fb])(pp, jnp.asarray(
+        np.where(hit, np.asarray(fi), 0)))
+    yi = jnp.arange(isz, dtype=jnp.float32)[None, :, None]
+    xi = jnp.arange(isz, dtype=jnp.float32)[None, None, :]
+    u, v, d0, d1 = (0, 1, xi, yi) if axis == 0 else (1, 0, yi, xi)
+    planes = []
+    for e in range(3):
+        E = JR._edge_invariants(pp_px[..., u], pp_px[..., v], d0, d1,
+                                jnp.asarray(hit), isz, axis, e)
+        planes += [E["d1_cross"], E["direction"], E["kA"], E["kB"],
+                   E["j_gate"], E["is_in_pixel"].astype(jnp.float32)]
+    return np.stack([np.broadcast_to(np.asarray(p), hit.shape)
+                     for p in planes], axis=1)
+
+
+@pytest.mark.parametrize("walk,fused", [pytest.param(8, False, id="8"),
+                                        pytest.param(24, False, id="24"),
+                                        pytest.param(24, True, id="fused-24")])
+def test_walk_plain_matches_pallas_interp(walk, fused):
+    """The port's plain walk against the TPU kernel `walk_grads_pallas` in
+    interpret mode, as tests/test_rasterize.py runs it, both axes at 128^2
+    (the TPU kernel walks along dim 1: axis 1 runs on transposed planes).
+
+    walk_grads_plain on the same invariant planes: bit-equal (the same
+    IEEE operations on both sides; the zero halo and torch.roll differ only
+    in reads the gates discard).  fused: the fused walk kernel's plain
+    version `walk_grads_faces_plain`, which builds its own invariants from
+    the face table, against the TPU kernel fed JAX's own `_edge_invariants`
+    stack: rtol 1e-6, because XLA's CPU backend may fuse d1_cross into an
+    FMA (test_edge_invariants_match_jax), which moves a distance term by
+    an ulp (on this input the two agree bit for bit)."""
     isz = 128
     faces, _, fi, alpha, cot = _scene(1, 2, 19, isz)
     for axis in range(2):
-        inv = _invariants(faces, fi, isz, axis)
-        got = TR.walk_grads_plain(alpha, cot, inv, walk, EPS, axis).numpy()
-        a, g, i = alpha.numpy(), cot.numpy(), inv.numpy()
+        if fused:
+            got = TR.walk_grads_faces_plain(
+                alpha, cot, TR.face_pixel_table(torch.from_numpy(faces), isz),
+                fi, walk, EPS, axis).numpy()
+            i = _jax_invariants(faces, fi, isz, axis)
+        else:
+            inv = _invariants(faces, fi, isz, axis)
+            got = TR.walk_grads_plain(alpha, cot, inv, walk, EPS,
+                                      axis).numpy()
+            i = inv.numpy()
+        a, g = alpha.numpy(), cot.numpy()
         if axis == 1:
             a, g, i = a.transpose(0, 2, 1), g.transpose(0, 2, 1), \
                 i.transpose(0, 1, 3, 2)
@@ -115,13 +150,37 @@ def test_walk_plain_matches_pallas_interp(walk):
         if axis == 1:
             want = want.transpose(0, 1, 3, 2)
         assert np.abs(want).max() > 0
-        np.testing.assert_array_equal(got, want)
+        if fused:
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+        else:
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("isz", [48, 100])
+@pytest.mark.parametrize("walk", [8, 24, 0])
+def test_walk_faces_plain_matches_stack_walk(isz, walk):
+    """The fused walk kernel's plain version (face table in, invariants
+    built inside) against the three steps it fuses, face_pixel_coords +
+    edge_invariant_stack + walk_grads_plain, both axes: bit-equal.  walk 0
+    is the whole image (the exact reference semantics); 100^2 has ragged
+    64 x 32 kernel tiles."""
+    faces, _, fi, alpha, cot = _scene(isz + walk, 2, 23, isz)
+    n = walk or isz
+    pp = TR.face_pixel_table(torch.from_numpy(faces), isz)
+    for axis in range(2):
+        got = TR.walk_grads_faces_plain(alpha, cot, pp, fi, n, EPS, axis)
+        want = TR.walk_grads_plain(alpha, cot, _invariants(faces, fi, isz,
+                                                           axis),
+                                   n, EPS, axis)
+        assert want.abs().max() > 0
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 @pytest.mark.parametrize("walk,impl,isz", [(0, "xla", 48), (8, "xla", 48),
                                            (8, "pallas", 128)])
 def test_silhouette_grad_matches_jax_xla_loop(walk, impl, isz):
-    """`silhouette_grad_pixelwise` (plain walk + plain reduction) against
+    """`silhouette_grad_pixelwise` (the fused walk's plain version + plain
+    reduction, as the CPU runs it) against
     JAX's `_silhouette_grad_pixelwise` on the same face index, with its
     XLA roll loop (walk 0, exact, and 8) and with the TPU walk kernel in
     interpret mode (walk 8; it needs a multiple of 128).  rtol 1e-5 on
@@ -294,27 +353,30 @@ def test_render_other_types_not_ported():
 
 def test_backward_wrappers_dispatch_cpu_to_plain():
     """On CPU tensors the walk and reduction wrappers run the plain
-    versions and count no kernel launch; the kernel launchers refuse CPU
-    tensors."""
+    versions (the walk: the fused kernel's plain version, which builds the
+    invariant stack) and count no kernel launch; the kernel launchers
+    refuse CPU tensors."""
     isz = 24
     faces, valid, fi, alpha, cot = _scene(6, 1, 9, isz)
-    inv = _invariants(faces, fi, isz, 0)
-    calls = (TR.walk_grads_plain.calls, TR.segment_face_grads_plain.calls)
+    pp = TR.face_pixel_table(torch.from_numpy(faces), isz)
+    calls = (TR.walk_grads_plain.calls, TR.segment_face_grads_plain.calls,
+             TR.edge_invariant_stack.calls)
     launches = (TC.walk_grads_cuda.launches,
                 TC.segment_face_grads_cuda.launches)
-    acc = TC.walk_grads(alpha, cot, inv, 4, EPS, 0)
-    g = TC.segment_face_grads(acc, acc, fi, faces.shape[1])
+    acc = TC.walk_grads(alpha, cot, pp, fi, 4, EPS)
+    g = TC.segment_face_grads(acc[1], acc[0], fi, faces.shape[1])
     assert len(TC.rasterize_face_index(torch.from_numpy(faces),
                                        torch.from_numpy(valid), isz)) == 2
-    assert acc.shape == (1, 3, isz, isz) and g.shape == (1, 9, 6)
-    assert (TR.walk_grads_plain.calls, TR.segment_face_grads_plain.calls) \
-        == (calls[0] + 1, calls[1] + 1)
+    assert acc.shape == (2, 1, 3, isz, isz) and g.shape == (1, 9, 6)
+    assert (TR.walk_grads_plain.calls, TR.segment_face_grads_plain.calls,
+            TR.edge_invariant_stack.calls) \
+        == (calls[0] + 2, calls[1] + 1, calls[2] + 2)
     assert (TC.walk_grads_cuda.launches,
             TC.segment_face_grads_cuda.launches) == launches
     with pytest.raises(ValueError):
-        TC.walk_grads_cuda(alpha, cot, inv, 4, EPS, 0)
+        TC.walk_grads_cuda(alpha, cot, pp, fi, 4, EPS)
     with pytest.raises(ValueError):
-        TC.segment_face_grads_cuda(acc, acc, fi, 9)
+        TC.segment_face_grads_cuda(acc[1], acc[0], fi, 9)
     with pytest.raises(ValueError):
         TC.won_pixel_boxes_cuda(fi, 9)
 
