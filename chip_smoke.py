@@ -49,7 +49,18 @@ Phases, each of which must pass (any failure exits non-zero):
      busy time and idle share, PyTorch's elementwise kernels (device time
      and launches), and device time by kernel (torch.profiler);
   7. reference: the port's CUDA path against its CPU path on a small input,
-     unrefined and with 2 refinement steps.
+     unrefined and with 2 refinement steps;
+  8. chain: cli/edit_chain.main --source gt at the full-width defaults
+     (semantic ResNet-50 at 5 scales of a 375x1242 frame, the geometric
+     path of phase 4, the pix2pixHD generator and encoder at 192x624) with
+     random weights from --seed, on a synthetic VKITTI root (3 source
+     frames with 5, 11, 16 cars, two edit pairs per source and their
+     reconstruction twins); checks benchmark.json (pairs, finite L1 / SSIM
+     / PSNR), each fake ([192, 624, 3], finite, in [-1, 1]), the labels
+     (< 14), one forward-kernel launch per pair and no plain forward;
+     prints the steady per-stage wall per pair, one profiled pair (device
+     busy, idle share, top kernels), and the chain's CUDA path against its
+     CPU path on small shapes.
 The line before last is the card's name and power limit, the line before
 that the kernels' JSON; the last line is {"ok": true, "device": {...}}.
 """
@@ -524,6 +535,191 @@ def walk_bound(TR, alpha, pp, fi, walk: int):
     return nbytes, ops, walking
 
 
+def write_chain_root(root: str, seed: int):
+    """A VKITTI-layout root for the chain: three 375x1242 source frames
+    (5, 11 and 16 cars, sized and placed as write_assets places them), each
+    in a topic of its own, background-only target frames, and an edit JSON
+    with two edit pairs per source (modify car j, delete car n-1-j) and
+    their reconstruction twins.  Returns the edit JSON's path and the
+    number of edit pairs."""
+    from sdn3d_tpu_torch.data.synthetic import write_vkitti_root
+
+    rng = np.random.RandomState(seed + 1)
+    H, W = 375, 1242
+    frames, pairs, twins = {}, [], []
+    for k, (topic, n) in enumerate((("clone", 5), ("fog", 11), ("rain", 16))):
+        hh = rng.randint(40, 130, n)
+        ww = (hh * rng.uniform(1.2, 2.2, n)).astype(int)
+        y1 = np.clip(rng.randint(150, H - 20, n) - hh // 2, 0, H - 2)
+        x1 = rng.randint(0, W - 60, n)
+        boxes = [(int(a), int(b), int(min(a + h, H)), int(min(b + w, W)))
+                 for a, b, h, w in zip(y1, x1, hh, ww)]
+        src = f"{10 * k:05d}"
+        frames[("0001", topic, src)] = boxes
+
+        def center(i):
+            y1_, x1_, y2_, x2_ = boxes[i]
+            return {"u": str((x1_ + x2_) / 2), "v": str((y1_ + y2_) / 2)}
+        for j in range(2):
+            tgt = f"{10 * k + 1 + j:05d}"
+            frames[("0001", topic, tgt)] = []
+            pairs.append({"world": "0001", "topic": topic, "source": src,
+                          "target": tgt, "operations": [
+                              {"type": "modify", "from": center(j), "to": {},
+                               "zoom": "1.3", "ry": "0.4"},
+                              {"type": "delete", "from": center(n - 1 - j)}]})
+            twins.append({"world": "0001", "topic": topic, "source": src,
+                          "target": src, "operations": []})
+    write_vkitti_root(root, frames, seed=seed)
+    edit_json = os.path.join(root, "chain_edit.json")
+    with open(edit_json, "w") as fh:
+        json.dump(pairs + twins, fh)
+    return edit_json, len(pairs)
+
+
+def profile_chain_pair(shapenet: str, root: str, edit_json: str, seed: int,
+                       card: str, n: int = 10) -> None:
+    """Where one edit pair's time goes on the card, with the phase records
+    off (nothing synchronises the card between stages): EditChain.edit_frame
+    at the full-width defaults on the first edit pair of each source, host
+    wall per call of edit_frame, `n` calls without the per-source caches
+    (semantic, encode, render, textural all run) alternating with `n` calls
+    that hit them; a cached pair must give the same bits as a fresh one.
+    Then device time by kernel under torch.profiler for the uncached first
+    pair."""
+    import torch
+    from PIL import Image
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdn3d_tpu_torch.cli.geometric_main import _keep_largest
+    from sdn3d_tpu_torch.data import vkitti as VK
+    from sdn3d_tpu_torch.pipelines.chain import ChainConfig, EditChain
+
+    chain = EditChain.build(ChainConfig(), shapenet, device="cuda", seed=seed)
+    table = VK.get_tables("inst", root)
+    firsts = {}
+    for item in VK.benchmark_split(VK.load_edit_json(edit_json)):
+        firsts.setdefault(item.source_name, item)
+    cases = []
+    for key, item in firsts.items():
+        frame = int(item.source)
+        image = np.asarray(Image.open(VK.rgb_path(
+            root, item.world, item.topic, frame)).convert("RGB"))
+        dets = _keep_largest(chain.infer_cfg, *VK.gt_objects(
+            root, item.world, item.topic, frame, table))
+        cases.append((key, item.operations, image, dets))
+
+    def run(case, cache_key):
+        _, ops, image, dets = case
+        t0 = time.perf_counter()
+        out = chain.edit_frame(image, operations=ops, dets=dets,
+                               cache_key=cache_key)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    all_fresh, all_cached = [], []
+    for case in cases:
+        key = case[0]
+        run(case, None)
+        _, fresh = run(case, None)
+        run(case, key)                      # fills the caches
+        walls = {None: [], key: []}
+        for _ in range(n):
+            for ck in (None, key):
+                dt, out = run(case, ck)
+                walls[ck].append(dt * 1e3)
+        pairs = [(out[k], fresh[k], k) for k in ("fake", "label")] + [
+            (out["geo"][k], fresh["geo"][k], k)
+            for k in ("instance_png", "normal_png", "depth_png")]
+        for got, want, name in pairs:
+            if not np.array_equal(got, want):
+                diff = np.abs(got.astype(np.float64) - want).max()
+                raise AssertionError(f"{key}: a cached pair's {name} differs "
+                                     f"from a fresh pair's by up to {diff}")
+        all_fresh += walls[None]
+        all_cached += walls[key]
+        log(f"[chain-wall] {key} ({len(case[3][0])} cars), edit_frame wall "
+            f"over {n} calls each, ms mean/median/min: uncached "
+            f"{np.mean(walls[None]):.3f}/{np.median(walls[None]):.3f}/"
+            f"{np.min(walls[None]):.3f}, cached {np.mean(walls[key]):.3f}/"
+            f"{np.median(walls[key]):.3f}/{np.min(walls[key]):.3f}; cached "
+            f"fake, label and planes bit-equal to a fresh pair ({card})")
+    log(f"[chain-wall] all sources: uncached pair {np.mean(all_fresh):.3f} "
+        f"ms mean, {np.median(all_fresh):.3f} median; cached pair "
+        f"{np.mean(all_cached):.3f} ms mean, {np.median(all_cached):.3f} "
+        f"median ({len(all_fresh)} calls each; {card})")
+
+    first = cases[0]
+    m = 3
+    t0 = time.perf_counter()
+    for _ in range(m):
+        run(first, None)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / m
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(m):
+            run(first, None)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            rec = by_name.setdefault(e.name, [0.0, 0])
+            rec[0] += e.time_range.elapsed_us() / 1e3 / m
+            rec[1] += 1
+    busy_ms = sum(v[0] for v in by_name.values())
+    what = f"chain pair ({len(first[3][0])} cars, no cache)"
+    if busy_ms == 0.0:
+        log(f"[profile] {what}: wall {wall_ms:.3f} ms/pair; device time not "
+            f"measured (the profiler saw no device events)")
+        return
+    log(f"[profile] {what}: wall {wall_ms:.3f} ms/pair, device busy "
+        f"{busy_ms:.3f} ms/pair, idle share {1.0 - busy_ms / wall_ms:.4f} "
+        f"({card})")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    for name, (ms, count) in top:
+        log(f"[profile]   {ms:9.4f} ms/pair  {count // m:4d} launches/pair"
+            f"  {name[:90]}")
+
+
+def chain_reference(shapenet: str, root: str, edit_json: str,
+                    seed: int) -> None:
+    """The chain's CUDA path against its CPU path on one pair at small
+    shapes (scale 100, render 64, 160x48 textural frames; full-width
+    models, the same weights): labels and instance planes agree on
+    >= 99.9% of pixels (ulp differences move near-ties and boundary
+    pixels), the fakes by at most 5e-2 and on average by at most 1e-3."""
+    from PIL import Image
+
+    from sdn3d_tpu_torch.cli.geometric_main import _keep_largest
+    from sdn3d_tpu_torch.data import vkitti as VK
+    from sdn3d_tpu_torch.pipelines.chain import ChainConfig, EditChain
+
+    cfg = ChainConfig(scales=(100,), image_size=64, render_size=64,
+                      load_size=160, fine_width=160, fine_height=48)
+    item = VK.benchmark_split(VK.load_edit_json(edit_json))[0]
+    frame = int(item.source)
+    image = np.asarray(Image.open(VK.rgb_path(root, item.world, item.topic,
+                                              frame)).convert("RGB"))
+    outs = {}
+    for d in ("cpu", "cuda"):
+        chain = EditChain.build(cfg, shapenet, device=d, seed=seed)
+        dets = _keep_largest(chain.infer_cfg, *VK.gt_objects(
+            root, item.world, item.topic, frame, VK.get_tables("inst", root)))
+        outs[d] = chain.edit_frame(image, operations=item.operations,
+                                   dets=dets)
+    a, b = outs["cpu"], outs["cuda"]
+    lab = float((a["label"] == b["label"]).mean())
+    inst = float((a["geo"]["instance_png"] == b["geo"]["instance_png"]).mean())
+    d = np.abs(a["fake"] - b["fake"])
+    if lab < 0.999 or inst < 0.999 or d.max() > 5e-2 or d.mean() > 1e-3:
+        raise AssertionError(f"chain cuda vs cpu: label agreement {lab}, "
+                             f"instance agreement {inst}, fake max |diff| "
+                             f"{d.max()}, mean {d.mean()}")
+    log(f"[reference] chain cuda vs cpu on one pair (scale 100, render 64, "
+        f"160x48): label agreement {lab}, instance agreement {inst}, fake "
+        f"max |diff| {float(d.max()):.3g}, mean {float(d.mean()):.3g}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -969,12 +1165,91 @@ def main(argv=None) -> int:
         log(f"[reference] cuda vs cpu path on 96x160, num_opts {num_opts}: "
             f"instance agreement {agree}, max normal byte diff {nrm_diff}")
 
+    # -- 8. chain: the fused edit chain at full width ------------------------
+    from sdn3d_tpu_torch.cli import edit_chain
+    from sdn3d_tpu_torch.pipelines.chain import EditChain
+    with tempfile.TemporaryDirectory(prefix="sdn3d_chain_") as tmp:
+        t0 = time.perf_counter()
+        shapenet, _ = write_assets(tmp, args.seed)
+        root = os.path.join(tmp, "vkitti")
+        edit_json, n_pairs = write_chain_root(root, args.seed)
+        log(f"[chain] wrote assets and a VKITTI root ({n_pairs} edit pairs) "
+            f"in {time.perf_counter() - t0:.1f} s")
+        seen = []
+        edit_frame = EditChain.edit_frame
+
+        def edit_recording(self, image_rgb, **kw):
+            out = edit_frame(self, image_rgb, **kw)
+            f = out["fake"]
+            seen.append((f.shape, bool(np.isfinite(f).all()),
+                         float(np.abs(f).max()), int(out["label"].max())))
+            return out
+
+        EditChain.edit_frame = edit_recording
+        launch.launches = 0
+        for fn in inner:
+            fn.launches = 0
+        for fn in plain_fns:
+            fn.calls = 0
+        t0 = time.perf_counter()
+        edit_chain.main([
+            "--edit_json", edit_json, "--data_root", root,
+            "--shapenet_root", shapenet, "--seed", str(args.seed),
+            "--results_dir", os.path.join(tmp, "chain_out"), "--phases"])
+        torch.cuda.synchronize()
+        c_wall = time.perf_counter() - t0
+        c_launches, c_inner, c_plain = (launch.launches, inner_counts(),
+                                        plain_counts())
+        EditChain.edit_frame = edit_frame
+        phases.reset(False)
+        with open(os.path.join(tmp, "chain_out", "benchmark.json")) as fh:
+            saved = json.load(fh)
+        bad = [s_ for s_ in seen if s_[0] != (192, 624, 3) or not s_[1]
+               or s_[2] > 1.0 or s_[3] >= 14]
+        metrics_ok = all(np.isfinite(saved[k]) for k in
+                         ("mean_L1", "mean_SSIM", "mean_PSNR"))
+        if saved["pairs"] != n_pairs or len(seen) != n_pairs or bad \
+                or not metrics_ok:
+            raise AssertionError(f"chain outputs: pairs {saved['pairs']} of "
+                                 f"{n_pairs}, fakes {seen}, metrics {saved}")
+        if c_launches != n_pairs or c_inner[:2] != (n_pairs, n_pairs) \
+                or any(c_plain):
+            raise AssertionError(f"chain path: forward launches {c_launches} "
+                                 f"(bin, raster {c_inner[:2]}) for {n_pairs} "
+                                 f"pairs, plain calls {c_plain}")
+        log(f"[chain] {n_pairs} pairs in {c_wall:.2f} s (models built "
+            f"included); forward kernel launches {c_launches} (bin "
+            f"{c_inner[0]}, raster {c_inner[1]}); plain calls (rasterizer, "
+            f"walk, reduction, edge_invariant_stack, face_pixel_coords) "
+            f"{c_plain}; fakes {seen[0][0]} finite, max |fake| "
+            f"{max(s_[2] for s_ in seen):.4f}, max label "
+            f"{max(s_[3] for s_ in seen)}")
+        log(f"[chain] benchmark.json: mean_L1 {saved['mean_L1']:.6f}, "
+            f"mean_SSIM {saved['mean_SSIM']:.6f}, mean_PSNR "
+            f"{saved['mean_PSNR']:.4f}, chain_s {saved['chain_s']:.4f}, "
+            f"steady_s_per_pair {saved['steady_s_per_pair']:.4f}, "
+            f"edits_per_sec {saved['edits_per_sec']:.4f}, stage_s "
+            f"{saved['stage_s']} ({card})")
+        # steady wall per stage and per pair: a stage's steady per-call time
+        # times its calls over the pairs (the cached stages run once per
+        # source); the first call of each phase carries one-time set-up
+        for name, rec in sorted(saved["phase_breakdown"].items()):
+            steady = rec.get("steady_avg_s")
+            per_pair = ("n/a" if steady is None else
+                        f"{steady * rec['calls'] / n_pairs:.6f}")
+            log(f"[chain] phase {name}: calls {rec['calls']} first_s "
+                f"{rec.get('first_s', rec['s']):.6f} steady_avg_s "
+                f"{steady if steady is not None else 'n/a'} steady s/pair "
+                f"{per_pair} MB {rec['MB']:.3f} ({card})")
+        profile_chain_pair(shapenet, root, edit_json, args.seed, card)
+        chain_reference(shapenet, root, edit_json, args.seed)
+
     kernels = [{
         "name": "rasterize_forward",
         "route": "cuda",
         "source": "sdn3d_tpu_torch/csrc/rasterize.cu",
         "replaces": "sdn3d_tpu/ops/rasterize_pallas.py:662",
-        "launches": launches,
+        "launches": c_launches,       # the chain path's (phase 8)
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,

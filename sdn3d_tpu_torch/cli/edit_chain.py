@@ -1,0 +1,187 @@
+"""Fused single-process edit benchmark, PyTorch port.
+
+Runs the edit protocol — semantic labels, geometric de-render + edit +
+re-render, textural regeneration, L1 / SSIM / PSNR against the target —
+in ONE process with all three branch models resident on `--device`
+(default cuda; pipelines/chain.py), instead of the reference's three
+processes glued by PNG files (README.md:153-189).  Writes
+RESULTS_DIR/benchmark.json and an HTML gallery; `--dump_dirs` also writes
+the per-stage file contract.
+
+    python -m sdn3d_tpu_torch.cli.edit_chain --edit_json E.json \\
+        --data_root VKITTI_ROOT --shapenet_root SHAPENET_ROOT
+
+Not ported yet, each raising NotImplementedError: --source maskrcnn,
+--batch_pairs > 1, --pipeline, --lpips_ckpt (LPIPS itself waits for
+models/lpips.py, so the result has no LPIPS column) and the
+device-downsized fetch (the port always fetches the full-resolution
+planes; the JAX package documents its outputs as identical either way).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+
+
+def build_argparser():
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--edit_json", required=True)
+    p.add_argument("--data_root", default=os.environ.get("VKITTI_ROOT_DIR"))
+    p.add_argument("--shapenet_root",
+                   default=os.environ.get("SHAPENET_ROOT_DIR"))
+    p.add_argument("--source", choices=["gt", "maskrcnn"], default="gt")
+    p.add_argument("--semantic_ckpt", default=None)
+    p.add_argument("--derender_ckpt", default=None)
+    p.add_argument("--textural_ckpt", default=None)
+    p.add_argument("--maskrcnn_ckpt", default=None)
+    p.add_argument("--results_dir", default="./benchmark_chain_out")
+    p.add_argument("--dump_dirs", default=None,
+                   help="write the standard file contract under "
+                        "DIR/segm and DIR/geo as a side effect")
+    p.add_argument("--limit", type=int, default=None)
+    p.add_argument("--batch_pairs", type=int, default=1,
+                   help="pairs per device pass (only 1 is ported)")
+    p.add_argument("--pipeline", action="store_true",
+                   help="overlapped chunks (not ported yet)")
+    # stage shape knobs (defaults = the per-stage CLI defaults)
+    p.add_argument("--scales", type=int, nargs="+",
+                   default=[100, 150, 200, 300, 375])
+    p.add_argument("--image_size", type=int, default=256)
+    p.add_argument("--render_size", type=int, default=384)
+    p.add_argument("--num_opts", type=int, default=0)
+    p.add_argument("--mode", default="extend")
+    p.add_argument("--load_size", type=int, default=624)
+    p.add_argument("--fine_width", type=int, default=624)
+    p.add_argument("--fine_height", type=int, default=192)
+    p.add_argument("--compute_dtype", default="float32",
+                   choices=["float32"])
+    p.add_argument("--phases", action="store_true",
+                   help="record a per-phase wall-clock + transfer-byte "
+                        "breakdown (utils/phases.py) into the result JSON; "
+                        "synchronises the card between phases")
+    p.add_argument("--lpips_ckpt", default=None,
+                   help="LPIPS checkpoint (not ported yet)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; nothing falls back to the CPU")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the random weights of every model whose "
+                        "checkpoint is not given")
+    return p
+
+
+def main(argv=None):
+    from PIL import Image
+
+    from sdn3d_tpu_torch.cli.geometric_main import _keep_largest
+    from sdn3d_tpu_torch.data import vkitti as VK
+    from sdn3d_tpu_torch.data.textural_data import transform_image
+    from sdn3d_tpu_torch.pipelines.chain import ChainConfig, EditChain
+    from sdn3d_tpu_torch.utils import metrics, phases
+    from sdn3d_tpu_torch.utils.visualizer import HTMLGallery, tensor2im
+
+    args = build_argparser().parse_args(argv)
+    if args.source == "maskrcnn":
+        raise NotImplementedError(
+            "--source maskrcnn: Mask R-CNN is not ported yet (ROADMAP.md A, "
+            "detection)")
+    if args.batch_pairs != 1 or args.pipeline:
+        raise NotImplementedError(
+            "--batch_pairs > 1 and --pipeline wait for a later slice "
+            "(ROADMAP.md A, edit_frames / pipelined)")
+    if args.lpips_ckpt:
+        raise NotImplementedError(
+            "--lpips_ckpt: LPIPS waits for models/lpips.py (ROADMAP.md A)")
+    if args.phases:
+        phases.reset(True)
+    cfg = ChainConfig(scales=tuple(args.scales), image_size=args.image_size,
+                      render_size=args.render_size, num_opts=args.num_opts,
+                      mode=args.mode, load_size=args.load_size,
+                      fine_width=args.fine_width,
+                      fine_height=args.fine_height,
+                      compute_dtype=args.compute_dtype)
+    chain = EditChain.build(
+        cfg, args.shapenet_root, semantic_ckpt=args.semantic_ckpt,
+        derender_ckpt=args.derender_ckpt, textural_ckpt=args.textural_ckpt,
+        maskrcnn_ckpt=args.maskrcnn_ckpt, device=args.device, seed=args.seed)
+
+    items = VK.benchmark_split(VK.load_edit_json(args.edit_json))
+    if args.limit:
+        items = items[:args.limit]
+    table_inst = VK.get_tables("inst", args.data_root)
+    gallery = HTMLGallery(args.results_dir, "fused edit benchmark")
+    wh = (args.fine_width, args.fine_height)
+
+    l1s, ssims, psnrs = [], [], []
+    pair_s = []        # edit seconds per pair
+    dets_cache = {}    # GT decode per source (scenegt PNG + LUT walk)
+    scoring_s = 0.0    # metric/gallery/dump cost, not part of the edit
+    for item in items:
+        tp = time.perf_counter()
+        frame = int(item.source)
+        image = np.asarray(Image.open(VK.rgb_path(
+            args.data_root, item.world, item.topic, frame)).convert("RGB"))
+        dets = dets_cache.get(item.source_name)
+        if dets is None:
+            dets = _keep_largest(chain.infer_cfg, *VK.gt_objects(
+                args.data_root, item.world, item.topic, frame, table_inst))
+            dets_cache[item.source_name] = dets
+        out = chain.edit_frame(image, operations=item.operations, dets=dets,
+                               cache_key=item.source_name)
+        pair_s.append(time.perf_counter() - tp)
+
+        ts = time.perf_counter()
+        tgt = os.path.join(args.data_root, "vkitti_1.3.1_rgb", item.world,
+                           item.topic, f"{item.target}.png")
+        target_t = transform_image(Image.open(tgt).convert("RGB"),
+                                   args.load_size, wh)
+        l1 = float(np.abs(out["fake"] - target_t).mean())
+        fake_u8, target_u8 = tensor2im(out["fake"]), tensor2im(target_t)
+        l1s.append(l1)
+        ssims.append(metrics.ssim(fake_u8, target_u8))
+        psnrs.append(metrics.psnr(fake_u8, target_u8))
+        gallery.add_images({"generated": fake_u8, "target": target_u8},
+                           item.target_name)
+        if args.dump_dirs:
+            chain.dump(out["label"], out["geo"],
+                       os.path.join(args.dump_dirs, "segm"),
+                       os.path.join(args.dump_dirs, "geo"),
+                       item.source_name, item.target_name)
+        print(f"{item.target_name}: L1={l1:.4f} SSIM={ssims[-1]:.4f} "
+              f"PSNR={psnrs[-1]:.3f}")
+        scoring_s += time.perf_counter() - ts
+    dt = float(sum(pair_s))                    # edit work; scoring excluded
+
+    result = {
+        "mean_L1": float(np.mean(l1s)),
+        "mean_SSIM": float(np.mean(ssims)),
+        "mean_PSNR": float(np.mean(psnrs)),
+        "pairs": len(l1s),
+        "batch_pairs": 1,
+        "pipelined": False,
+        "chain_s": dt,
+        "scoring_s": round(scoring_s, 3),
+        "stage_s": {k: round(v, 3) for k, v in chain.stage_s.items()},
+        "edits_per_sec": len(l1s) / dt,
+    }
+    if len(pair_s) > 1:
+        # serving-rate view: one-time set-up lands on the first pair
+        steady = sum(pair_s[1:]) / (len(pair_s) - 1)
+        result["steady_s_per_pair"] = steady
+        result["steady_edits_per_sec"] = 1.0 / steady
+    if args.phases:
+        result["phase_breakdown"] = phases.snapshot()
+    os.makedirs(args.results_dir, exist_ok=True)
+    with open(os.path.join(args.results_dir, "benchmark.json"), "w") as f:
+        json.dump(result, f, indent=2)
+    print(json.dumps(result))
+    gallery.save()
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,200 @@
+"""Textural edit step (mirrors textural/edit_vkitti.py), PyTorch port.
+
+The functions the fused edit chain (pipelines/chain.py) calls: load the
+textural nets, extract per-instance texture codes from the SOURCE image,
+rebuild the conditioning per edit frame from the geometric outputs and
+generate (edit_vkitti.py:41-107).  The JAX package's standalone
+file-contract CLI (`main`) is not ported.  `load_trainer` reads
+`args.ckpt_dir`, a torch file {"netG": state_dict, "netE": state_dict}
+written from JAX parameters by sdn3d_tpu_torch.utils.port
+(global_generator_state_dict_from_jax, encoder_state_dict_from_jax);
+without it the weights are random, drawn from `args.seed`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def load_trainer(args, cfg=None):
+    """TexturalTrainer (netG, netE) in eval mode on args.device, built
+    from `cfg` (default TexturalConfig()).  Random weights from args.seed
+    (drawn inside torch.random.fork_rng, so the caller's global generator
+    is untouched) unless args.ckpt_dir names a torch file
+    {"netG": ..., "netE": ...}."""
+    import torch
+
+    from sdn3d_tpu_torch.pipelines.textural import (TexturalConfig,
+                                                    TexturalTrainer)
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(args.seed)
+        trainer = TexturalTrainer(cfg or TexturalConfig())
+    if args.ckpt_dir:
+        sd = torch.load(args.ckpt_dir, map_location="cpu")
+        trainer.load_state_dicts(sd["netG"], sd["netE"])
+        print(f"restored textural state_dicts {args.ckpt_dir}")
+    else:
+        print("WARNING: no --ckpt_dir; random generator weights")
+    return trainer.to(device)
+
+
+def prepare_source_begin(trainer, src_img, label_img, load_size, wh):
+    """Host transforms + the netE feature-means pass for one source frame;
+    the (tiny) table stays on the device.  Returns a pending handle for
+    prepare_source_finish."""
+    import torch
+
+    from sdn3d_tpu_torch.data.textural_data import (dense_instance_slots,
+                                                    transform_image)
+
+    base_img_t = transform_image(src_img.convert("RGB"), load_size, wh)
+    base_label = (np.asarray(transform_image(
+        label_img, load_size, wh, nearest=True,
+        normalize=False)) * 255.0).astype(np.int32)[..., 0]
+    src_slots, _ = dense_instance_slots(base_label,
+                                        trainer.cfg.max_instances)
+    dev = trainer.device
+    feat_means_dev = trainer.encode_feat_means(
+        torch.from_numpy(base_img_t[None]).to(dev),
+        torch.from_numpy(src_slots[None]).to(dev))   # [1, max_inst, feat]
+    return base_img_t, base_label, feat_means_dev
+
+
+def prepare_source_finish(pending):
+    base_img_t, base_label, feat_means_dev = pending
+    return base_img_t, base_label, feat_means_dev.cpu().numpy()[0]
+
+
+def prepare_source_inputs(trainer, src_img, label_img, load_size, wh):
+    """Source-side textural inputs from PIL images: the transformed RGB in
+    [-1, 1], the int32 label map at target resolution, and the per-slot
+    source feature-code table [max_instances, feat] (netE + instance means
+    in one device pass; its slot order is dense_instance_slots(base_label)).
+    Exactly prepare_source_finish(prepare_source_begin(...))."""
+    return prepare_source_finish(prepare_source_begin(
+        trainer, src_img, label_img, load_size, wh))
+
+
+def assemble_edit_conditioning(trainer, base_img_t, base_label, inst_img,
+                               json_obj, normal_img, wh, args, feats=None):
+    """Host-side conditioning for one edit frame (edit_vkitti.py:62-107):
+    transformed maps + instance slots + the per-slot source-code table, as
+    numpy.  Returns (maps, slots, feat_table, normal_u8, inst_raw):
+    `feat_table` [max_instances, feat] holds each target slot's source code
+    (zeros where the source has no instance of that id); `normal_u8` the
+    resized normal PNG bytes (None without a normal map); `inst_raw` the
+    resized raw instance plane (uint8).  The JAX package's
+    device-downsized planes (`inst_small`, `normal_small`) wait for
+    small_fetch (ROADMAP.md A)."""
+    from sdn3d_tpu_torch.data.textural_data import (
+        assemble_condition_maps, dense_instance_slots, transform_image)
+
+    inst_png = np.asarray(transform_image(
+        inst_img, args.load_size, wh, nearest=True, normalize=False)
+        * 255.0).astype(np.int32)[..., 0]
+    normal_png = None
+    if normal_img is not None:
+        normal_png = np.asarray(transform_image(
+            normal_img.convert("RGB"), args.load_size, wh,
+            normalize=False)) * 255.0
+
+    maps = assemble_condition_maps(base_label, inst_png, json_obj,
+                                   normal_png)
+    if normal_png is not None:
+        # PIL resizes uint8 images in uint8, so these floats are
+        # integer-valued: the uint8 cast is lossless
+        normal_u8 = normal_png.astype(np.uint8)
+    else:
+        # no normal map (the reference's 'no cars' frame,
+        # edit_vkitti.py:88-95): the generator must see exact 0.0, which
+        # fake_inference applies through normal_valid
+        maps["normal"] = np.zeros(base_img_t.shape, np.float32)
+        normal_u8 = None
+
+    cfg = trainer.cfg
+    slots, mapping = dense_instance_slots(maps["inst"], cfg.max_instances)
+    src_slots, src_mapping = dense_instance_slots(
+        np.asarray(base_label), cfg.max_instances)
+    if feats is None:
+        import torch
+        dev = trainer.device
+        feats = trainer.encode_feat_means(
+            torch.from_numpy(base_img_t[None]).to(dev),
+            torch.from_numpy(src_slots[None]).to(dev)).cpu().numpy()[0]
+    means_np = np.asarray(feats, np.float32)     # [max_instances, feat]
+    # codes are looked up by matching instance ids between source and
+    # target (edit_vkitti.py:57,99-105): same k*1000 id = same object
+    feat_table = np.zeros((cfg.max_instances, cfg.feat_num), np.float32)
+    for inst_id, slot in mapping.items():
+        src_slot = src_mapping.get(inst_id)
+        if src_slot is not None:
+            feat_table[slot] = means_np[src_slot]
+    inst_raw = inst_png.astype(np.uint8)
+    return maps, slots, feat_table, normal_u8, inst_raw
+
+
+def generate_edit_batch(trainer, items, wh, args):
+    """Assemble each frame's conditioning on the host, then ONE
+    fake_inference over the stacked [N, H, W] batch.  Each items[i] needs
+    base_img_t, base_label, inst_img, json_obj, and optional normal_img /
+    feats.  Returns (list of [H, W, 3] fakes, list of condition-map
+    dicts)."""
+    import torch
+
+    from sdn3d_tpu_torch.utils import phases
+
+    with phases.phase("tex.assemble"):
+        assembled = [
+            assemble_edit_conditioning(
+                trainer, it["base_img_t"], it["base_label"],
+                it.get("inst_img"), it["json_obj"], it.get("normal_img"),
+                wh, args, feats=it.get("feats"))
+            for it in items]
+    dev = trainer.device
+    with phases.phase("tex.upload"):
+        # the smallest lossless dtypes: label ids <= 14, pose bins <= 24,
+        # slots < max_instances, raw instance and normal PNG bytes
+        host = {
+            "label": np.stack([m["label"] for m, *_ in assembled]
+                              ).astype(np.uint8),
+            "inst": np.stack([a[4] for a in assembled]),
+            "inst_slots": np.stack([a[1] for a in assembled]
+                                   ).astype(np.uint8),
+            "pose": np.stack([m["pose"] for m, *_ in assembled]
+                             ).astype(np.uint8),
+            "normal": np.stack([
+                a[3] if a[3] is not None
+                else np.zeros(items[i]["base_img_t"].shape, np.uint8)
+                for i, a in enumerate(assembled)]),
+            "normal_valid": np.asarray([a[3] is not None for a in assembled],
+                                       np.float32),
+        }
+        feat_tables = np.stack([a[2] for a in assembled])
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        feat_dev = torch.from_numpy(feat_tables).to(dev)
+        phases.block(batch)
+        phases.add_bytes("tex.upload", feat_tables, *host.values())
+    with phases.phase("tex.generate"):
+        fakes = trainer.fake_inference(batch, feat_dev).cpu().numpy()
+        phases.add_bytes("tex.generate", fakes)
+    return list(fakes), [a[0] for a in assembled]
+
+
+def generate_edit_from_images(trainer, base_img_t, base_label, inst_img,
+                              json_obj, normal_img, wh, args, feats=None):
+    """The textural edit step from in-memory PIL images (the fused chain's
+    entry point, pipelines/chain.py).  `inst_img` is the full-resolution
+    instance map (L mode), `normal_img` an RGB image or None; `feats`
+    optionally carries the source's per-slot code table so callers can
+    cache it across pairs sharing a source."""
+    fakes, maps_list = generate_edit_batch(
+        trainer,
+        [{"base_img_t": base_img_t, "base_label": base_label,
+          "inst_img": inst_img, "json_obj": json_obj,
+          "normal_img": normal_img, "feats": feats}],
+        wh, args)
+    return fakes[0], maps_list[0]

@@ -64,8 +64,8 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def load_derenderer(args):
-    """(model, bank) on args.device.  Random weights from args.seed unless
-    --ckpt_dir names a torch state_dict."""
+    """(model, bank) on args.device.  Random weights from args.seed (inside
+    torch.random.fork_rng) unless --ckpt_dir names a torch state_dict."""
     import torch
 
     from sdn3d_tpu_torch.geometry.assets import load_shapenet_bank
@@ -74,8 +74,10 @@ def load_derenderer(args):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device")
-    torch.manual_seed(getattr(args, "seed", 0))
-    model = Derenderer(num_classes=8)
+    # drawn inside fork_rng: the caller's global generator is untouched
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(getattr(args, "seed", 0))
+        model = Derenderer(num_classes=8)
     if args.ckpt_dir:
         sd = torch.load(args.ckpt_dir, map_location="cpu")
         model.load_state_dict(sd)
@@ -144,6 +146,13 @@ def save_outputs(out: dict, output_dir: str, name: str) -> None:
         json.dump(out["json_obj"], f, indent=4)
     with open(os.path.join(output_dir, f"{name}.pkl"), "wb") as f:
         pickle.dump(out["state"], f)
+
+
+def _keep_largest(cfg, class_ids, masks, rois):
+    """keep <=16 largest masks (scripts/main.py:812-818)."""
+    from sdn3d_tpu_torch.pipelines.derender_infer import \
+        keep_largest_detections
+    return keep_largest_detections(cfg, class_ids, masks, rois)
 
 
 def _iter_work(args):

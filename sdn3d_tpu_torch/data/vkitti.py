@@ -1,21 +1,32 @@
 """Virtual KITTI 1.3.1 data layer (host-side numpy), the subset the
-geometric serving path uses.
+serving paths use.
 
-Counterpart of sdn3d_tpu/data/vkitti.py: the camera intrinsics, the ROI
-crop transforms (geometric/derender3d/datasets.py:18-137) and the
-edit-benchmark JSON protocol.  Crops go through numpy + PIL (the JAX
+Counterpart of sdn3d_tpu/data/vkitti.py: the scenegt lookup tables and
+GT objects (datasets/vkitti_utils.py, the geometric CLI's `--source gt`),
+the camera intrinsics, the ROI crop transforms
+(geometric/derender3d/datasets.py:18-137) and the edit-benchmark JSON
+protocol.  Crops and the scenegt decode go through numpy + PIL (the JAX
 package may route them through its native host library, whose float
-crops match this path to 1e-5).  Dataset iteration (scenegt decoding,
-GT objects) waits for a later slice.
+crops match this path to 1e-5 and whose decode is the same lookup).
+The train/test split lists wait for the trainers.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import List, Sequence
+import os
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+WORLD_IDS = ["0001", "0002", "0006", "0018", "0020"]
+SCENE_IDS = ["15-deg-left", "15-deg-right", "30-deg-left", "30-deg-right",
+             "clone", "fog", "morning", "overcast", "rain", "sunset"]
+# 14 background/semantic categories (datasets/vkitti_utils.py:8-10).
+CATEGORIES = ["Misc", "Building", "Car", "GuardRail", "Pole", "Road", "Sky",
+              "Terrain", "TrafficLight", "TrafficSign", "Tree", "Truck",
+              "Van", "Vegetation"]
 
 
 class Camera:
@@ -25,6 +36,103 @@ class Camera:
     focal = 725.0
     u0 = 620.5
     v0 = 187.0
+
+
+def get_tables(opt: str, datadir: str
+               ) -> Dict[Tuple[str, str, int, int, int], int]:
+    """scenegt RGB -> {segm class | instance id} lookup
+    (vkitti_utils.py:12-42).  Instance id = 5000 * category + global_obj."""
+    global_obj_id = 0
+    table_inst, table_segm = {}, {}
+    for world in WORLD_IDS:
+        for scene in SCENE_IDS:
+            path = os.path.join(
+                datadir, "vkitti_1.3.1_scenegt",
+                f"{world}_{scene}_scenegt_rgb_encoding.txt")
+            with open(path) as fin:
+                for i, line in enumerate(fin):
+                    if i == 0:
+                        continue
+                    name, r, g, b = line.split(" ")
+                    key = (world, scene, int(r), int(g), int(b))
+                    if ":" not in name:
+                        table_segm[key] = CATEGORIES.index(name)
+                        table_inst[key] = CATEGORIES.index(name)
+                    else:
+                        global_obj_id += 1
+                        cat = CATEGORIES.index(name.split(":")[0])
+                        table_segm[key] = cat
+                        table_inst[key] = 5000 * cat + global_obj_id
+    return table_segm if opt == "segm" else table_inst
+
+
+def decode_scenegt(img_rgb: np.ndarray, world: str, scene: str,
+                   table: Dict) -> np.ndarray:
+    """scenegt RGB png [H, W, 3] -> id map [H, W] int32 via the lookup
+    table (-1 for colours not in it): a sorted-key search over the packed
+    24-bit colours (the JAX package's numpy path of its native decode)."""
+    keys = {}
+    for (w, s, r, g, b), v in table.items():
+        if w == world and s == scene:
+            keys[(r << 16) | (g << 8) | b] = v
+    if not keys:
+        return np.full(img_rgb.shape[:2], -1, np.int32)
+    lut_keys = np.asarray(sorted(keys), np.uint32)
+    lut_vals = np.asarray([keys[int(k)] for k in lut_keys], np.int32)
+    img = np.ascontiguousarray(img_rgb, np.uint8)
+    flat = ((img[..., 0].astype(np.uint32) << 16)
+            | (img[..., 1].astype(np.uint32) << 8)
+            | img[..., 2].astype(np.uint32)).ravel()
+    idx = np.clip(np.searchsorted(lut_keys, flat), 0, len(lut_keys) - 1)
+    out = np.where(lut_keys[idx] == flat, lut_vals[idx], -1)
+    return out.reshape(img.shape[:2]).astype(np.int32)
+
+
+def rgb_path(root: str, world: str, topic: str, frame: int) -> str:
+    """VKITTI 1.3.1 RGB frame path."""
+    return os.path.join(root, "vkitti_1.3.1_rgb", world, topic,
+                        f"{frame:05d}.png")
+
+
+def scenegt_path(root: str, world: str, topic: str, frame: int) -> str:
+    return os.path.join(root, "vkitti_1.3.1_scenegt", world, topic,
+                        f"{frame:05d}.png")
+
+
+def gt_objects(root: str, world: str, topic: str, frame: int,
+               table_inst: Dict, min_area: int = 50,
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """GT instance proposals from the scenegt map — the `--source gt`
+    path (vehicle instances only, area > 50 px, matching the Mask R-CNN
+    data loader's filter, maskrcnn/vkitti.py:83-102).
+
+    Returns (class_ids [N], masks [N, 1, H, W] float32, rois [N, 4]
+    y1,x1,y2,x2 pixel coords)."""
+    from PIL import Image
+
+    scene = np.asarray(Image.open(scenegt_path(root, world, topic, frame)))
+    inst = decode_scenegt(scene, world, topic, table_inst)
+    car, van = CATEGORIES.index("Car"), CATEGORIES.index("Van")
+
+    class_ids, masks, rois = [], [], []
+    for iid in np.unique(inst):
+        cat = iid // 5000
+        if cat not in (car, van) or iid < 5000:
+            continue
+        m = inst == iid
+        if m.sum() <= min_area:
+            continue
+        ys, xs = np.nonzero(m)
+        class_ids.append(1 if cat == car else 2)
+        masks.append(m[None].astype(np.float32))
+        rois.append([ys.min(), xs.min(), ys.max() + 1, xs.max() + 1])
+    if not class_ids:
+        H, W = inst.shape
+        return (np.zeros((0,), np.int32),
+                np.zeros((0, 1, H, W), np.float32),
+                np.zeros((0, 4), np.float32))
+    return (np.asarray(class_ids, np.int32), np.stack(masks),
+            np.asarray(rois, np.float32))
 
 
 def crop_square(image: np.ndarray, roi: Sequence[int],
@@ -110,3 +218,9 @@ def load_edit_json(path: str) -> List[EditItem]:
         raw = json.load(f)
     return [EditItem(d["world"], d["topic"], d["source"], d["target"],
                      d.get("operations", [])) for d in raw]
+
+
+def benchmark_split(items: List[EditItem]) -> List[EditItem]:
+    """First half = edit pairs; second half = reconstruction
+    (textural/edit_benchmark.py:46, semantic/vkitti_dataset.py:274)."""
+    return items[:len(items) // 2]

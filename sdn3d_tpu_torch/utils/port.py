@@ -1,18 +1,19 @@
-"""flax variables -> PyTorch state_dict for the derenderer.
+"""flax variables -> PyTorch state_dicts (the reference's key layouts).
 
-The exact inverse of sdn3d_tpu/utils/port.py:port_derenderer, so weights
-trained or ported on the JAX side load one to one into
-models/derenderer.Derenderer:
+The exact inverses of sdn3d_tpu/utils/port.py's port_derenderer,
+port_semantic, port_global_generator and port_encoder, so weights trained
+or ported on the JAX side load one to one into the port's models:
 
-  conv       [kh, kw, I, O] -> [O, I, kh, kw]
-  dense      [I, O]         -> [O, I]
-  batchnorm  scale/bias -> weight/bias; batch_stats mean/var ->
-             running_mean/running_var (num_batches_tracked = 0)
+  conv        [kh, kw, I, O] -> [O, I, kh, kw]
+  conv_transpose [kh, kw, O, I] (transpose_kernel) -> [I, O, kh, kw]
+  dense       [I, O]         -> [O, I]
+  batchnorm   scale/bias -> weight/bias; batch_stats mean/var ->
+              running_mean/running_var (num_batches_tracked = 0)
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -23,8 +24,12 @@ def _t(a) -> torch.Tensor:
 
 
 def _conv(dst: Dict[str, torch.Tensor], name: str, p: Mapping) -> None:
+    """Conv and, with transpose_kernel, ConvTranspose: both kernels go
+    [kh, kw, a, b] -> [b, a, kh, kw] (JAX utils/port.py t_conv, t_convT)."""
     dst[f"{name}.weight"] = _t(np.transpose(np.asarray(p["kernel"]),
                                             (3, 2, 0, 1)))
+    if "bias" in p:
+        dst[f"{name}.bias"] = _t(p["bias"])
 
 
 def _linear(dst: Dict[str, torch.Tensor], name: str, p: Mapping) -> None:
@@ -41,6 +46,29 @@ def _bn(dst: Dict[str, torch.Tensor], name: str, p: Mapping,
     dst[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
 
+def _resnet_trunk(sd: Dict[str, torch.Tensor], prefix: str, P: Mapping,
+                  S: Mapping, stage_sizes, n_convs: int,
+                  deep_stem: bool) -> None:
+    """flax ResNet params/batch_stats -> torch keys under `prefix`
+    (inverse of JAX utils/port.py:_port_resnet_trunk)."""
+    for c in (("conv1", "conv2", "conv3") if deep_stem else ("conv1",)):
+        bn = c.replace("conv", "bn")
+        _conv(sd, f"{prefix}{c}", P[c])
+        _bn(sd, f"{prefix}{bn}", P[bn], S[bn])
+    for i, blocks in enumerate(stage_sizes):
+        for j in range(blocks):
+            src = f"layer{i + 1}_{j}"
+            dst = f"{prefix}layer{i + 1}.{j}"
+            bp, bs = P[src], S[src]
+            for k in range(1, n_convs + 1):
+                _conv(sd, f"{dst}.conv{k}", bp[f"conv{k}"])
+                _bn(sd, f"{dst}.bn{k}", bp[f"bn{k}"], bs[f"bn{k}"])
+            if "downsample_conv" in bp:
+                _conv(sd, f"{dst}.downsample.0", bp["downsample_conv"])
+                _bn(sd, f"{dst}.downsample.1", bp["downsample_bn"],
+                    bs["downsample_bn"])
+
+
 def derenderer_state_dict_from_jax(variables: Mapping,
                                    stage_sizes=(2, 2, 2, 2)
                                    ) -> Dict[str, torch.Tensor]:
@@ -49,24 +77,80 @@ def derenderer_state_dict_from_jax(variables: Mapping,
     (net.conv1, net.bn1, net.layerI.J.*, net.fc, fc1, fc2, _fc3)."""
     P = variables["params"]
     S = variables["batch_stats"]
-    tp, ts = P["net"]["trunk"], S["net"]["trunk"]
     sd: Dict[str, torch.Tensor] = {}
-    _conv(sd, "net.conv1", tp["conv1"])
-    _bn(sd, "net.bn1", tp["bn1"], ts["bn1"])
-    for i, blocks in enumerate(stage_sizes):
-        for j in range(blocks):
-            src = f"layer{i + 1}_{j}"
-            dst = f"net.layer{i + 1}.{j}"
-            bp, bs = tp[src], ts[src]
-            for k in (1, 2):
-                _conv(sd, f"{dst}.conv{k}", bp[f"conv{k}"])
-                _bn(sd, f"{dst}.bn{k}", bp[f"bn{k}"], bs[f"bn{k}"])
-            if "downsample_conv" in bp:
-                _conv(sd, f"{dst}.downsample.0", bp["downsample_conv"])
-                _bn(sd, f"{dst}.downsample.1", bp["downsample_bn"],
-                    bs["downsample_bn"])
+    _resnet_trunk(sd, "net.", P["net"]["trunk"], S["net"]["trunk"],
+                  stage_sizes, n_convs=2, deep_stem=False)
     _linear(sd, "net.fc", P["net"]["fc"])
     _linear(sd, "fc1", P["fc1"])
     _linear(sd, "fc2", P["fc2"])
     _linear(sd, "_fc3", P["fc3"])
+    return sd
+
+
+def semantic_state_dicts_from_jax(variables: Mapping,
+                                  pool_scales=(1, 2, 3, 6)
+                                  ) -> Tuple[Dict[str, torch.Tensor],
+                                             Dict[str, torch.Tensor]]:
+    """flax {"params", "batch_stats"} of the JAX SemanticModel -> the
+    reference's two state_dicts (encoder: ResnetDilated resnet50 deep
+    stem; decoder: PPMBilinearDeepsup), which SemanticModel.encoder and
+    .decoder load.  Inverse of JAX utils/port.py:port_semantic."""
+    P, S = variables["params"], variables["batch_stats"]
+    enc: Dict[str, torch.Tensor] = {}
+    _resnet_trunk(enc, "", P["encoder"], S["encoder"], (3, 4, 6, 3),
+                  n_convs=3, deep_stem=True)
+    dp, ds = P["decoder"], S["decoder"]
+    dec: Dict[str, torch.Tensor] = {}
+    for k in range(len(pool_scales)):
+        _conv(dec, f"ppm.{k}.1", dp[f"ppm{k}_conv"])
+        _bn(dec, f"ppm.{k}.2", dp[f"ppm{k}_bn"], ds[f"ppm{k}_bn"])
+    _conv(dec, "conv_last.0", dp["conv_last0"])
+    _bn(dec, "conv_last.1", dp["conv_last_bn"], ds["conv_last_bn"])
+    _conv(dec, "conv_last.4", dp["conv_last1"])
+    _conv(dec, "cbr_deepsup.0", dp["cbr_deepsup"]["conv"])
+    _bn(dec, "cbr_deepsup.1", dp["cbr_deepsup"]["bn"],
+        ds["cbr_deepsup"]["bn"])
+    _conv(dec, "conv_last_deepsup", dp["conv_last_deepsup"])
+    return enc, dec
+
+
+def _down_up_state_dict(sd: Dict[str, torch.Tensor], P: Mapping,
+                        n_downsampling: int, n_blocks: int) -> None:
+    """The `model.N` Sequential of the pix2pixHD G and E: conv_in at 1,
+    stride-2 convs every 3 from 4, residual blocks one index each (their
+    convs at conv_block.1 / .5), deconvs every 3, conv_out one past the
+    last reflection pad (JAX utils/port.py port_global_generator)."""
+    idx = 1
+    _conv(sd, f"model.{idx}", P["conv_in"])
+    idx += 3
+    for i in range(n_downsampling):
+        _conv(sd, f"model.{idx}", P[f"down{i}"])
+        idx += 3
+    for i in range(n_blocks):
+        _conv(sd, f"model.{idx}.conv_block.1", P[f"res{i}"]["conv1"])
+        _conv(sd, f"model.{idx}.conv_block.5", P[f"res{i}"]["conv2"])
+        idx += 1
+    for i in range(n_downsampling):
+        _conv(sd, f"model.{idx}", P[f"up{i}"])
+        idx += 3
+    _conv(sd, f"model.{idx + 1}", P["conv_out"])
+
+
+def global_generator_state_dict_from_jax(params: Mapping,
+                                         n_downsampling: int = 4,
+                                         n_blocks: int = 9
+                                         ) -> Dict[str, torch.Tensor]:
+    """flax GlobalGenerator params -> the reference's `model.N.*`
+    state_dict (inverse of JAX utils/port.py:port_global_generator)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _down_up_state_dict(sd, params, n_downsampling, n_blocks)
+    return sd
+
+
+def encoder_state_dict_from_jax(params: Mapping, n_downsampling: int = 4
+                                ) -> Dict[str, torch.Tensor]:
+    """flax Encoder params -> the reference's `model.N.*` state_dict
+    (inverse of JAX utils/port.py:port_encoder)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _down_up_state_dict(sd, params, n_downsampling, 0)
     return sd

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (forward rasterizer, silhouette walk,
-pixel->face reduction) against their plain PyTorch versions, on the card.
+pixel->face reduction) against their plain PyTorch versions, on the card,
+and the edit chain's use of the forward kernel.
 Imports no JAX, so it runs where only the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -234,3 +235,105 @@ def test_all_invalid_scene_has_zero_gradients(cuda):
     (g,) = torch.autograd.grad(a.sum(), faces)
     torch.cuda.synchronize()
     assert (a == 0).all() and (g == 0).all()
+
+
+@pytest.mark.cuda
+def test_edit_chain_pair_launches_the_forward_kernel(cuda, tmp_path):
+    """One edit pair through EditChain on the card (full-width models with
+    random weights, small shapes: scale 100, render 64, 160x48 textural
+    frames) on a synthetic VKITTI root: the re-render launches the forward
+    rasterizer kernel once and the plain forward never runs; the fake is
+    finite, in [-1, 1], and the labels are < 14.  The same pair again, once
+    from the per-source caches and once without them, gives the same
+    bits."""
+    from PIL import Image
+
+    from sdn3d_tpu_torch.cli.geometric_main import _keep_largest
+    from sdn3d_tpu_torch.data import vkitti as VK
+    from sdn3d_tpu_torch.data.synthetic import (make_sphere_mesh,
+                                                write_vkitti_root)
+    from sdn3d_tpu_torch.geometry.assets import SHAPENET_CARS
+    from sdn3d_tpu_torch.geometry.obj import save_obj
+    from sdn3d_tpu_torch.pipelines.chain import ChainConfig, EditChain
+
+    v, f = make_sphere_mesh(6, 12)
+    for cls, obj in SHAPENET_CARS:
+        d = tmp_path / "shapenet" / cls / obj / "models"
+        d.mkdir(parents=True, exist_ok=True)
+        save_obj(str(d / "model_normalized.obj"), v, f)
+    root = str(tmp_path / "vkitti")
+    write_vkitti_root(root, {("0001", "clone", "00000"): [(180, 300, 260, 440),
+                                                         (200, 700, 300, 900)],
+                             ("0001", "clone", "00001"): []})
+    chain = EditChain.build(ChainConfig(scales=(100,), image_size=64,
+                                        render_size=64, load_size=160,
+                                        fine_width=160, fine_height=48),
+                            str(tmp_path / "shapenet"), device="cuda")
+    image = np.asarray(Image.open(VK.rgb_path(root, "0001", "clone", 0)))
+    dets = _keep_largest(chain.infer_cfg, *VK.gt_objects(
+        root, "0001", "clone", 0, VK.get_tables("inst", root)))
+    assert len(dets[0]) == 2
+    ops = [{"type": "modify", "from": {"u": "370", "v": "220"}, "to": {},
+            "zoom": "1.2", "ry": "0.3"}]
+    TC.rasterize_face_index_cuda.launches = 0
+    TR.rasterize_face_maps.calls = 0
+    out = chain.edit_frame(image, operations=ops, dets=dets,
+                           cache_key="0001_clone_00000")
+    torch.cuda.synchronize()
+    assert TC.rasterize_face_index_cuda.launches == 1
+    assert TR.rasterize_face_maps.calls == 0
+    assert out["fake"].shape == (48, 160, 3)
+    assert np.isfinite(out["fake"]).all() and np.abs(out["fake"]).max() <= 1
+    assert out["label"].shape == (375, 1242) and out["label"].max() < 14
+    assert (out["geo"]["instance_png"] > 0).any()
+    cached = chain.edit_frame(image, operations=ops, dets=dets,
+                              cache_key="0001_clone_00000")
+    fresh = chain.edit_frame(image, operations=ops, dets=dets)
+    for again in (cached, fresh):
+        for k in ("fake", "label"):
+            np.testing.assert_array_equal(again[k], out[k])
+        for k in ("instance_png", "normal_png", "depth_png"):
+            np.testing.assert_array_equal(again["geo"][k], out["geo"][k])
+
+
+@pytest.mark.cuda
+def test_textural_nets_same_bits_every_run(cuda):
+    """The generator at full width (48 input channels, ngf 64, 4
+    down-samplings, 9 blocks) and the encoder, at the chain's 192x624,
+    give the same bits for the same input on every run on the card."""
+    from sdn3d_tpu_torch.models.pix2pixhd import Encoder, GlobalGenerator
+
+    gen = torch.Generator().manual_seed(0)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        net_g = GlobalGenerator(48).to(cuda).eval()
+        net_e = Encoder().to(cuda).eval()
+    x = torch.randn(1, 48, 192, 624, generator=gen).to(cuda)
+    img = (torch.rand(1, 3, 192, 624, generator=gen) * 2 - 1).to(cuda)
+    with torch.no_grad():
+        for net, inp in ((net_g, x), (net_e, img)):
+            outs = [net(inp) for _ in range(3)]
+            torch.cuda.synchronize()
+            assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+@pytest.mark.cuda
+def test_instance_feature_means_same_bits_every_run(cuda):
+    """The per-instance code table at the chain's shapes (192x624 frame,
+    feat 5, 64 slots, 40 of them in use) gives the same bits on every run
+    on the card, and agrees with the CPU's within 1e-6."""
+    from sdn3d_tpu_torch.models.pix2pixhd import instance_feature_means
+
+    rng = np.random.RandomState(5)
+    feats = torch.from_numpy(np.tanh(rng.randn(1, 192, 624, 5)).astype(
+        np.float32))
+    slots = torch.from_numpy(rng.randint(0, 40, (1, 192, 624)))
+    want_m, want_c = instance_feature_means(feats, slots, 64)
+    runs = [instance_feature_means(feats.to(cuda), slots.to(cuda), 64)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for m, c in runs:
+        assert torch.equal(m, runs[0][0]) and torch.equal(c, runs[0][1])
+    assert torch.equal(runs[0][1].cpu(), want_c)
+    np.testing.assert_allclose(runs[0][0].cpu().numpy(), want_m.numpy(),
+                               rtol=0, atol=1e-6)

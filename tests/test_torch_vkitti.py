@@ -76,8 +76,9 @@ def test_load_edit_json(tmp_path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Importing every module of sdn3d_tpu_torch (in a fresh interpreter)
-    pulls in neither jax/flax/optax nor sdn3d_tpu."""
+    """Importing every module of sdn3d_tpu_torch (in a fresh interpreter),
+    the semantic and textural branches and the chain among them, pulls in
+    neither jax/flax/optax nor sdn3d_tpu."""
     code = """
 import importlib, pkgutil, sys
 import sdn3d_tpu_torch
@@ -88,8 +89,13 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "sdn3d_tpu"))
-print(len(names), bad)
-assert len(names) >= 20 and not bad, bad
+need = {"sdn3d_tpu_torch." + n for n in (
+    "models.semantic", "models.pix2pixhd", "data.semantic_data",
+    "data.textural_data", "pipelines.semantic", "pipelines.textural",
+    "pipelines.chain", "cli.semantic_test", "cli.edit_vkitti",
+    "cli.edit_chain", "utils.visualizer", "utils.metrics")}
+print(len(names), bad, sorted(need - set(names)))
+assert len(names) >= 30 and need <= set(names) and not bad, bad
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
