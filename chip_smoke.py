@@ -52,15 +52,33 @@ Phases, each of which must pass (any failure exits non-zero):
      unrefined and with 2 refinement steps;
   8. chain: cli/edit_chain.main --source gt at the full-width defaults
      (semantic ResNet-50 at 5 scales of a 375x1242 frame, the geometric
-     path of phase 4, the pix2pixHD generator and encoder at 192x624) with
-     random weights from --seed, on a synthetic VKITTI root (3 source
-     frames with 5, 11, 16 cars, two edit pairs per source and their
-     reconstruction twins); checks benchmark.json (pairs, finite L1 / SSIM
-     / PSNR), each fake ([192, 624, 3], finite, in [-1, 1]), the labels
-     (< 14), one forward-kernel launch per pair and no plain forward;
-     prints the steady per-stage wall per pair, one profiled pair (device
-     busy, idle share, top kernels), and the chain's CUDA path against its
-     CPU path on small shapes.
+     path of phase 4, the pix2pixHD generator and encoder at 192x624,
+     small_fetch on) with random weights from --seed, on a synthetic VKITTI
+     root (3 source frames with 5, 11, 16 cars, two edit pairs per source
+     and their reconstruction twins); checks benchmark.json (pairs, finite
+     L1 / LPIPS / SSIM / PSNR), each fake ([192, 624, 3], finite, in
+     [-1, 1]), the labels (< 14), one forward-kernel launch per pair at 16
+     images and no plain forward; then the serving modes on the same root:
+     8a. --full_fetch: instance_small / normal_small byte-equal to the PIL
+         transform of the full planes, the fakes, labels, JSON and
+         full-resolution maps bit-equal, geo.package bytes a pair of each;
+     8b. --batch_pairs 4 (chunks of 4 and of 2 padded to 4): one forward
+         launch per chunk at 64 images, no plain forward, every output
+         equal to the serial run pair by pair (the fake within
+         FAKE_BATCH_BOUND, its max |diff| printed); the generator frame by
+         frame against one batched pass (time, max |diff|);
+     8c. --batch_pairs 4 --pipeline: every output bit-equal to 8b;
+     8d. --compute_dtype bfloat16: finite fakes in [-1, 1], the labels'
+         agreement with float32, sem.infer / tex.generate / geo.encode
+         steady times beside float32, and the semantic pass's and the
+         generator's time (CUDA events) and device busy in both dtypes;
+     8e. --lpips_ckpt (an official-layout checkpoint written from --seed):
+         a finite mean_LPIPS, lpips_backbone "ported";
+     then steady wall per pair of the serial, batched and pipelined chains
+     over the edit set in turns, with each one's device idle share, and
+     uncached and cached pairs apart, serial against batched; the per-pair
+     profile (uncached and cached walls, device busy, top kernels); the
+     chain's CUDA path against its CPU path on small shapes.
 The line before last is the card's name and power limit, the line before
 that the kernels' JSON; the last line is {"ok": true, "device": {...}}.
 """
@@ -99,6 +117,17 @@ WALK_IN_TERM_FLOPS = 15
 EDGE_INVARIANT_FLOPS = 78
 REDUCE_FLOPS = 6                      # one add per plane for a won pixel
 NUM_OPTS = 10
+# the chain's modes (phase 8): pairs a chunk of the batched and pipelined
+# chains, and the planes a pair's outputs are compared by
+BATCH_PAIRS = 4
+PLANES = ("instance_png", "normal_png", "depth_png", "instance_small",
+          "normal_small")
+# the chain phase's textural shapes: the CLI defaults
+CHAIN_SHAPES = {"load_size": 624, "fine_width": 624, "fine_height": 192}
+# the batched and pipelined fakes against the serial ones: bit-equal is
+# expected (the generator runs frame by frame); a difference is printed,
+# and anything above this bound fails
+FAKE_BATCH_BOUND = 1e-5
 
 
 def log(msg: str) -> None:
@@ -215,20 +244,27 @@ def car_mesh(seed: int, n_theta: int, n_phi: int):
     return v.astype(np.float32), f
 
 
+def write_meshes(shapenet: str, seed: int, n_theta: int = 100,
+                 n_phi: int = 200) -> str:
+    """8 car meshes in the ShapeNet layout under `shapenet` (39,600 faces
+    each at the default 100 x 200)."""
+    from sdn3d_tpu_torch.geometry.assets import SHAPENET_CARS
+    from sdn3d_tpu_torch.geometry.obj import save_obj
+
+    for i, (cls, obj) in enumerate(SHAPENET_CARS):
+        d = os.path.join(shapenet, cls, obj, "models")
+        os.makedirs(d)
+        save_obj(os.path.join(d, "model_normalized.obj"),
+                 *car_mesh(seed + i, n_theta, n_phi))
+    return shapenet
+
+
 def write_assets(root: str, seed: int):
     """8 ~40k-face meshes in the ShapeNet layout, three 375x1242 frames
     with 5 / 11 / 16 GT cars, and a two-item edit JSON per frame."""
     from PIL import Image
 
-    from sdn3d_tpu_torch.geometry.assets import SHAPENET_CARS
-    from sdn3d_tpu_torch.geometry.obj import save_obj
-
-    shapenet = os.path.join(root, "shapenet")
-    for i, (cls, obj) in enumerate(SHAPENET_CARS):
-        d = os.path.join(shapenet, cls, obj, "models")
-        os.makedirs(d)
-        save_obj(os.path.join(d, "model_normalized.obj"),
-                 *car_mesh(seed + i, 100, 200))          # 39,600 faces
+    shapenet = write_meshes(os.path.join(root, "shapenet"), seed)
     rng = np.random.RandomState(seed)
     H, W = 375, 1242
     frames = []
@@ -577,8 +613,162 @@ def write_chain_root(root: str, seed: int):
     return edit_json, len(pairs)
 
 
-def profile_chain_pair(shapenet: str, root: str, edit_json: str, seed: int,
-                       card: str, n: int = 10) -> None:
+def pair_record(out) -> dict:
+    """What two runs of a chain pair are compared by: host copies of the
+    fake, the labels, the JSON, the quantized planes, and the
+    full-resolution instance / normal / depth maps (device tensors in the
+    serving contract, the instance map as numpy in the file contract)."""
+    import torch
+    g = out["geo"]
+    rec = {"fake": np.array(out["fake"]), "label": np.array(out["label"]),
+           "json": g["json_obj"]}
+    rec.update({k: np.array(g[k]) for k in PLANES if k in g})
+    for k in ("instance_map", "normal_map", "depth_map"):
+        rec[k] = torch.as_tensor(g[k]).cpu()
+    return rec
+
+
+def check_chain_run(tag: str, saved: dict, records, n_pairs: int,
+                    card: str) -> None:
+    """A chain run's benchmark.json and fakes: every pair, finite metrics,
+    each fake [192, 624, 3] (CHAIN_SHAPES), finite, in [-1, 1], labels
+    < 14."""
+    shape = (CHAIN_SHAPES["fine_height"], CHAIN_SHAPES["fine_width"], 3)
+    bad = [i for i, r in enumerate(records)
+           if r["fake"].shape != shape
+           or not np.isfinite(r["fake"]).all()
+           or np.abs(r["fake"]).max() > 1.0 or r["label"].max() >= 14]
+    metrics_ok = all(np.isfinite(saved[k]) for k in
+                     ("mean_L1", "mean_LPIPS", "mean_SSIM", "mean_PSNR"))
+    if saved["pairs"] != n_pairs or len(records) != n_pairs or bad \
+            or not metrics_ok:
+        raise AssertionError(f"{tag}: pairs {saved['pairs']} of {n_pairs}, "
+                             f"{len(records)} records, bad fakes at {bad}, "
+                             f"metrics {saved}")
+    log(f"[{tag}] benchmark.json: mean_L1 {saved['mean_L1']:.6f}, "
+        f"mean_LPIPS {saved['mean_LPIPS']:.6f}, mean_SSIM "
+        f"{saved['mean_SSIM']:.6f}, mean_PSNR {saved['mean_PSNR']:.4f}, "
+        f"batch_pairs {saved['batch_pairs']}, pipelined "
+        f"{saved['pipelined']}, chain_s {saved['chain_s']:.4f}, "
+        f"steady_s_per_pair {saved.get('steady_s_per_pair', float('nan')):.4f}"
+        f", edits_per_sec {saved['edits_per_sec']:.4f}, stage_s "
+        f"{saved['stage_s']} ({card})")
+
+
+def log_phases(tag: str, saved: dict, n_pairs: int, card: str) -> None:
+    """Steady wall per stage and per pair: a stage's steady per-call time
+    times its calls over the pairs (the cached stages run once per
+    source); the first call of each phase carries one-time set-up."""
+    for name, rec in sorted(saved["phase_breakdown"].items()):
+        steady = rec.get("steady_avg_s")
+        per_pair = ("n/a" if steady is None else
+                    f"{steady * rec['calls'] / n_pairs:.6f}")
+        log(f"[{tag}] phase {name}: calls {rec['calls']} first_s "
+            f"{rec.get('first_s', rec['s']):.6f} steady_avg_s "
+            f"{steady if steady is not None else 'n/a'} steady s/pair "
+            f"{per_pair} MB {rec['MB']:.3f} ({card})")
+
+
+def pil_transform(plane: np.ndarray, plan, nearest: bool) -> np.ndarray:
+    """The host path's transform_image geometry of a uint8 plane with PIL:
+    resize to the plan's size, then its centre crop."""
+    from PIL import Image
+    img = Image.fromarray(plane).resize(
+        (plan.resize_w, plan.resize_h),
+        Image.NEAREST if nearest else Image.BICUBIC)
+    return np.asarray(img)[plan.crop_y:plan.crop_y + plan.out_h,
+                           plan.crop_x:plan.crop_x + plan.out_w]
+
+
+def same_pairs(got, want, what: str, fake_bound: float) -> float:
+    """Two runs' pair records, pair by pair: labels, JSON, the planes both
+    have and the full-resolution device maps equal; the fakes within
+    `fake_bound` (0.0: bit-equal).  Returns the fakes' max |diff|."""
+    import torch
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not np.array_equal(a["label"], b["label"]) \
+                or a["json"] != b["json"]:
+            raise AssertionError(f"{what}, pair {i}: labels or JSON differ")
+        for k in set(PLANES) & set(a) & set(b):
+            if not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"{what}, pair {i}: {k} differs")
+        for k in ("instance_map", "normal_map", "depth_map"):
+            if not torch.equal(a[k].to(b[k].dtype), b[k]):
+                raise AssertionError(f"{what}, pair {i}: {k} differs")
+        d = float(np.abs(a["fake"] - b["fake"]).max())
+        worst = max(worst, d)
+        if d > fake_bound:
+            raise AssertionError(f"{what}, pair {i}: fake max |diff| {d} > "
+                                 f"{fake_bound}")
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} pairs vs {len(want)}")
+    return worst
+
+
+def generator_batch(chain, card: str) -> None:
+    """The generator over a batch of BATCH_PAIRS conditioning stacks at
+    192x624: frame by frame (GlobalGenerator.forward, what the batched
+    chain runs) against one batched pass of its layers, in turns; the two
+    outputs' max |diff| says whether cuDNN's batched convolutions would
+    keep the serial bits."""
+    import torch
+    net = chain.textural_trainer.netG
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(BATCH_PAIRS, net.model[1].in_channels,
+                    CHAIN_SHAPES["fine_height"], CHAIN_SHAPES["fine_width"],
+                    generator=gen).to(chain.device)
+    runs = {"frame by frame": [], "one batch": []}
+    with torch.no_grad():
+        diff = float((net(x) - net.model(x)).abs().max())
+        for name in ("frame by frame", "one batch", "one batch",
+                     "frame by frame"):
+            fn = (lambda: net(x)) if name == "frame by frame" else \
+                (lambda: net.model(x))
+            runs[name].append(cuda_ms(fn, iters=5, warmup=1) / BATCH_PAIRS)
+    log(f"[chain-8b] generator at {BATCH_PAIRS} x 192x624, ms per frame: "
+        f"frame by frame {np.mean(runs['frame by frame']):.4f}, one batched "
+        f"pass {np.mean(runs['one batch']):.4f} (runs {runs}); max |diff| "
+        f"between the two {diff:.3g} ({card})")
+
+
+def chain_requests(chain, root: str, edit_json: str):
+    """The edit set's pairs as EditChain request dicts, in order."""
+    from PIL import Image
+
+    from sdn3d_tpu_torch.cli.geometric_main import _keep_largest
+    from sdn3d_tpu_torch.data import vkitti as VK
+
+    table = VK.get_tables("inst", root)
+    out = []
+    for item in VK.benchmark_split(VK.load_edit_json(edit_json)):
+        frame = int(item.source)
+        image = np.asarray(Image.open(VK.rgb_path(
+            root, item.world, item.topic, frame)).convert("RGB"))
+        dets = _keep_largest(chain.infer_cfg, *VK.gt_objects(
+            root, item.world, item.topic, frame, table))
+        out.append({"image_rgb": image, "operations": item.operations,
+                    "dets": dets, "cache_key": item.source_name})
+    return out
+
+
+def fresh_chain(chain, **cfg):
+    """An EditChain over `chain`'s models with empty caches (and, with
+    `cfg`, another ChainConfig)."""
+    import dataclasses
+
+    from sdn3d_tpu_torch.pipelines.chain import EditChain
+    return EditChain(dataclasses.replace(chain.cfg, **cfg),
+                     chain.semantic_model, (chain.derender_model, chain.bank),
+                     chain.textural_trainer, device=chain.device)
+
+
+def edit_one(chain, r):
+    return chain.edit_frame(r["image_rgb"], operations=r["operations"],
+                            dets=r["dets"], cache_key=r["cache_key"])
+
+
+def profile_chain_pair(chain, requests, card: str, n: int = 10) -> None:
     """Where one edit pair's time goes on the card, with the phase records
     off (nothing synchronises the card between stages): EditChain.edit_frame
     at the full-width defaults on the first edit pair of each source, host
@@ -588,50 +778,30 @@ def profile_chain_pair(shapenet: str, root: str, edit_json: str, seed: int,
     Then device time by kernel under torch.profiler for the uncached first
     pair."""
     import torch
-    from PIL import Image
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from sdn3d_tpu_torch.cli.geometric_main import _keep_largest
-    from sdn3d_tpu_torch.data import vkitti as VK
-    from sdn3d_tpu_torch.pipelines.chain import ChainConfig, EditChain
-
-    chain = EditChain.build(ChainConfig(), shapenet, device="cuda", seed=seed)
-    table = VK.get_tables("inst", root)
     firsts = {}
-    for item in VK.benchmark_split(VK.load_edit_json(edit_json)):
-        firsts.setdefault(item.source_name, item)
-    cases = []
-    for key, item in firsts.items():
-        frame = int(item.source)
-        image = np.asarray(Image.open(VK.rgb_path(
-            root, item.world, item.topic, frame)).convert("RGB"))
-        dets = _keep_largest(chain.infer_cfg, *VK.gt_objects(
-            root, item.world, item.topic, frame, table))
-        cases.append((key, item.operations, image, dets))
+    for r in requests:
+        firsts.setdefault(r["cache_key"], r)
 
-    def run(case, cache_key):
-        _, ops, image, dets = case
+    def run(r, cache_key):
         t0 = time.perf_counter()
-        out = chain.edit_frame(image, operations=ops, dets=dets,
-                               cache_key=cache_key)
+        out = edit_one(chain, dict(r, cache_key=cache_key))
         torch.cuda.synchronize()
         return time.perf_counter() - t0, out
 
     all_fresh, all_cached = [], []
-    for case in cases:
-        key = case[0]
-        run(case, None)
-        _, fresh = run(case, None)
-        run(case, key)                      # fills the caches
+    for key, r in firsts.items():
+        run(r, None)
+        _, fresh = run(r, None)
+        run(r, key)                         # fills the caches
         walls = {None: [], key: []}
         for _ in range(n):
             for ck in (None, key):
-                dt, out = run(case, ck)
+                dt, out = run(r, ck)
                 walls[ck].append(dt * 1e3)
         pairs = [(out[k], fresh[k], k) for k in ("fake", "label")] + [
-            (out["geo"][k], fresh["geo"][k], k)
-            for k in ("instance_png", "normal_png", "depth_png")]
+            (out["geo"][k], fresh["geo"][k], k) for k in PLANES
+            if k in fresh["geo"]]
         for got, want, name in pairs:
             if not np.array_equal(got, want):
                 diff = np.abs(got.astype(np.float64) - want).max()
@@ -639,7 +809,7 @@ def profile_chain_pair(shapenet: str, root: str, edit_json: str, seed: int,
                                      f"from a fresh pair's by up to {diff}")
         all_fresh += walls[None]
         all_cached += walls[key]
-        log(f"[chain-wall] {key} ({len(case[3][0])} cars), edit_frame wall "
+        log(f"[chain-wall] {key} ({len(r['dets'][0])} cars), edit_frame wall "
             f"over {n} calls each, ms mean/median/min: uncached "
             f"{np.mean(walls[None]):.3f}/{np.median(walls[None]):.3f}/"
             f"{np.min(walls[None]):.3f}, cached {np.mean(walls[key]):.3f}/"
@@ -650,24 +820,15 @@ def profile_chain_pair(shapenet: str, root: str, edit_json: str, seed: int,
         f"{np.mean(all_cached):.3f} ms mean, {np.median(all_cached):.3f} "
         f"median ({len(all_fresh)} calls each; {card})")
 
-    first = cases[0]
+    first = next(iter(firsts.values()))
     m = 3
     t0 = time.perf_counter()
     for _ in range(m):
         run(first, None)
     wall_ms = (time.perf_counter() - t0) * 1e3 / m
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(m):
-            run(first, None)
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            rec = by_name.setdefault(e.name, [0.0, 0])
-            rec[0] += e.time_range.elapsed_us() / 1e3 / m
-            rec[1] += 1
-    busy_ms = sum(v[0] for v in by_name.values())
-    what = f"chain pair ({len(first[3][0])} cars, no cache)"
+    busy_ms, top = device_time(lambda: [run(first, None) for _ in range(m)],
+                               m)
+    what = f"chain pair ({len(first['dets'][0])} cars, no cache)"
     if busy_ms == 0.0:
         log(f"[profile] {what}: wall {wall_ms:.3f} ms/pair; device time not "
             f"measured (the profiler saw no device events)")
@@ -675,19 +836,168 @@ def profile_chain_pair(shapenet: str, root: str, edit_json: str, seed: int,
     log(f"[profile] {what}: wall {wall_ms:.3f} ms/pair, device busy "
         f"{busy_ms:.3f} ms/pair, idle share {1.0 - busy_ms / wall_ms:.4f} "
         f"({card})")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    for name, (ms, count) in top:
+    for name, (ms, count) in top[:12]:
         log(f"[profile]   {ms:9.4f} ms/pair  {count // m:4d} launches/pair"
             f"  {name[:90]}")
+
+
+def device_time(fn, m: int):
+    """Run fn under torch.profiler: (device busy ms per unit, [(kernel
+    name, (ms per unit, launches))] by time), with `m` units in fn."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            rec = by_name.setdefault(e.name, [0.0, 0])
+            rec[0] += e.time_range.elapsed_us() / 1e3 / m
+            rec[1] += 1
+    busy = sum(v[0] for v in by_name.values())
+    return busy, sorted(by_name.items(), key=lambda kv: -kv[1][0])
+
+
+def dtype_times(chain, image: np.ndarray, card: str) -> None:
+    """The semantic pass of sem.infer (multiscale_labels_device on one
+    375x1242 frame, 5 scales) and the generator of tex.generate (one
+    192x624 frame) in float32 and bfloat16 on the card, in turns
+    (float32, bfloat16, bfloat16, float32): ms per call from CUDA events
+    over repeated calls (host enqueue gaps included), and device busy per
+    call under the profiler."""
+    import torch
+
+    from sdn3d_tpu_torch.models.pix2pixhd import GlobalGenerator
+    from sdn3d_tpu_torch.models.semantic import SemanticModel
+    from sdn3d_tpu_torch.pipelines.semantic import multiscale_labels_device
+
+    c, dev = chain.textural_trainer.cfg, chain.device
+    s16 = SemanticModel(num_class=chain.cfg.num_class, dtype="bfloat16")
+    s16.load_state_dict(chain.semantic_model.state_dict())
+    g32 = chain.textural_trainer.netG
+    g16 = GlobalGenerator(c.netG_input_nc, c.output_nc, c.ngf,
+                          c.n_downsample_global, c.n_blocks_global,
+                          dtype="bfloat16")
+    g16.load_state_dict(g32.state_dict())
+    x = torch.randn(1, c.netG_input_nc, CHAIN_SHAPES["fine_height"],
+                    CHAIN_SHAPES["fine_width"],
+                    generator=torch.Generator().manual_seed(2)).to(dev)
+    scales = tuple(chain.cfg.scales)
+
+    def sem_call(model):
+        return lambda: multiscale_labels_device(model, image, scales, dev)
+
+    s16, g16 = s16.to(dev).eval(), g16.to(dev).eval()
+    cases = (("sem.infer semantic pass", {
+        "float32": sem_call(chain.semantic_model), "bfloat16": sem_call(s16)}),
+        ("tex.generate generator", {
+            "float32": lambda: g32(x), "bfloat16": lambda: g16(x)}))
+    with torch.no_grad():
+        for what, fns in cases:
+            ms = {k: [] for k in fns}
+            for k in ("float32", "bfloat16", "bfloat16", "float32"):
+                ms[k].append(cuda_ms(fns[k], iters=5, warmup=1))
+            busy = {k: device_time(lambda: ([fn() for _ in range(3)],
+                                            torch.cuda.synchronize()), 3)[0]
+                    for k, fn in fns.items()}
+            log(f"[chain-8d] {what}, ms a call: float32 "
+                f"{np.mean(ms['float32']):.4f} (device busy "
+                f"{busy['float32']:.4f}), bfloat16 "
+                f"{np.mean(ms['bfloat16']):.4f} (device busy "
+                f"{busy['bfloat16']:.4f}); runs {ms} ({card})")
+
+
+def time_chain_modes(chain, requests, card: str, reps: int = 2) -> dict:
+    """Steady wall per pair of the serial (edit_frame), batched
+    (edit_frames, chunks of BATCH_PAIRS, the tail padded by repetition as
+    the CLI pads) and pipelined (edit_frames_pipelined, the same chunks)
+    chains over the whole edit set, each run on a chain with empty caches
+    (so each source's first pair is uncached and its second cached, as in
+    the CLI), in turns (serial, batched, pipelined, pipelined, batched,
+    serial, ...), after one warm-up run each; then the device idle share
+    of one run of each under torch.profiler.  Then the first BATCH_PAIRS
+    pairs all uncached (no cache keys: every stage runs for every pair)
+    and all cached, serial against batched, in turns."""
+    import torch
+
+    n = len(requests)
+    chunks = [requests[i:i + BATCH_PAIRS] for i in range(0, n, BATCH_PAIRS)]
+    chunks = [c + c[-1:] * (BATCH_PAIRS - len(c)) for c in chunks]
+
+    def serial(ch, rs=requests):
+        for r in rs:
+            edit_one(ch, r)
+
+    def batched(ch, cs=chunks):
+        for c in cs:
+            ch.edit_frames(c)
+
+    def pipelined(ch, cs=chunks):
+        for _ in ch.edit_frames_pipelined(iter(cs)):
+            pass
+
+    modes = {"serial": serial, "batched": batched, "pipelined": pipelined}
+
+    def wall(fn, ch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(ch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for fn in modes.values():
+        wall(fn, fresh_chain(chain))
+    walls = {k: [] for k in modes}
+    order = list(modes) + list(modes)[::-1]
+    for _ in range(reps):
+        for name in order:
+            walls[name].append(wall(modes[name], fresh_chain(chain)) / n)
+    out = {}
+    for name, fn in modes.items():
+        ms = walls[name]
+        ch = fresh_chain(chain)
+        busy, _ = device_time(lambda: (fn(ch), torch.cuda.synchronize()), n)
+        # the profiler slows the host, so the idle share is the device
+        # time of the profiled run over the unprofiled runs' wall
+        idle = 1.0 - busy / np.mean(ms) if busy else float("nan")
+        out[name] = float(np.mean(ms))
+        log(f"[chain-modes] {name}: {n} pairs (chunks of {BATCH_PAIRS}), "
+            f"ms/pair over {len(ms)} runs mean {np.mean(ms):.3f} median "
+            f"{np.median(ms):.3f} min {np.min(ms):.3f}; device busy "
+            f"{busy:.3f} ms/pair (profiled run), idle share {idle:.4f} "
+            f"({card})")
+
+    head = requests[:BATCH_PAIRS]
+    uncached = [dict(r, cache_key=None) for r in head]
+    warm = fresh_chain(chain)
+    serial(warm, head)                      # fills warm's caches
+    split = {(m, c): [] for m in ("serial", "batched")
+             for c in ("uncached", "cached")}
+    for _ in range(reps):
+        for m in ("serial", "batched", "batched", "serial"):
+            for c, rs in (("uncached", uncached), ("cached", head)):
+                fn = (lambda ch: serial(ch, rs)) if m == "serial" else \
+                    (lambda ch: batched(ch, [rs]))
+                split[(m, c)].append(wall(fn, warm) / len(rs))
+    for c in ("uncached", "cached"):
+        log(f"[chain-modes] {len(head)} pairs {c}: serial "
+            f"{np.mean(split[('serial', c)]):.3f} ms/pair, batched "
+            f"{np.mean(split[('batched', c)]):.3f} ms/pair (means of "
+            f"{len(split[('serial', c)])} runs each, in turns) ({card})")
+    return out
 
 
 def chain_reference(shapenet: str, root: str, edit_json: str,
                     seed: int) -> None:
     """The chain's CUDA path against its CPU path on one pair at small
-    shapes (scale 100, render 64, 160x48 textural frames; full-width
-    models, the same weights): labels and instance planes agree on
-    >= 99.9% of pixels (ulp differences move near-ties and boundary
-    pixels), the fakes by at most 5e-2 and on average by at most 1e-3."""
+    shapes (scale 100, render 64, 160x48 textural frames, device-downsized
+    planes; full-width models, the same weights; `shapenet` holds small
+    meshes, since the CPU's plain rasterizer took ~300 s a pair over the
+    40k-face ones): labels and instance planes agree on >= 99.9% of
+    pixels (ulp differences move near-ties and boundary pixels), the
+    fakes by at most 5e-2 and on average by at most 1e-3."""
     from PIL import Image
 
     from sdn3d_tpu_torch.cli.geometric_main import _keep_largest
@@ -709,7 +1019,8 @@ def chain_reference(shapenet: str, root: str, edit_json: str,
                                    dets=dets)
     a, b = outs["cpu"], outs["cuda"]
     lab = float((a["label"] == b["label"]).mean())
-    inst = float((a["geo"]["instance_png"] == b["geo"]["instance_png"]).mean())
+    inst = float((a["geo"]["instance_small"]
+                  == b["geo"]["instance_small"]).mean())
     d = np.abs(a["fake"] - b["fake"])
     if lab < 0.999 or inst < 0.999 or d.max() > 5e-2 or d.mean() > 1e-3:
         raise AssertionError(f"chain cuda vs cpu: label agreement {lab}, "
@@ -718,6 +1029,222 @@ def chain_reference(shapenet: str, root: str, edit_json: str,
     log(f"[reference] chain cuda vs cpu on one pair (scale 100, render 64, "
         f"160x48): label agreement {lab}, instance agreement {inst}, fake "
         f"max |diff| {float(d.max()):.3g}, mean {float(d.mean()):.3g}")
+
+
+def chain_phase(args, card: str, mark=lambda what: None) -> int:
+    """Phase 8: the fused edit chain at full width, its serving modes
+    (8a small against full fetch, 8b batched, 8c pipelined, 8d bfloat16,
+    8e LPIPS), their wall per pair and the chain's CUDA path against its
+    CPU path; `mark(step)` logs the time at the end of each step.
+    Returns the forward kernel's launches on the default chain's run."""
+    import torch
+
+    from sdn3d_tpu_torch.ops import rasterize as TR
+    from sdn3d_tpu_torch.ops import rasterize_cuda as TC
+    from sdn3d_tpu_torch.ops.pil_resize import transform_plan
+    from sdn3d_tpu_torch.utils import phases
+
+    launch, dispatch = TC.rasterize_face_index_cuda, TC.rasterize_face_index
+    inner = (TC.bin_faces_cuda, TC.raster_binned_cuda, TC.won_pixel_boxes_cuda)
+    plain_fns = (TR.rasterize_face_maps, TR.walk_grads_plain,
+                 TR.segment_face_grads_plain, TR.edge_invariant_stack,
+                 TR.face_pixel_coords)
+
+    def inner_counts():
+        return tuple(fn.launches for fn in inner)
+
+    def plain_counts():
+        return tuple(fn.calls for fn in plain_fns)
+
+    from sdn3d_tpu_torch.cli import edit_chain
+    from sdn3d_tpu_torch.models.lpips import init_lpips
+    from sdn3d_tpu_torch.pipelines.chain import ChainConfig, EditChain
+    with tempfile.TemporaryDirectory(prefix="sdn3d_chain_") as tmp:
+        t0 = time.perf_counter()
+        shapenet, _ = write_assets(tmp, args.seed)
+        root = os.path.join(tmp, "vkitti")
+        edit_json, n_pairs = write_chain_root(root, args.seed)
+        log(f"[chain] wrote assets and a VKITTI root ({n_pairs} edit pairs) "
+            f"in {time.perf_counter() - t0:.1f} s")
+        images = []                   # forward launches' image counts
+
+        def shape_recording(faces, face_valid, image_size,
+                            near=TR.DEFAULT_NEAR, far=TR.DEFAULT_FAR,
+                            colors=None):
+            images.append(int(faces.shape[0]))
+            return dispatch(faces, face_valid, image_size, near, far, colors)
+
+        def run_cli(tag, extra, phases_on=True):
+            """cli/edit_chain.main over the edit set; counts set to 0 just
+            before and read just after.  Returns (benchmark.json, the pairs'
+            records in order, forward launches, bin/raster/box launches,
+            plain calls, launches' image counts, wall s)."""
+            records = []
+            chunk = BATCH_PAIRS if "--batch_pairs" in extra else 1
+
+            def keep(outs):
+                # drop the padded outputs of a tail chunk, as the CLI does
+                real = min(chunk, n_pairs - len(records))
+                records.extend(pair_record(o) for o in outs[:real])
+                return outs
+
+            originals = (EditChain.edit_frame, EditChain.edit_frames,
+                         EditChain._stage_c)
+            EditChain.edit_frame = lambda self, *a, **kw: keep(
+                [originals[0](self, *a, **kw)])[0]
+            EditChain.edit_frames = lambda self, rs: keep(
+                originals[1](self, rs))
+            EditChain._stage_c = lambda self, b: keep(originals[2](self, b))
+            TC.rasterize_face_index = shape_recording
+            images.clear()
+            launch.launches = 0
+            for fn in inner:
+                fn.launches = 0
+            for fn in plain_fns:
+                fn.calls = 0
+            t0 = time.perf_counter()
+            try:
+                edit_chain.main([
+                    "--edit_json", edit_json, "--data_root", root,
+                    "--shapenet_root", shapenet, "--seed", str(args.seed),
+                    "--results_dir", os.path.join(tmp, tag)]
+                    + (["--phases"] if phases_on else []) + extra)
+                torch.cuda.synchronize()
+            finally:
+                (EditChain.edit_frame, EditChain.edit_frames,
+                 EditChain._stage_c) = originals
+                TC.rasterize_face_index = dispatch
+                phases.reset(False)
+            wall = time.perf_counter() - t0
+            counts = (launch.launches, inner_counts(), plain_counts(),
+                      list(images))
+            with open(os.path.join(tmp, tag, "benchmark.json")) as fh:
+                saved = json.load(fh)
+            check_chain_run(tag, saved, records, n_pairs, card)
+            return (saved, records) + counts + (wall,)
+
+        (saved, serial, c_launches, c_inner, c_plain, c_images,
+         c_wall) = run_cli("chain_out", [])
+        if c_launches != n_pairs or c_inner[:2] != (n_pairs, n_pairs) \
+                or any(c_plain) or set(c_images) != {16}:
+            raise AssertionError(f"chain path: forward launches {c_launches} "
+                                 f"(bin, raster {c_inner[:2]}, images "
+                                 f"{c_images}) for {n_pairs} pairs, plain "
+                                 f"calls {c_plain}")
+        if "instance_small" not in serial[0]:
+            raise AssertionError("the default chain did not fetch the "
+                                 "device-downsized planes")
+        log(f"[chain] {n_pairs} pairs in {c_wall:.2f} s (models built "
+            f"included); forward kernel launches {c_launches} (bin "
+            f"{c_inner[0]}, raster {c_inner[1]}, {c_images[0]} images each); "
+            f"plain calls (rasterizer, walk, reduction, edge_invariant_stack, "
+            f"face_pixel_coords) {c_plain}; small_fetch on")
+        log_phases("chain", saved, n_pairs, card)
+        mark("8. chain, default")
+
+        # 8a. small against full fetch
+        saved_f, full, *_ = run_cli("chain_full", ["--full_fetch"])
+        plan = transform_plan((1242, 375), CHAIN_SHAPES["load_size"],
+                              (CHAIN_SHAPES["fine_width"],
+                               CHAIN_SHAPES["fine_height"]))
+        for i, (s_, f_) in enumerate(zip(serial, full)):
+            for k, nearest in (("instance", True), ("normal", False)):
+                want = pil_transform(f_[f"{k}_png"], plan, nearest)
+                if not np.array_equal(s_[f"{k}_small"], want):
+                    raise AssertionError(f"pair {i}: {k}_small differs from "
+                                         f"the PIL transform of {k}_png")
+        same_pairs(serial, full, "8a small vs full fetch", 0.0)
+        mb = {t: sv["phase_breakdown"]["geo.package"]["MB"]
+              / sv["phase_breakdown"]["geo.package"]["calls"]
+              for t, sv in (("small", saved), ("full", saved_f))}
+        log(f"[chain-8a] small vs full fetch over {n_pairs} pairs: "
+            f"instance_small / normal_small byte-equal to the PIL transform "
+            f"of the full planes, fakes, labels, JSON and device maps "
+            f"bit-equal; geo.package {mb['small'] * 1e6:.0f} B a pair small, "
+            f"{mb['full'] * 1e6:.0f} B full ({card})")
+
+        mark("8a. full fetch")
+        # 8b. batched: chunks of BATCH_PAIRS, the tail padded
+        (saved_b, batched, b_launches, b_inner, b_plain, b_images,
+         _) = run_cli("chain_batched", ["--batch_pairs", str(BATCH_PAIRS)])
+        n_chunks = -(-n_pairs // BATCH_PAIRS)
+        if b_launches != n_chunks or b_inner[:2] != (n_chunks, n_chunks) \
+                or any(b_plain) or set(b_images) != {16 * BATCH_PAIRS}:
+            raise AssertionError(f"batched chain: forward launches "
+                                 f"{b_launches} (bin, raster {b_inner[:2]}, "
+                                 f"images {b_images}) for {n_chunks} chunks, "
+                                 f"plain calls {b_plain}")
+        b_diff = same_pairs(batched, serial, "8b batched vs serial",
+                            FAKE_BATCH_BOUND)
+        log(f"[chain-8b] batch_pairs {BATCH_PAIRS}: {b_launches} forward "
+            f"launches for {n_pairs} pairs at {b_images[0]} images each, "
+            f"plain calls {b_plain}; labels, planes, device maps and JSON "
+            f"equal to the serial run pair by pair; fake max |diff| "
+            f"{b_diff:.3g} (bit-equal: {b_diff == 0.0}) ({card})")
+        log_phases("chain-8b", saved_b, n_pairs, card)
+
+        mark("8b. batched")
+        # 8c. pipelined, with 8e: an official-layout LPIPS checkpoint from
+        # --seed (seed + 1: seed 0 is the metric's own random default)
+        ckpt = os.path.join(tmp, "lpips_vgg.pth")
+        torch.save(init_lpips(args.seed + 1, "cpu").state_dict(), ckpt)
+        saved_p, piped, p_launches, *_ = run_cli(
+            "chain_piped", ["--batch_pairs", str(BATCH_PAIRS), "--pipeline",
+                            "--lpips_ckpt", ckpt], phases_on=False)
+        p_diff = same_pairs(piped, batched, "8c pipelined vs batched", 0.0)
+        log(f"[chain-8c] pipelined, batch_pairs {BATCH_PAIRS}: outputs "
+            f"bit-equal to the batched run (fake max |diff| {p_diff}); "
+            f"forward launches {p_launches}; steady_s_per_pair "
+            f"{saved_p.get('steady_s_per_pair', float('nan')):.4f} (one "
+            f"steady chunk here; the stream's times are [chain-modes]) "
+            f"({card})")
+        if not (saved_p["lpips_backbone"] == "ported"
+                and np.isfinite(saved_p["mean_LPIPS"])
+                and saved["lpips_backbone"] == "random-init (uncalibrated)"
+                and np.isfinite(saved["mean_LPIPS"])):
+            raise AssertionError(f"LPIPS: {saved_p}, {saved}")
+        log(f"[chain-8e] --lpips_ckpt (official layout, from --seed): "
+            f"mean_LPIPS {saved_p['mean_LPIPS']:.6f}, lpips_backbone "
+            f"{saved_p['lpips_backbone']!r}; without it "
+            f"{saved['mean_LPIPS']:.6f} ({saved['lpips_backbone']!r}) "
+            f"({card})")
+
+        mark("8c/8e. pipelined, LPIPS")
+        # 8d. bfloat16
+        saved_h, half, *_ = run_cli("chain_bf16",
+                                    ["--compute_dtype", "bfloat16"])
+        agree = [float((h["label"] == s_["label"]).mean())
+                 for h, s_ in zip(half, serial)]
+        d_fake = max(float(np.abs(h["fake"] - s_["fake"]).max())
+                     for h, s_ in zip(half, serial))
+        log(f"[chain-8d] bfloat16: fakes finite in [-1, 1]; labels agree "
+            f"with float32 on {min(agree):.6f} (worst pair) / "
+            f"{np.mean(agree):.6f} (mean) of pixels; fake max |diff| from "
+            f"float32 {d_fake:.4f} ({card})")
+        for name in ("sem.infer", "tex.generate", "geo.encode"):
+            f32 = saved["phase_breakdown"][name].get("steady_avg_s")
+            b16 = saved_h["phase_breakdown"][name].get("steady_avg_s")
+            log(f"[chain-8d] {name} steady s/call (host wall, the card "
+                f"synchronised at the phase's end): float32 {f32:.6f}, "
+                f"bfloat16 {b16:.6f} ({card})")
+
+        mark("8d. bfloat16")
+        chain = EditChain.build(ChainConfig(), shapenet, device="cuda",
+                                seed=args.seed)
+        requests = chain_requests(chain, root, edit_json)
+        generator_batch(chain, card)
+        dtype_times(chain, requests[0]["image_rgb"], card)
+        mark("8b/8d. generator batch, dtype times")
+        time_chain_modes(chain, requests, card)
+        mark("8. modes on one stream")
+        profile_chain_pair(chain, requests, card, n=6)
+        mark("8. pair profile")
+        chain_reference(write_meshes(os.path.join(tmp, "shapenet_small"),
+                                     args.seed, 20, 40),
+                        root, edit_json, args.seed)
+        mark("8. chain reference")
+
+    return c_launches
 
 
 def main(argv=None) -> int:
@@ -734,6 +1261,11 @@ def main(argv=None) -> int:
         return 2
     card = card_line()
     log(f"[card] {card}")
+    t_start = time.perf_counter()
+
+    def mark(what):
+        # where the script's time limit goes, phase by phase
+        log(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
     sys.path.insert(0, REPO)
     from sdn3d_tpu_torch.ops import rasterize as TR
     from sdn3d_tpu_torch.ops import rasterize_cuda as TC
@@ -754,6 +1286,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build] {name}: {line.strip()}")
 
+    mark("2. build")
     # -- 3. kernels vs plain at small sizes ----------------------------------
     from sdn3d_tpu_torch.geometry.transforms import perspective_transform
     from sdn3d_tpu_torch.render.renderer import project_faces
@@ -843,6 +1376,7 @@ def main(argv=None) -> int:
         f"({int(bins.tile_off[:, -1].sum())} face-tile pairs, "
         f"{int(bins.wide_n.sum())} wide faces)")
 
+    mark("3. kernels vs plain, small")
     # -- 4. main path -------------------------------------------------------
     from sdn3d_tpu_torch.cli import geometric_main
     from sdn3d_tpu_torch.utils import phases
@@ -955,6 +1489,7 @@ def main(argv=None) -> int:
             f"launches {launches}; plain calls (rasterizer, walk, reduction, "
             f"edge_invariant_stack, face_pixel_coords) {plain}")
 
+        mark("4. main path")
         # -- 4b. refinement path ----------------------------------------------
         TC.walk_grads, TC.segment_face_grads = walk_recording, seg_recording
         TI.refine_silhouettes = refine_recording
@@ -997,11 +1532,13 @@ def main(argv=None) -> int:
             f"-> {lasts.sum(1).mean():.6f}; "
             f"geo.refine steady {refine_s:.4f} s/item ({card})")
 
+        mark("4b. refinement path")
         # -- 6. where one frame's time goes (after the counts were read) --
         profile_frame(frames[-1], shapenet, args.seed, card)
         profile_frame(frames[-1], shapenet, args.seed, card,
                       num_opts=NUM_OPTS)
 
+    mark("6. profiles")
     # -- 5. kernels vs plain at the main paths' shapes ------------------------
     cf, cv, cs, cc = (captured["faces"], captured["valid"], captured["size"],
                       captured["colors"])
@@ -1127,6 +1664,7 @@ def main(argv=None) -> int:
         f"the won-pixel boxes {box_px:.0f}, won pixels {n_won}, "
         f"{box_px / max(n_won, 1):.3f} box pixels per won pixel ({card})")
 
+    mark("5. kernels vs plain, main-path shapes")
     # -- 7. reference: CUDA path vs CPU path on a small input ---------------
     from sdn3d_tpu_torch.data.synthetic import make_sphere_mesh
     from sdn3d_tpu_torch.geometry.assets import build_mesh_bank
@@ -1165,84 +1703,9 @@ def main(argv=None) -> int:
         log(f"[reference] cuda vs cpu path on 96x160, num_opts {num_opts}: "
             f"instance agreement {agree}, max normal byte diff {nrm_diff}")
 
+    mark("7. reference")
     # -- 8. chain: the fused edit chain at full width ------------------------
-    from sdn3d_tpu_torch.cli import edit_chain
-    from sdn3d_tpu_torch.pipelines.chain import EditChain
-    with tempfile.TemporaryDirectory(prefix="sdn3d_chain_") as tmp:
-        t0 = time.perf_counter()
-        shapenet, _ = write_assets(tmp, args.seed)
-        root = os.path.join(tmp, "vkitti")
-        edit_json, n_pairs = write_chain_root(root, args.seed)
-        log(f"[chain] wrote assets and a VKITTI root ({n_pairs} edit pairs) "
-            f"in {time.perf_counter() - t0:.1f} s")
-        seen = []
-        edit_frame = EditChain.edit_frame
-
-        def edit_recording(self, image_rgb, **kw):
-            out = edit_frame(self, image_rgb, **kw)
-            f = out["fake"]
-            seen.append((f.shape, bool(np.isfinite(f).all()),
-                         float(np.abs(f).max()), int(out["label"].max())))
-            return out
-
-        EditChain.edit_frame = edit_recording
-        launch.launches = 0
-        for fn in inner:
-            fn.launches = 0
-        for fn in plain_fns:
-            fn.calls = 0
-        t0 = time.perf_counter()
-        edit_chain.main([
-            "--edit_json", edit_json, "--data_root", root,
-            "--shapenet_root", shapenet, "--seed", str(args.seed),
-            "--results_dir", os.path.join(tmp, "chain_out"), "--phases"])
-        torch.cuda.synchronize()
-        c_wall = time.perf_counter() - t0
-        c_launches, c_inner, c_plain = (launch.launches, inner_counts(),
-                                        plain_counts())
-        EditChain.edit_frame = edit_frame
-        phases.reset(False)
-        with open(os.path.join(tmp, "chain_out", "benchmark.json")) as fh:
-            saved = json.load(fh)
-        bad = [s_ for s_ in seen if s_[0] != (192, 624, 3) or not s_[1]
-               or s_[2] > 1.0 or s_[3] >= 14]
-        metrics_ok = all(np.isfinite(saved[k]) for k in
-                         ("mean_L1", "mean_SSIM", "mean_PSNR"))
-        if saved["pairs"] != n_pairs or len(seen) != n_pairs or bad \
-                or not metrics_ok:
-            raise AssertionError(f"chain outputs: pairs {saved['pairs']} of "
-                                 f"{n_pairs}, fakes {seen}, metrics {saved}")
-        if c_launches != n_pairs or c_inner[:2] != (n_pairs, n_pairs) \
-                or any(c_plain):
-            raise AssertionError(f"chain path: forward launches {c_launches} "
-                                 f"(bin, raster {c_inner[:2]}) for {n_pairs} "
-                                 f"pairs, plain calls {c_plain}")
-        log(f"[chain] {n_pairs} pairs in {c_wall:.2f} s (models built "
-            f"included); forward kernel launches {c_launches} (bin "
-            f"{c_inner[0]}, raster {c_inner[1]}); plain calls (rasterizer, "
-            f"walk, reduction, edge_invariant_stack, face_pixel_coords) "
-            f"{c_plain}; fakes {seen[0][0]} finite, max |fake| "
-            f"{max(s_[2] for s_ in seen):.4f}, max label "
-            f"{max(s_[3] for s_ in seen)}")
-        log(f"[chain] benchmark.json: mean_L1 {saved['mean_L1']:.6f}, "
-            f"mean_SSIM {saved['mean_SSIM']:.6f}, mean_PSNR "
-            f"{saved['mean_PSNR']:.4f}, chain_s {saved['chain_s']:.4f}, "
-            f"steady_s_per_pair {saved['steady_s_per_pair']:.4f}, "
-            f"edits_per_sec {saved['edits_per_sec']:.4f}, stage_s "
-            f"{saved['stage_s']} ({card})")
-        # steady wall per stage and per pair: a stage's steady per-call time
-        # times its calls over the pairs (the cached stages run once per
-        # source); the first call of each phase carries one-time set-up
-        for name, rec in sorted(saved["phase_breakdown"].items()):
-            steady = rec.get("steady_avg_s")
-            per_pair = ("n/a" if steady is None else
-                        f"{steady * rec['calls'] / n_pairs:.6f}")
-            log(f"[chain] phase {name}: calls {rec['calls']} first_s "
-                f"{rec.get('first_s', rec['s']):.6f} steady_avg_s "
-                f"{steady if steady is not None else 'n/a'} steady s/pair "
-                f"{per_pair} MB {rec['MB']:.3f} ({card})")
-        profile_chain_pair(shapenet, root, edit_json, args.seed, card)
-        chain_reference(shapenet, root, edit_json, args.seed)
+    c_launches = chain_phase(args, card, mark)
 
     kernels = [{
         "name": "rasterize_forward",

@@ -1,21 +1,19 @@
 """Fused single-process edit benchmark, PyTorch port.
 
 Runs the edit protocol — semantic labels, geometric de-render + edit +
-re-render, textural regeneration, L1 / SSIM / PSNR against the target —
-in ONE process with all three branch models resident on `--device`
-(default cuda; pipelines/chain.py), instead of the reference's three
-processes glued by PNG files (README.md:153-189).  Writes
+re-render, textural regeneration, L1 / LPIPS / SSIM / PSNR against the
+target — in ONE process with all three branch models resident on
+`--device` (default cuda; pipelines/chain.py), instead of the reference's
+three processes glued by PNG files (README.md:153-189).  Writes
 RESULTS_DIR/benchmark.json and an HTML gallery; `--dump_dirs` also writes
-the per-stage file contract.
+the per-stage file contract (and fetches the full-resolution planes).
 
     python -m sdn3d_tpu_torch.cli.edit_chain --edit_json E.json \\
-        --data_root VKITTI_ROOT --shapenet_root SHAPENET_ROOT
+        --data_root VKITTI_ROOT --shapenet_root SHAPENET_ROOT \\
+        [--batch_pairs N [--pipeline]] [--compute_dtype bfloat16] \\
+        [--lpips_ckpt vgg.pth] [--full_fetch]
 
-Not ported yet, each raising NotImplementedError: --source maskrcnn,
---batch_pairs > 1, --pipeline, --lpips_ckpt (LPIPS itself waits for
-models/lpips.py, so the result has no LPIPS column) and the
-device-downsized fetch (the port always fetches the full-resolution
-planes; the JAX package documents its outputs as identical either way).
+Not ported yet: --source maskrcnn (NotImplementedError, ROADMAP.md A6).
 """
 
 from __future__ import annotations
@@ -45,9 +43,17 @@ def build_argparser():
                         "DIR/segm and DIR/geo as a side effect")
     p.add_argument("--limit", type=int, default=None)
     p.add_argument("--batch_pairs", type=int, default=1,
-                   help="pairs per device pass (only 1 is ported)")
+                   help="process N pairs per device pass "
+                        "(EditChain.edit_frames): one render of the N "
+                        "frames' slots and one generator forward per "
+                        "chunk; the last chunk is padded by repetition and "
+                        "the padded outputs are dropped")
     p.add_argument("--pipeline", action="store_true",
-                   help="overlapped chunks (not ported yet)")
+                   help="overlap chunks in a 3-deep software pipeline "
+                        "(EditChain.edit_frames_pipelined): the next "
+                        "chunks' semantic/encode and render run on the card "
+                        "while the host conditions and scores the current "
+                        "one; the outputs are those of the serial path")
     # stage shape knobs (defaults = the per-stage CLI defaults)
     p.add_argument("--scales", type=int, nargs="+",
                    default=[100, 150, 200, 300, 375])
@@ -59,13 +65,23 @@ def build_argparser():
     p.add_argument("--fine_width", type=int, default=624)
     p.add_argument("--fine_height", type=int, default=192)
     p.add_argument("--compute_dtype", default="float32",
-                   choices=["float32"])
+                   choices=["float32", "bfloat16"],
+                   help="convolution dtype of the semantic model, the "
+                        "derenderer trunk and the textural nets (parameters, "
+                        "BatchNorm, logits and outputs stay float32)")
+    p.add_argument("--full_fetch", action="store_true",
+                   help="fetch the full-resolution geometric planes per pair "
+                        "instead of the device-downsized serving planes "
+                        "(automatic with --dump_dirs; the outputs are the "
+                        "same)")
     p.add_argument("--phases", action="store_true",
                    help="record a per-phase wall-clock + transfer-byte "
                         "breakdown (utils/phases.py) into the result JSON; "
                         "synchronises the card between phases")
     p.add_argument("--lpips_ckpt", default=None,
-                   help="LPIPS checkpoint (not ported yet)")
+                   help="LPIPS checkpoint (.pth, official lpips package "
+                        "layout); without it the LPIPS column uses a "
+                        "random-init backbone (uncalibrated)")
     p.add_argument("--device", default="cuda",
                    help="torch device; nothing falls back to the CPU")
     p.add_argument("--seed", type=int, default=0,
@@ -87,15 +103,8 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
     if args.source == "maskrcnn":
         raise NotImplementedError(
-            "--source maskrcnn: Mask R-CNN is not ported yet (ROADMAP.md A, "
+            "--source maskrcnn: Mask R-CNN is not ported yet (ROADMAP.md A6, "
             "detection)")
-    if args.batch_pairs != 1 or args.pipeline:
-        raise NotImplementedError(
-            "--batch_pairs > 1 and --pipeline wait for a later slice "
-            "(ROADMAP.md A, edit_frames / pipelined)")
-    if args.lpips_ckpt:
-        raise NotImplementedError(
-            "--lpips_ckpt: LPIPS waits for models/lpips.py (ROADMAP.md A)")
     if args.phases:
         phases.reset(True)
     cfg = ChainConfig(scales=tuple(args.scales), image_size=args.image_size,
@@ -103,7 +112,8 @@ def main(argv=None):
                       mode=args.mode, load_size=args.load_size,
                       fine_width=args.fine_width,
                       fine_height=args.fine_height,
-                      compute_dtype=args.compute_dtype)
+                      compute_dtype=args.compute_dtype,
+                      small_fetch=not (args.full_fetch or args.dump_dirs))
     chain = EditChain.build(
         cfg, args.shapenet_root, semantic_ckpt=args.semantic_ckpt,
         derender_ckpt=args.derender_ckpt, textural_ckpt=args.textural_ckpt,
@@ -116,12 +126,15 @@ def main(argv=None):
     gallery = HTMLGallery(args.results_dir, "fused edit benchmark")
     wh = (args.fine_width, args.fine_height)
 
-    l1s, ssims, psnrs = [], [], []
-    pair_s = []        # edit seconds per pair
+    lpips_model = (metrics.load_lpips(args.lpips_ckpt, device=args.device)
+                   if args.lpips_ckpt else None)
+    l1s, lpipss, ssims, psnrs = [], [], [], []
+    pair_times = []    # (seconds, pairs) per processed chunk
     dets_cache = {}    # GT decode per source (scenegt PNG + LUT walk)
     scoring_s = 0.0    # metric/gallery/dump cost, not part of the edit
-    for item in items:
-        tp = time.perf_counter()
+    batch_n = max(1, args.batch_pairs)
+
+    def build_request(item):
         frame = int(item.source)
         image = np.asarray(Image.open(VK.rgb_path(
             args.data_root, item.world, item.topic, frame)).convert("RGB"))
@@ -130,49 +143,95 @@ def main(argv=None):
             dets = _keep_largest(chain.infer_cfg, *VK.gt_objects(
                 args.data_root, item.world, item.topic, frame, table_inst))
             dets_cache[item.source_name] = dets
-        out = chain.edit_frame(image, operations=item.operations, dets=dets,
-                               cache_key=item.source_name)
-        pair_s.append(time.perf_counter() - tp)
+        return {"image_rgb": image, "operations": item.operations,
+                "dets": dets, "cache_key": item.source_name}
 
+    chunk_lists = [items[c0:c0 + batch_n]
+                   for c0 in range(0, len(items), batch_n)]
+
+    def padded(requests):
+        # the tail chunk is padded by repetition: every chunk has the same
+        # shape; the padded outputs are dropped
+        return requests + [requests[-1]] * (batch_n - len(requests))
+
+    def run_serial():
+        for chunk in chunk_lists:
+            tp = time.perf_counter()
+            requests = [build_request(it) for it in chunk]
+            if batch_n == 1:
+                r = requests[0]
+                outs = [chain.edit_frame(r["image_rgb"],
+                                         operations=r["operations"],
+                                         dets=r["dets"],
+                                         cache_key=r["cache_key"])]
+            else:
+                outs = chain.edit_frames(padded(requests))[:len(requests)]
+            pair_times.append((time.perf_counter() - tp, len(chunk)))
+            yield chunk, outs
+
+    def run_pipelined():
+        # the requests are built lazily, so the pipeline holds at most its
+        # three chunks in host memory
+        chunks = (padded([build_request(it) for it in chunk])
+                  for chunk in chunk_lists)
+        tp = time.perf_counter()
+        for chunk, outs in zip(chunk_lists,
+                               chain.edit_frames_pipelined(chunks)):
+            # yield-to-yield wall without this chunk's scoring (the card
+            # keeps working on later chunks during both)
+            pair_times.append((time.perf_counter() - tp, len(chunk)))
+            yield chunk, outs[:len(chunk)]
+            tp = time.perf_counter()
+
+    runner = run_pipelined() if args.pipeline else run_serial()
+    for chunk, outs in runner:
         ts = time.perf_counter()
-        tgt = os.path.join(args.data_root, "vkitti_1.3.1_rgb", item.world,
-                           item.topic, f"{item.target}.png")
-        target_t = transform_image(Image.open(tgt).convert("RGB"),
-                                   args.load_size, wh)
-        l1 = float(np.abs(out["fake"] - target_t).mean())
-        fake_u8, target_u8 = tensor2im(out["fake"]), tensor2im(target_t)
-        l1s.append(l1)
-        ssims.append(metrics.ssim(fake_u8, target_u8))
-        psnrs.append(metrics.psnr(fake_u8, target_u8))
-        gallery.add_images({"generated": fake_u8, "target": target_u8},
-                           item.target_name)
-        if args.dump_dirs:
-            chain.dump(out["label"], out["geo"],
-                       os.path.join(args.dump_dirs, "segm"),
-                       os.path.join(args.dump_dirs, "geo"),
-                       item.source_name, item.target_name)
-        print(f"{item.target_name}: L1={l1:.4f} SSIM={ssims[-1]:.4f} "
-              f"PSNR={psnrs[-1]:.3f}")
+        for item, out in zip(chunk, outs):
+            tgt = os.path.join(args.data_root, "vkitti_1.3.1_rgb", item.world,
+                               item.topic, f"{item.target}.png")
+            target_t = transform_image(Image.open(tgt).convert("RGB"),
+                                       args.load_size, wh)
+            l1 = float(np.abs(out["fake"] - target_t).mean())
+            fake_u8, target_u8 = tensor2im(out["fake"]), tensor2im(target_t)
+            lp = metrics.lpips(fake_u8, target_u8, model=lpips_model,
+                               device=args.device)
+            l1s.append(l1)
+            lpipss.append(lp)
+            ssims.append(metrics.ssim(fake_u8, target_u8))
+            psnrs.append(metrics.psnr(fake_u8, target_u8))
+            gallery.add_images({"generated": fake_u8, "target": target_u8},
+                               item.target_name)
+            if args.dump_dirs:
+                chain.dump(out["label"], out["geo"],
+                           os.path.join(args.dump_dirs, "segm"),
+                           os.path.join(args.dump_dirs, "geo"),
+                           item.source_name, item.target_name)
+            print(f"{item.target_name}: L1={l1:.4f} LPIPS={lp:.4f} "
+                  f"SSIM={ssims[-1]:.4f} PSNR={psnrs[-1]:.3f}")
         scoring_s += time.perf_counter() - ts
-    dt = float(sum(pair_s))                    # edit work; scoring excluded
+    dt = float(sum(t for t, _ in pair_times))   # edit work; scoring excluded
 
     result = {
         "mean_L1": float(np.mean(l1s)),
+        "mean_LPIPS": float(np.mean(lpipss)),
         "mean_SSIM": float(np.mean(ssims)),
         "mean_PSNR": float(np.mean(psnrs)),
+        "lpips_backbone": ("ported" if lpips_model is not None
+                           else "random-init (uncalibrated)"),
         "pairs": len(l1s),
-        "batch_pairs": 1,
-        "pipelined": False,
+        "batch_pairs": batch_n,
+        "pipelined": bool(args.pipeline),
         "chain_s": dt,
         "scoring_s": round(scoring_s, 3),
         "stage_s": {k: round(v, 3) for k, v in chain.stage_s.items()},
         "edits_per_sec": len(l1s) / dt,
     }
-    if len(pair_s) > 1:
-        # serving-rate view: one-time set-up lands on the first pair
-        steady = sum(pair_s[1:]) / (len(pair_s) - 1)
-        result["steady_s_per_pair"] = steady
-        result["steady_edits_per_sec"] = 1.0 / steady
+    if len(pair_times) > 1:
+        # serving-rate view: one-time set-up lands on the first chunk
+        tail_s = sum(t for t, _ in pair_times[1:])
+        tail_pairs = sum(n for _, n in pair_times[1:])
+        result["steady_s_per_pair"] = tail_s / tail_pairs
+        result["steady_edits_per_sec"] = tail_pairs / tail_s
     if args.phases:
         result["phase_breakdown"] = phases.snapshot()
     os.makedirs(args.results_dir, exist_ok=True)

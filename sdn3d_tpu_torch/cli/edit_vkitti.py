@@ -18,7 +18,8 @@ import numpy as np
 
 def load_trainer(args, cfg=None):
     """TexturalTrainer (netG, netE) in eval mode on args.device, built
-    from `cfg` (default TexturalConfig()).  Random weights from args.seed
+    from `cfg` (default TexturalConfig() at args.compute_dtype, float32
+    when args has none).  Random weights from args.seed
     (drawn inside torch.random.fork_rng, so the caller's global generator
     is untouched) unless args.ckpt_dir names a torch file
     {"netG": ..., "netE": ...}."""
@@ -32,7 +33,8 @@ def load_trainer(args, cfg=None):
         raise RuntimeError(f"--device {args.device}: no CUDA device")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
-        trainer = TexturalTrainer(cfg or TexturalConfig())
+        trainer = TexturalTrainer(cfg or TexturalConfig(
+            compute_dtype=getattr(args, "compute_dtype", "float32")))
     if args.ckpt_dir:
         sd = torch.load(args.ckpt_dir, map_location="cpu")
         trainer.load_state_dicts(sd["netG"], sd["netE"])
@@ -43,13 +45,13 @@ def load_trainer(args, cfg=None):
 
 
 def prepare_source_begin(trainer, src_img, label_img, load_size, wh):
-    """Host transforms + the netE feature-means pass for one source frame;
-    the (tiny) table stays on the device.  Returns a pending handle for
-    prepare_source_finish."""
-    import torch
-
+    """Host transforms + the netE feature-means pass for one source frame,
+    the (tiny) table on its way to the host (HostFetch).  Returns a pending
+    handle for prepare_source_finish; a chunked caller (the pipelined
+    chain's stage B) enqueues every source before it waits for any."""
     from sdn3d_tpu_torch.data.textural_data import (dense_instance_slots,
                                                     transform_image)
+    from sdn3d_tpu_torch.utils.transfer import HostFetch, to_device
 
     base_img_t = transform_image(src_img.convert("RGB"), load_size, wh)
     base_label = (np.asarray(transform_image(
@@ -59,14 +61,14 @@ def prepare_source_begin(trainer, src_img, label_img, load_size, wh):
                                         trainer.cfg.max_instances)
     dev = trainer.device
     feat_means_dev = trainer.encode_feat_means(
-        torch.from_numpy(base_img_t[None]).to(dev),
-        torch.from_numpy(src_slots[None]).to(dev))   # [1, max_inst, feat]
-    return base_img_t, base_label, feat_means_dev
+        to_device(base_img_t[None], dev),
+        to_device(src_slots[None], dev))             # [1, max_inst, feat]
+    return base_img_t, base_label, HostFetch(feat_means_dev)
 
 
 def prepare_source_finish(pending):
-    base_img_t, base_label, feat_means_dev = pending
-    return base_img_t, base_label, feat_means_dev.cpu().numpy()[0]
+    base_img_t, base_label, fetch = pending
+    return base_img_t, base_label, fetch.result()[0]
 
 
 def prepare_source_inputs(trainer, src_img, label_img, load_size, wh):
@@ -80,24 +82,37 @@ def prepare_source_inputs(trainer, src_img, label_img, load_size, wh):
 
 
 def assemble_edit_conditioning(trainer, base_img_t, base_label, inst_img,
-                               json_obj, normal_img, wh, args, feats=None):
+                               json_obj, normal_img, wh, args, feats=None,
+                               inst_small=None, normal_small=None):
     """Host-side conditioning for one edit frame (edit_vkitti.py:62-107):
     transformed maps + instance slots + the per-slot source-code table, as
     numpy.  Returns (maps, slots, feat_table, normal_u8, inst_raw):
     `feat_table` [max_instances, feat] holds each target slot's source code
     (zeros where the source has no instance of that id); `normal_u8` the
     resized normal PNG bytes (None without a normal map); `inst_raw` the
-    resized raw instance plane (uint8).  The JAX package's
-    device-downsized planes (`inst_small`, `normal_small`) wait for
-    small_fetch (ROADMAP.md A)."""
+    resized raw instance plane (uint8).
+
+    `inst_small` / `normal_small` optionally carry the geometric stage's
+    planes already downsized on the device to `wh` (uint8; the chain's
+    serving contract, derender_infer small_plan), byte-equal to the PIL
+    transform this function would apply: the full-resolution PIL path is
+    skipped, and its float round trip is kept (u8 / 255 * 255 is exact in
+    float32)."""
     from sdn3d_tpu_torch.data.textural_data import (
         assemble_condition_maps, dense_instance_slots, transform_image)
 
-    inst_png = np.asarray(transform_image(
-        inst_img, args.load_size, wh, nearest=True, normalize=False)
-        * 255.0).astype(np.int32)[..., 0]
+    if inst_small is not None:
+        inst_png = ((np.asarray(inst_small).astype(np.float32) / 255.0)
+                    * 255.0).astype(np.int32)
+    else:
+        inst_png = np.asarray(transform_image(
+            inst_img, args.load_size, wh, nearest=True, normalize=False)
+            * 255.0).astype(np.int32)[..., 0]
     normal_png = None
-    if normal_img is not None:
+    if normal_small is not None:
+        normal_png = (np.asarray(normal_small).astype(np.float32)
+                      / 255.0) * 255.0
+    elif normal_img is not None:
         normal_png = np.asarray(transform_image(
             normal_img.convert("RGB"), args.load_size, wh,
             normalize=False)) * 255.0
@@ -140,19 +155,21 @@ def assemble_edit_conditioning(trainer, base_img_t, base_label, inst_img,
 def generate_edit_batch(trainer, items, wh, args):
     """Assemble each frame's conditioning on the host, then ONE
     fake_inference over the stacked [N, H, W] batch.  Each items[i] needs
-    base_img_t, base_label, inst_img, json_obj, and optional normal_img /
-    feats.  Returns (list of [H, W, 3] fakes, list of condition-map
+    base_img_t, base_label, json_obj, and either inst_img (with optional
+    normal_img) or the device-downsized inst_small / normal_small; feats
+    is optional.  Returns (list of [H, W, 3] fakes, list of condition-map
     dicts)."""
-    import torch
-
     from sdn3d_tpu_torch.utils import phases
+    from sdn3d_tpu_torch.utils.transfer import to_device
 
     with phases.phase("tex.assemble"):
         assembled = [
             assemble_edit_conditioning(
                 trainer, it["base_img_t"], it["base_label"],
                 it.get("inst_img"), it["json_obj"], it.get("normal_img"),
-                wh, args, feats=it.get("feats"))
+                wh, args, feats=it.get("feats"),
+                inst_small=it.get("inst_small"),
+                normal_small=it.get("normal_small"))
             for it in items]
     dev = trainer.device
     with phases.phase("tex.upload"):
@@ -174,8 +191,8 @@ def generate_edit_batch(trainer, items, wh, args):
                                        np.float32),
         }
         feat_tables = np.stack([a[2] for a in assembled])
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
-        feat_dev = torch.from_numpy(feat_tables).to(dev)
+        batch = {k: to_device(v, dev) for k, v in host.items()}
+        feat_dev = to_device(feat_tables, dev)
         phases.block(batch)
         phases.add_bytes("tex.upload", feat_tables, *host.values())
     with phases.phase("tex.generate"):
@@ -185,16 +202,19 @@ def generate_edit_batch(trainer, items, wh, args):
 
 
 def generate_edit_from_images(trainer, base_img_t, base_label, inst_img,
-                              json_obj, normal_img, wh, args, feats=None):
+                              json_obj, normal_img, wh, args, feats=None,
+                              inst_small=None, normal_small=None):
     """The textural edit step from in-memory PIL images (the fused chain's
     entry point, pipelines/chain.py).  `inst_img` is the full-resolution
     instance map (L mode), `normal_img` an RGB image or None; `feats`
     optionally carries the source's per-slot code table so callers can
-    cache it across pairs sharing a source."""
+    cache it across pairs sharing a source; `inst_small` / `normal_small`
+    the device-downsized planes in place of the two images."""
     fakes, maps_list = generate_edit_batch(
         trainer,
         [{"base_img_t": base_img_t, "base_label": base_label,
           "inst_img": inst_img, "json_obj": json_obj,
-          "normal_img": normal_img, "feats": feats}],
+          "normal_img": normal_img, "feats": feats,
+          "inst_small": inst_small, "normal_small": normal_small}],
         wh, args)
     return fakes[0], maps_list[0]

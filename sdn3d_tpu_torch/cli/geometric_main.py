@@ -39,8 +39,9 @@ def build_argparser() -> argparse.ArgumentParser:
                         "(utils/port.derenderer_state_dict_from_jax)")
     p.add_argument("--maskrcnn_ckpt", default=None)
     p.add_argument("--compute_dtype", default="float32",
-                   choices=["float32"],
-                   help="derenderer compute dtype (float32 only so far)")
+                   choices=["float32", "bfloat16"],
+                   help="compute dtype of the derenderer's resnet18 trunk "
+                        "(its heads stay float32)")
     p.add_argument("--shapenet_root",
                    default=os.environ.get("SHAPENET_ROOT_DIR"))
     p.add_argument("--edit_json", default=None)
@@ -64,8 +65,10 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def load_derenderer(args):
-    """(model, bank) on args.device.  Random weights from args.seed (inside
-    torch.random.fork_rng) unless --ckpt_dir names a torch state_dict."""
+    """(model, bank) on args.device, the trunk computing in
+    args.compute_dtype (default float32).  Random weights from args.seed
+    (inside torch.random.fork_rng) unless --ckpt_dir names a torch
+    state_dict."""
     import torch
 
     from sdn3d_tpu_torch.geometry.assets import load_shapenet_bank
@@ -77,7 +80,8 @@ def load_derenderer(args):
     # drawn inside fork_rng: the caller's global generator is untouched
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(getattr(args, "seed", 0))
-        model = Derenderer(num_classes=8)
+        model = Derenderer(num_classes=8, dtype=getattr(
+            args, "compute_dtype", "float32"))
     if args.ckpt_dir:
         sd = torch.load(args.ckpt_dir, map_location="cpu")
         model.load_state_dict(sd)

@@ -30,8 +30,10 @@ def build_argparser() -> argparse.ArgumentParser:
                         "(utils/port.semantic_state_dicts_from_jax)")
     p.add_argument("--result", default="./semantic_out")
     p.add_argument("--num_class", type=int, default=14)
-    p.add_argument("--compute_dtype", default="float32", choices=["float32"],
-                   help="compute dtype (float32 only so far)")
+    p.add_argument("--compute_dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="convolution compute dtype (BatchNorm, logits and "
+                        "the softmax stay float32)")
     p.add_argument("--scales", type=int, nargs="+",
                    default=[100, 150, 200, 300, 375])
     p.add_argument("--device", default="cuda",
@@ -43,7 +45,8 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def load_model(args):
-    """SemanticModel in eval mode on args.device.  Random weights from
+    """SemanticModel in eval mode on args.device, computing in
+    args.compute_dtype (default float32).  Random weights from
     args.seed (drawn inside torch.random.fork_rng, so the caller's global
     generator is untouched) unless --ckpt_dir names a torch file of the
     encoder's and decoder's state_dicts."""
@@ -56,7 +59,8 @@ def load_model(args):
         raise RuntimeError(f"--device {args.device}: no CUDA device")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(getattr(args, "seed", 0))
-        model = SemanticModel(num_class=args.num_class)
+        model = SemanticModel(num_class=args.num_class,
+                              dtype=getattr(args, "compute_dtype", "float32"))
     if args.ckpt_dir:
         sd = torch.load(args.ckpt_dir, map_location="cpu")
         model.encoder.load_state_dict(sd["encoder"])

@@ -61,10 +61,12 @@ def strict_fp32() -> None:
 
 class Derenderer(nn.Module):
     """Encoder net (derenderer.py:7-65): resnet18 -> 256 feats, concat
-    [feat ‖ mroi ‖ droi] -> fc1 -> fc2 -> heads."""
+    [feat ‖ mroi ‖ droi] -> fc1 -> fc2 -> heads.  `dtype` is the compute
+    dtype of the resnet18 trunk and its fc (JAX models/derenderer.py:
+    57-59); the heads compute and return float32."""
 
     def __init__(self, num_classes: int = 8, grid_size: int = 4,
-                 hidden_size: int = 256):
+                 hidden_size: int = 256, dtype="float32"):
         super().__init__()
         self.num_classes = num_classes
         self.grid_size = grid_size
@@ -77,7 +79,7 @@ class Derenderer(nn.Module):
             "_class_probs": num_classes,
             "_ffd_coeffs": num_classes * g3 * 3,
         }
-        self.net = ResNetClassifier(num_outputs=hidden_size)
+        self.net = ResNetClassifier(num_outputs=hidden_size, dtype=dtype)
         self.fc1 = nn.Linear(hidden_size + 4, hidden_size)
         self.fc2 = nn.Linear(hidden_size, hidden_size)
         self._fc3 = nn.Linear(hidden_size, sum(self.out_sizes.values()))

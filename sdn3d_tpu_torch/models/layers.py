@@ -1,0 +1,83 @@
+"""Layers with a compute dtype, cast where the JAX package's flax modules
+cast.
+
+flax's `nn.Conv(dtype=bfloat16)` / `nn.Dense(dtype=bfloat16)` cast the
+input and the float32 parameters to bfloat16, convolve, and add the bias
+in bfloat16; the output is bfloat16.  BatchNorm is built
+`dtype=float32`, so a bfloat16 input is cast up and its output is
+float32 (sdn3d_tpu/models/resnet.py:102-112).  torch's autocast casts at
+other points (its batch_norm on a bfloat16 input returns bfloat16), so
+the port casts by hand: `Conv2d` and `Linear` compute in their
+`compute_dtype` (float32 unless `set_compute_dtype` says otherwise, and
+then exactly nn.Conv2d / nn.Linear), `BatchNorm2d` returns float32.
+Parameters stay float32 and keep the reference state_dict keys.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def as_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
+    """"float32" / "bfloat16" (or a torch dtype) -> the torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        if dtype not in DTYPES.values():
+            raise ValueError(f"compute dtype {dtype}: float32 or bfloat16")
+        return dtype
+    if dtype not in DTYPES:
+        raise ValueError(f"compute dtype {dtype!r}: one of {tuple(DTYPES)}")
+    return DTYPES[dtype]
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor, bias, dtype: torch.dtype,
+           **kw) -> torch.Tensor:
+    """F.conv2d in `dtype`: the input and weight cast, the bias added in
+    `dtype` after the convolution (flax's order).  float32 is F.conv2d as
+    it is."""
+    if dtype == torch.float32:
+        return F.conv2d(x, weight, bias, **kw)
+    y = F.conv2d(x.to(dtype), weight.to(dtype), None, **kw)
+    return y if bias is None else y + bias.to(dtype)[:, None, None]
+
+
+class Conv2d(nn.Conv2d):
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(x, self.weight, self.bias, self.compute_dtype,
+                      stride=self.stride, padding=self.padding,
+                      dilation=self.dilation, groups=self.groups)
+
+
+class Linear(nn.Linear):
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return F.linear(x, self.weight, self.bias)
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm in float32 whatever its input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float())
+
+
+def set_compute_dtype(module: nn.Module,
+                      dtype: Union[str, torch.dtype]) -> nn.Module:
+    """Set the compute dtype of every layer under `module` that has one
+    (Conv2d, Linear, pix2pixhd.ConvTranspose).  Returns `module`."""
+    dt = as_dtype(dtype)
+    for m in module.modules():
+        if hasattr(type(m), "compute_dtype"):
+            m.compute_dtype = dt
+    return module

@@ -23,18 +23,20 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from sdn3d_tpu_torch.models.derenderer import strict_fp32
+from sdn3d_tpu_torch.models.layers import Conv2d, conv2d, set_compute_dtype
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """InstanceNorm2d(affine=False) on NCHW: (x - mean) * rsqrt(var + eps)
-    over each image's spatial dims, biased variance."""
-    mean = x.mean(dim=(2, 3), keepdim=True)
-    var = x.var(dim=(2, 3), keepdim=True, unbiased=False)
-    return (x - mean) * torch.rsqrt(var + eps)
+    over each image's spatial dims, biased variance; computed in float32
+    and cast back to the input's dtype (JAX models/pix2pixhd.py:26-29)."""
+    xf = x.float()
+    mean = xf.mean(dim=(2, 3), keepdim=True)
+    var = xf.var(dim=(2, 3), keepdim=True, unbiased=False)
+    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -44,6 +46,14 @@ def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
 class InstanceNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return instance_norm(x)
+
+
+class Tanh(nn.Module):
+    """tanh in float32 whatever the input's dtype (JAX
+    models/pix2pixhd.py:103)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(x.float())
 
 
 class ReflectPad(nn.Module):
@@ -65,14 +75,15 @@ class ConvTranspose(nn.ConvTranspose2d):
     algorithms behind torch's transposed convolution add with atomics, so
     the same input would move the fake's last bits from run to run and a
     pair served from the edit chain's per-source caches would differ from
-    a fresh one."""
+    a fresh one.  Computes in `compute_dtype`, as layers.Conv2d."""
+    compute_dtype = torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, C, H, W = x.shape
         z = x.new_zeros(B, C, 2 * H + 2, 2 * W + 2)
         z[:, :, 1:2 * H:2, 1:2 * W:2] = x
-        return F.conv2d(z, self.weight.flip(2, 3).transpose(0, 1),
-                        self.bias)
+        return conv2d(z, self.weight.flip(2, 3).transpose(0, 1), self.bias,
+                      self.compute_dtype)
 
 
 def _conv_transpose(in_ch: int, out_ch: int) -> ConvTranspose:
@@ -89,8 +100,8 @@ class ResnetBlockG(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
         self.conv_block = nn.Sequential(
-            ReflectPad(1), nn.Conv2d(dim, dim, 3), InstanceNorm(), nn.ReLU(),
-            ReflectPad(1), nn.Conv2d(dim, dim, 3), InstanceNorm())
+            ReflectPad(1), Conv2d(dim, dim, 3), InstanceNorm(), nn.ReLU(),
+            ReflectPad(1), Conv2d(dim, dim, 3), InstanceNorm())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.conv_block(x)
@@ -99,12 +110,12 @@ class ResnetBlockG(nn.Module):
 def _down_up_layers(in_ch: int, width: int, n_downsampling: int,
                     body=()) -> list:
     """c7s1-width, n stride-2 convs, `body`, n mirrored deconvs."""
-    layers = [ReflectPad(3), nn.Conv2d(in_ch, width, 7), InstanceNorm(),
+    layers = [ReflectPad(3), Conv2d(in_ch, width, 7), InstanceNorm(),
               nn.ReLU()]
     for i in range(n_downsampling):
         mult = 2 ** i
-        layers += [nn.Conv2d(width * mult, width * mult * 2, 3, stride=2,
-                             padding=1), InstanceNorm(), nn.ReLU()]
+        layers += [Conv2d(width * mult, width * mult * 2, 3, stride=2,
+                          padding=1), InstanceNorm(), nn.ReLU()]
     layers += list(body)
     for i in range(n_downsampling):
         mult = 2 ** (n_downsampling - i)
@@ -115,21 +126,31 @@ def _down_up_layers(in_ch: int, width: int, n_downsampling: int,
 
 class GlobalGenerator(nn.Module):
     """c7s1-ngf, n_downsampling stride-2 convs, n_blocks resblocks,
-    mirrored deconvs, c7s1-output_nc + tanh (networks.py:211-242)."""
+    mirrored deconvs, c7s1-output_nc + tanh (networks.py:211-242).
+    `dtype` is the convolutions' compute dtype; the instance norms
+    compute in float32 and the float32 tanh returns float32."""
 
     def __init__(self, input_nc: int, output_nc: int = 3, ngf: int = 64,
-                 n_downsampling: int = 4, n_blocks: int = 9):
+                 n_downsampling: int = 4, n_blocks: int = 9,
+                 dtype="float32"):
         super().__init__()
         mult = 2 ** n_downsampling
         body = [ResnetBlockG(ngf * mult) for _ in range(n_blocks)]
         self.model = nn.Sequential(
             *_down_up_layers(input_nc, ngf, n_downsampling, body),
-            ReflectPad(3), nn.Conv2d(ngf, output_nc, 7), nn.Tanh())
+            ReflectPad(3), Conv2d(ngf, output_nc, 7), Tanh())
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, input_nc, H, W] -> [B, output_nc, H, W], frame by frame:
+        oneDNN and cuDNN choose convolution algorithms by batch size, and
+        a batch of 3 moved a 3x3 residual convolution's sums in the last
+        bits on the CPU, so a batched fake would depend on its batch.
+        Frame by frame, the batched edit chain's fakes are the serial
+        chain's, bit for bit."""
         if x.is_cuda:
             strict_fp32()
-        return self.model(x)
+        return torch.cat([self.model(x[i:i + 1]) for i in range(x.shape[0])])
 
 
 class Encoder(nn.Module):
@@ -137,11 +158,12 @@ class Encoder(nn.Module):
     [B, 3, H, W] -> features [B, feat_num, H, W] in [-1, 1]."""
 
     def __init__(self, input_nc: int = 3, feat_num: int = 5, nef: int = 16,
-                 n_downsampling: int = 4):
+                 n_downsampling: int = 4, dtype="float32"):
         super().__init__()
         self.model = nn.Sequential(
             *_down_up_layers(input_nc, nef, n_downsampling),
-            ReflectPad(3), nn.Conv2d(nef, feat_num, 7), nn.Tanh())
+            ReflectPad(3), Conv2d(nef, feat_num, 7), Tanh())
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.is_cuda:

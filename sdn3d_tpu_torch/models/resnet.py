@@ -10,7 +10,10 @@ Module names follow the reference state_dicts (`conv1`, `bn1`, [`conv2`,
 `bn2`, `conv3`, `bn3` for the deep stem], `layerI.J.*`,
 `downsample.0/1`, `fc`), so they map one to one.  Padding is explicit and
 symmetric, as the JAX package writes it; BatchNorm uses eps 1e-5 and, in
-eval mode, its running statistics.  The resnet101 trunk of Mask R-CNN waits
+eval mode, its running statistics.  `dtype` (float32 or bfloat16) is the
+convolutions' and the fc's compute dtype, as the JAX package's `dtype`
+(models/layers.py: BatchNorm stays float32, so a block's output is
+float32).  The resnet101 trunk of Mask R-CNN waits
 for the detection slice.
 """
 
@@ -21,6 +24,9 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
+from sdn3d_tpu_torch.models.layers import (BatchNorm2d, Conv2d, Linear,
+                                           set_compute_dtype)
+
 BN_EPS = 1e-5
 
 
@@ -30,18 +36,18 @@ class BasicBlock(nn.Module):
     def __init__(self, in_ch: int, filters: int, stride: int = 1,
                  dilation: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, filters, 3, stride=stride,
-                               padding=dilation, dilation=dilation,
-                               bias=False)
-        self.bn1 = nn.BatchNorm2d(filters, eps=BN_EPS)
-        self.conv2 = nn.Conv2d(filters, filters, 3, padding=dilation,
-                               dilation=dilation, bias=False)
-        self.bn2 = nn.BatchNorm2d(filters, eps=BN_EPS)
+        self.conv1 = Conv2d(in_ch, filters, 3, stride=stride,
+                            padding=dilation, dilation=dilation,
+                            bias=False)
+        self.bn1 = BatchNorm2d(filters, eps=BN_EPS)
+        self.conv2 = Conv2d(filters, filters, 3, padding=dilation,
+                            dilation=dilation, bias=False)
+        self.bn2 = BatchNorm2d(filters, eps=BN_EPS)
         self.downsample = None
         if stride != 1 or in_ch != filters:
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_ch, filters, 1, stride=stride, bias=False),
-                nn.BatchNorm2d(filters, eps=BN_EPS))
+                Conv2d(in_ch, filters, 1, stride=stride, bias=False),
+                BatchNorm2d(filters, eps=BN_EPS))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -58,19 +64,19 @@ class Bottleneck(nn.Module):
                  dilation: int = 1):
         super().__init__()
         out = filters * 4
-        self.conv1 = nn.Conv2d(in_ch, filters, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(filters, eps=BN_EPS)
-        self.conv2 = nn.Conv2d(filters, filters, 3, stride=stride,
-                               padding=dilation, dilation=dilation,
-                               bias=False)
-        self.bn2 = nn.BatchNorm2d(filters, eps=BN_EPS)
-        self.conv3 = nn.Conv2d(filters, out, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(out, eps=BN_EPS)
+        self.conv1 = Conv2d(in_ch, filters, 1, bias=False)
+        self.bn1 = BatchNorm2d(filters, eps=BN_EPS)
+        self.conv2 = Conv2d(filters, filters, 3, stride=stride,
+                            padding=dilation, dilation=dilation,
+                            bias=False)
+        self.bn2 = BatchNorm2d(filters, eps=BN_EPS)
+        self.conv3 = Conv2d(filters, out, 1, bias=False)
+        self.bn3 = BatchNorm2d(out, eps=BN_EPS)
         self.downsample = None
         if stride != 1 or in_ch != out:
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_ch, out, 1, stride=stride, bias=False),
-                nn.BatchNorm2d(out, eps=BN_EPS))
+                Conv2d(in_ch, out, 1, stride=stride, bias=False),
+                BatchNorm2d(out, eps=BN_EPS))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -95,16 +101,16 @@ class ResNet(nn.Module):
         super().__init__()
         self.deep_stem = deep_stem
         if deep_stem:
-            self.conv1 = nn.Conv2d(3, 64, 3, stride=2, padding=1, bias=False)
-            self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS)
-            self.conv2 = nn.Conv2d(64, 64, 3, padding=1, bias=False)
-            self.bn2 = nn.BatchNorm2d(64, eps=BN_EPS)
-            self.conv3 = nn.Conv2d(64, 128, 3, padding=1, bias=False)
-            self.bn3 = nn.BatchNorm2d(128, eps=BN_EPS)
+            self.conv1 = Conv2d(3, 64, 3, stride=2, padding=1, bias=False)
+            self.bn1 = BatchNorm2d(64, eps=BN_EPS)
+            self.conv2 = Conv2d(64, 64, 3, padding=1, bias=False)
+            self.bn2 = BatchNorm2d(64, eps=BN_EPS)
+            self.conv3 = Conv2d(64, 128, 3, padding=1, bias=False)
+            self.bn3 = BatchNorm2d(128, eps=BN_EPS)
             in_ch = 128
         else:
-            self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-            self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS)
+            self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+            self.bn1 = BatchNorm2d(64, eps=BN_EPS)
             in_ch = 64
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         strides, dilations, first_dilations = (1, 2, 2, 2), (1,) * 4, (1,) * 4
@@ -142,19 +148,22 @@ class ResNet(nn.Module):
 
 
 class ResNetClassifier(ResNet):
-    """ResNet trunk + global average pool + fc (torchvision resnet18 shape)."""
+    """ResNet trunk + global average pool + fc (torchvision resnet18
+    shape); the fc's output is float32 whatever the compute dtype."""
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
-                 num_outputs: int = 256):
+                 num_outputs: int = 256, dtype="float32"):
         super().__init__(stage_sizes)
-        self.fc = nn.Linear(self.num_features, num_outputs)
+        self.fc = Linear(self.num_features, num_outputs)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, 3, H, W] (NCHW) -> [B, num_outputs]."""
+        """x [B, 3, H, W] (NCHW) -> [B, num_outputs] float32."""
         x = self.features(x).mean(dim=(2, 3))      # adaptive avgpool -> 1
-        return self.fc(x)
+        return self.fc(x).float()
 
 
-def resnet50_dilated8() -> ResNet:
-    return ResNet(stage_sizes=(3, 4, 6, 3), block_cls=Bottleneck,
-                  output_stride=8, deep_stem=True)
+def resnet50_dilated8(dtype="float32") -> ResNet:
+    return set_compute_dtype(ResNet(stage_sizes=(3, 4, 6, 3),
+                                    block_cls=Bottleneck, output_stride=8,
+                                    deep_stem=True), dtype)

@@ -30,7 +30,10 @@ import torch
 from torch import nn
 
 from sdn3d_tpu_torch.models.derenderer import strict_fp32
+from sdn3d_tpu_torch.models.layers import (BatchNorm2d, Conv2d,
+                                           set_compute_dtype)
 from sdn3d_tpu_torch.models.resnet import BN_EPS, resnet50_dilated8
+from sdn3d_tpu_torch.utils.transfer import to_device
 
 
 def _adaptive_pool_matrix(in_size: int, out_size: int) -> np.ndarray:
@@ -71,16 +74,27 @@ def _resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     return np.ascontiguousarray(w.T.astype(np.float32))
 
 
-def _matrix(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(a).to(device=like.device, dtype=like.dtype)
+@functools.lru_cache(maxsize=None)
+def _device_matrix(kind: str, in_size: int, out_size: int,
+                   dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A resize ("resize") or pooling ("pool") matrix on the device,
+    uploaded once per shape (callers must not write into it)."""
+    a = (_resize_matrix if kind == "resize" else _adaptive_pool_matrix)(
+        in_size, out_size)
+    return to_device(a, device).to(dtype)
+
+
+def _matrix(kind: str, in_size: int, out_size: int,
+            like: torch.Tensor) -> torch.Tensor:
+    return _device_matrix(kind, in_size, out_size, like.dtype, like.device)
 
 
 def adaptive_avg_pool2d(x: torch.Tensor, out_hw: Tuple[int, int]
                         ) -> torch.Tensor:
     """x [B, C, H, W] -> [B, C, oh, ow] (torch AdaptiveAvgPool2d windows),
     rows then columns, as two products."""
-    A = _matrix(_adaptive_pool_matrix(x.shape[2], out_hw[0]), x)
-    Bm = _matrix(_adaptive_pool_matrix(x.shape[3], out_hw[1]), x)
+    A = _matrix("pool", x.shape[2], out_hw[0], x)
+    Bm = _matrix("pool", x.shape[3], out_hw[1], x)
     x = torch.einsum("oh,bchw->bcow", A, x)
     return torch.einsum("pw,bcow->bcop", Bm, x)
 
@@ -92,10 +106,10 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     H, W = x.shape[2], x.shape[3]
     if out_hw[0] != H:
         x = torch.einsum("oh,bchw->bcow",
-                         _matrix(_resize_matrix(H, out_hw[0]), x), x)
+                         _matrix("resize", H, out_hw[0], x), x)
     if out_hw[1] != W:
         x = torch.einsum("pw,bchw->bchp",
-                         _matrix(_resize_matrix(W, out_hw[1]), x), x)
+                         _matrix("resize", W, out_hw[1], x), x)
     return x
 
 
@@ -122,20 +136,20 @@ class PPMDeepsup(nn.Module):
                  dropout_rate: float = 0.1):
         super().__init__()
         self.ppm = nn.ModuleList([nn.Sequential(
-            AdaptivePool(s), nn.Conv2d(fc_dim, 512, 1, bias=False),
-            nn.BatchNorm2d(512, eps=BN_EPS), nn.ReLU())
+            AdaptivePool(s), Conv2d(fc_dim, 512, 1, bias=False),
+            BatchNorm2d(512, eps=BN_EPS), nn.ReLU())
             for s in pool_scales])
         self.conv_last = nn.Sequential(
-            nn.Conv2d(fc_dim + len(pool_scales) * 512, 512, 3, padding=1,
-                      bias=False),
-            nn.BatchNorm2d(512, eps=BN_EPS), nn.ReLU(),
+            Conv2d(fc_dim + len(pool_scales) * 512, 512, 3, padding=1,
+                   bias=False),
+            BatchNorm2d(512, eps=BN_EPS), nn.ReLU(),
             nn.Dropout2d(dropout_rate),
-            nn.Conv2d(512, num_class, 1))
+            Conv2d(512, num_class, 1))
         # deep supervision head (models.py:404-408): training only
         self.cbr_deepsup = nn.Sequential(
-            nn.Conv2d(fc_dim // 2, fc_dim // 4, 3, padding=1, bias=False),
-            nn.BatchNorm2d(fc_dim // 4, eps=BN_EPS), nn.ReLU())
-        self.conv_last_deepsup = nn.Conv2d(fc_dim // 4, num_class, 1)
+            Conv2d(fc_dim // 2, fc_dim // 4, 3, padding=1, bias=False),
+            BatchNorm2d(fc_dim // 4, eps=BN_EPS), nn.ReLU())
+        self.conv_last_deepsup = Conv2d(fc_dim // 4, num_class, 1)
 
     def forward(self, conv_out: Sequence[torch.Tensor],
                 seg_size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
@@ -148,16 +162,21 @@ class PPMDeepsup(nn.Module):
         ppm_out = [conv5]
         for branch in self.ppm:
             ppm_out.append(resize_bilinear(branch(conv5), hw))
-        x = self.conv_last(torch.cat(ppm_out, dim=1))
+        # the classifier's logits, resize and softmax in float32
+        x = self.conv_last(torch.cat(ppm_out, dim=1)).float()
         return torch.softmax(resize_bilinear(x, seg_size), dim=1)
 
 
 class SemanticModel(nn.Module):
     """Encoder + decoder (SegmentationModule, semantic/models.py:24-48).
-    images [B, 3, H, W] -> class probabilities [B, num_class, *seg_size]."""
+    images [B, 3, H, W] -> class probabilities [B, num_class, *seg_size].
+    `dtype` "bfloat16" runs the convolutions in bfloat16 (JAX
+    models/semantic.py:211-213); parameters, BatchNorm, the logits and
+    the softmax stay float32."""
 
     def __init__(self, num_class: int = 14,
-                 arch_decoder: str = "ppm_bilinear_deepsup"):
+                 arch_decoder: str = "ppm_bilinear_deepsup",
+                 dtype="float32"):
         super().__init__()
         if arch_decoder != "ppm_bilinear_deepsup":
             raise NotImplementedError(
@@ -166,6 +185,7 @@ class SemanticModel(nn.Module):
         self.num_class = num_class
         self.encoder = resnet50_dilated8()
         self.decoder = PPMDeepsup(num_class=num_class)
+        set_compute_dtype(self, dtype)
 
     def forward(self, images: torch.Tensor,
                 seg_size: Optional[Tuple[int, int]] = None) -> torch.Tensor:

@@ -5,13 +5,19 @@ one packed host copy per frame.
 PyTorch counterpart of the serving path of
 sdn3d_tpu/pipelines/derender_infer.py (geometric/scripts/main.py:_test,
 :325-622).  Objects are padded to `max_objects` slots; every per-object
-loop of the reference is a batched device computation.  The batched
-multi-frame API and the small serving plan wait for later slices.
+loop of the reference is a batched device computation.  The packed host
+contract comes in two shapes: the full-resolution planes of the file
+contract, or (`small_plan`) the instance and normal planes downsized on
+the device to the textural conditioning resolution (ops/pil_resize).
+The batched API (derender_encode_batch_*, derender_render_begin/finish,
+derender_images_batch) renders N frames' slots in one rasterization and
+fetches each chunk in one asynchronous copy.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -20,8 +26,10 @@ import torch
 from sdn3d_tpu_torch.data import vkitti as VK
 from sdn3d_tpu_torch.models.derenderer import (
     Derenderer, DeviceMeshBank, TargetType, render_blob)
+from sdn3d_tpu_torch.ops import pil_resize
 from sdn3d_tpu_torch.pipelines import edit as edit_mod
 from sdn3d_tpu_torch.utils import phases
+from sdn3d_tpu_torch.utils.transfer import HostFetch, to_device
 
 
 @dataclasses.dataclass
@@ -93,6 +101,11 @@ _U8_NORM_TABLE = ((np.arange(256, dtype=np.float32) / np.float32(255.0)
                    - np.float32(0.5)) / np.float32(0.25))
 
 
+@functools.lru_cache(maxsize=None)
+def _norm_table(device: torch.device) -> torch.Tensor:
+    return to_device(_U8_NORM_TABLE, device)
+
+
 def _packed_f32(tensors: List[torch.Tensor]) -> torch.Tensor:
     """Concatenate float32 tensors into one flat byte buffer (one host copy)."""
     flat = torch.cat([t.to(torch.float32).reshape(-1) for t in tensors])
@@ -112,11 +125,10 @@ def encode_objects(model: Derenderer, objs: Dict[str, np.ndarray],
     dev = torch.device(device)
     rgbs_dev = torch.zeros(rgbs.shape, dtype=torch.uint8, device=dev)
     if n:
-        rgbs_dev[:n] = torch.from_numpy(np.ascontiguousarray(rgbs[:n])).to(dev)
-    table = torch.from_numpy(_U8_NORM_TABLE).to(dev)
-    images = table[rgbs_dev.long()]                        # [M, H, W, 3]
-    roi_norms = torch.from_numpy(objs["roi_norms"]).to(dev)
-    focals = torch.from_numpy(objs["focals"]).to(dev)
+        rgbs_dev[:n] = to_device(rgbs[:n], dev)
+    images = _norm_table(dev)[rgbs_dev.long()]             # [M, H, W, 3]
+    roi_norms = to_device(objs["roi_norms"], dev)
+    focals = to_device(objs["focals"], dev)
     mroi = torch.stack([roi_norms[:, 2] + roi_norms[:, 0],
                         roi_norms[:, 3] + roi_norms[:, 1]], dim=1) / 2.0
     droi = torch.stack([roi_norms[:, 2] - roi_norms[:, 0],
@@ -305,6 +317,59 @@ def derender_encode(
     return objs, host
 
 
+def derender_encode_batch_begin(
+    model: Derenderer,
+    frames: List[Dict[str, object]],
+    cfg: DerenderInferConfig,
+    device="cuda",
+):
+    """Enqueue the encoder for N frames back to back, each frame's packed
+    blob on its way to the host (HostFetch) before the next is prepared.
+
+    Each frame runs the same per-frame encode as derender_encode, not one
+    fused [N*M]-slot encode: convolutions over another batch size may
+    choose other algorithms and move the last bits, which would fork the
+    byte contract (the JAX package measured a 1-ulp drift,
+    derender_infer.py:486-491).  num_opts == 0 only (refinement keeps
+    the per-frame path).  Returns a pending handle for
+    derender_encode_batch_finish."""
+    if cfg.num_opts:
+        raise ValueError("the batched encode has no refinement path; "
+                         "use derender_encode")
+    pendings = []
+    for fr in frames:
+        with phases.phase("geo.prep"):
+            objs = prepare_objects(fr["image_rgb"], fr["rois"],
+                                   fr["image_masks"], fr["class_ids"], cfg)
+            phases.add_bytes("geo.prep", objs["rgbs"][:objs["num_objs"]])
+        with phases.phase("geo.encode"):
+            blob, packed = phases.block(encode_objects(model, objs, device))
+            fetch = HostFetch(packed)
+        pendings.append((objs, blob, fetch))
+    return pendings
+
+
+def derender_encode_batch_finish(pendings) -> List[
+        Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]]:
+    """Wait for a derender_encode_batch_begin handle's copies.  Returns
+    [(objs, host blob)] in frame order, each equal to derender_encode's
+    result for its frame."""
+    out = []
+    for objs, blob, fetch in pendings:
+        with phases.phase("geo.encode_fetch"):
+            packed_np = fetch.result()
+            phases.add_bytes("geo.encode_fetch", packed_np)
+            out.append((objs, _unpack_f32(packed_np, blob, sorted(blob))))
+    return out
+
+
+def derender_encode_batch(model: Derenderer, frames: List[Dict[str, object]],
+                          cfg: DerenderInferConfig, device="cuda"):
+    """Multi-frame encode with overlapped copies (begin + finish)."""
+    return derender_encode_batch_finish(
+        derender_encode_batch_begin(model, frames, cfg, device))
+
+
 def _edited_blob(objs, blob, operations: Optional[List[dict]]
                  ) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
     """Apply edit operations to an encoded host blob (host-side op
@@ -329,52 +394,82 @@ _SMALL_KEYS = ("_depths", "_alphas", "_scales", "_rotations",
                "_translations", "_zooms", "_class_samples")
 
 
-def _pack_frame_device(out, inst, nrm, dep) -> torch.Tensor:
-    """Pack one frame's host contract into a single uint8 buffer
-    [H + k, W, 6] on the device: the first H rows carry the quantized
-    2.5D maps with `save_outputs`' exact math (instance uint8; normal RGB
-    uint8; depth uint16 split into lo/hi byte planes); the k tail rows
-    carry the per-object small tensors (_SMALL_KEYS) as float32 bytes.
-    One buffer means ONE device-to-host copy per frame."""
+def _smalls_tail(out, width: int, channels: int) -> torch.Tensor:
+    """The per-object small tensors (_SMALL_KEYS) as float32 bytes, in
+    rows of the packed buffer's shape [k, width, channels]."""
+    sv = _packed_f32([out[k] for k in _SMALL_KEYS])
+    row = width * channels
+    k = -(-sv.numel() // row)
+    tail = torch.nn.functional.pad(sv, (0, k * row - sv.numel()))
+    return tail.reshape(k, width, channels)
+
+
+def _pack_frame_device(out, inst, nrm, dep, small=None) -> torch.Tensor:
+    """Pack one frame's host contract into a single uint8 buffer on the
+    device, so a frame needs ONE device-to-host copy.
+
+    `small=None` (the file contract): [H + k, W, 6] — the first H rows
+    carry the quantized 2.5D maps with `save_outputs`' exact math
+    (instance uint8; normal RGB uint8; depth uint16 split into lo/hi
+    byte planes); the k tail rows carry the per-object small tensors.
+
+    `small=TransformPlan` (the serving contract): [th + k, tw, 4] — the
+    instance plane (nearest) and the normal plane (bicubic) downsized on
+    the device to the textural conditioning resolution with
+    ops/pil_resize, byte-equal to the PIL transform the host would apply;
+    no depth plane (the edit conditioning does not read it).  2.79 MB a
+    375x1242 frame becomes 0.48 MB."""
     inst_u8 = inst.to(torch.uint8)
     nrm_u8 = torch.clamp(nrm * 255, 0, 255).to(torch.uint8).permute(1, 2, 0)
+    if small is not None:
+        inst_s = pil_resize.apply_plan_u8(inst_u8, small, nearest=True)
+        nrm_s = pil_resize.apply_plan_u8(nrm_u8, small)
+        body = torch.cat([inst_s[..., None], nrm_s], dim=-1)
+        return torch.cat([body, _smalls_tail(out, small.out_w, 4)], dim=0)
     dep_u16 = (torch.clamp(dep, 0, 1) * 65535).to(torch.int32)
     dep_lo = (dep_u16 & 0xFF).to(torch.uint8)[..., None]
     dep_hi = (dep_u16 >> 8).to(torch.uint8)[..., None]
     png = torch.cat([inst_u8[..., None], nrm_u8, dep_lo, dep_hi], dim=-1)
-    W = inst.shape[1]
-    sv = _packed_f32([out[k] for k in _SMALL_KEYS])
-    row = W * 6
-    k = -(-sv.numel() // row)
-    tail = torch.nn.functional.pad(sv, (0, k * row - sv.numel()))
-    return torch.cat([png, tail.reshape(k, W, 6)], dim=0)
+    return torch.cat([png, _smalls_tail(out, inst.shape[1], 6)], dim=0)
 
 
-def _render_composite(blob_t, bank, interests, obj_valid, cfg, height,
-                      width, device):
-    """Body of the JAX package's `_render_composite_jit`
-    (derender_infer.py:269-285): render every slot, composite, pack."""
-    dev = torch.device(device)
-    blob_d = {k: torch.as_tensor(np.asarray(v)).to(dev)
-              for k, v in blob_t.items()}
+def _render_composite_batch(blob_b, bank, interests, obj_valid, cfg, height,
+                            width, small=None):
+    """The JAX package's `_render_composite_batch_jit`
+    (derender_infer.py:693-726): the N frames' M padded slots flattened
+    into ONE [N*M]-object render (one forward-rasterizer launch for the
+    chunk), then each frame's composite and packed buffer.  blob_b
+    {key: [N, M, ...]}, interests and obj_valid [N, M].  Returns (render
+    dict over the N*M slots, per-frame instance / normal / depth maps,
+    packed buffers [N, rows, cols, C])."""
+    N, M = obj_valid.shape
+    flat = {k: v.reshape((N * M,) + v.shape[2:]) for k, v in blob_b.items()}
     with torch.no_grad():
-        out = render_blob(blob_d, bank, cfg.mode, cfg.image_size,
-                          cfg.render_size, obj_valid=obj_valid)
-        masks = out["_masks"]
-        inst, nrm, dep = edit_mod.composite_objects(
-            masks,
-            out.get("_normals", torch.zeros_like(masks.repeat(1, 3, 1, 1))),
-            out.get("_depth_maps", torch.ones_like(masks) * 100.0),
-            out["_center2ds"], out["_zooms"], out["_depths"],
-            interests, height=height, width=width,
-            render_size=cfg.render_size)
-        packed = _pack_frame_device(out, inst, nrm, dep)
-    return out, inst, nrm, dep, packed
+        out = render_blob(flat, bank, cfg.mode, cfg.image_size,
+                          cfg.render_size, obj_valid=obj_valid.reshape(-1))
+        insts, nrms, deps, packs = [], [], [], []
+        for i in range(N):
+            o = {k: v[i * M:(i + 1) * M] for k, v in out.items()}
+            masks = o["_masks"]
+            inst, nrm, dep = edit_mod.composite_objects(
+                masks,
+                o.get("_normals", torch.zeros_like(masks.repeat(1, 3, 1, 1))),
+                o.get("_depth_maps", torch.ones_like(masks) * 100.0),
+                o["_center2ds"], o["_zooms"], o["_depths"],
+                interests[i], height=height, width=width,
+                render_size=cfg.render_size)
+            insts.append(inst)
+            nrms.append(nrm)
+            deps.append(dep)
+            packs.append(_pack_frame_device(o, inst, nrm, dep, small=small))
+    return out, insts, nrms, deps, torch.stack(packs)
 
 
 def _unpack_packed(packed_np: np.ndarray, out, height: int):
-    """Host inverse of _pack_frame_device: (body [H, W, 6] uint8,
-    {key: np array in the original dtype/shape})."""
+    """Host inverse of _pack_frame_device: (body [height, W, C] uint8,
+    {key: np array in the original dtype/shape}).  `height` is the body's
+    row count: the frame's H for the file contract, plan.out_h for the
+    serving contract."""
     png = packed_np[:height]
     tail = packed_np[height:].tobytes()
     smalls = {}
@@ -395,13 +490,17 @@ _STATE_KEYS = ("_scales", "_rotations", "_translations", "_zooms",
 
 
 def _package_frame(objs, rois, interests, out, inst, nrm, dep,
-                   packed_np) -> Dict[str, object]:
+                   packed_np, small_plan=None) -> Dict[str, object]:
     """Host-side packaging of one frame's render outputs into the
     derender_image contract (instance/normal/depth maps + per-object JSON
     + 3D state pkl equivalent, main.py:530-622).  Everything the host
     needs comes out of `packed_np`; the float maps stay on the device
-    under `normal_map`/`depth_map`."""
-    png, smalls = _unpack_packed(packed_np, out, int(inst.shape[0]))
+    under `normal_map`/`depth_map`.  With `small_plan` the buffer holds
+    the serving planes: `instance_small` [th, tw] and `normal_small`
+    [th, tw, 3] replace the full-resolution `*_png` keys, and
+    `instance_map` stays on the device too."""
+    height = int(inst.shape[0]) if small_plan is None else small_plan.out_h
+    png, smalls = _unpack_packed(packed_np, out, height)
 
     json_obj = {}
     depths_np = smalls["_depths"].astype(np.float32)
@@ -418,18 +517,101 @@ def _package_frame(objs, rois, interests, out, inst, nrm, dep,
     state = {"num_objs": objs["num_objs"], "rois": rois,
              "interests": interests}
     state.update({k: smalls[k] for k in _STATE_KEYS})
-    return {
-        "instance_map": png[..., 0].astype(np.int32),
+    result = {
+        "instance_map": inst,
         "normal_map": nrm,
         "depth_map": dep,
         "json_obj": json_obj,
         "state": state,
         "interests": interests,
-        "instance_png": np.ascontiguousarray(png[..., 0]),
-        "normal_png": np.ascontiguousarray(png[..., 1:4]),
-        "depth_png": (png[..., 4].astype(np.uint16)
-                      | (png[..., 5].astype(np.uint16) << 8)),
     }
+    if small_plan is None:
+        result["instance_map"] = png[..., 0].astype(np.int32)
+        result["instance_png"] = np.ascontiguousarray(png[..., 0])
+        result["normal_png"] = np.ascontiguousarray(png[..., 1:4])
+        result["depth_png"] = (png[..., 4].astype(np.uint16)
+                               | (png[..., 5].astype(np.uint16) << 8))
+    else:
+        result["instance_small"] = np.ascontiguousarray(png[..., 0])
+        result["normal_small"] = np.ascontiguousarray(png[..., 1:4])
+    return result
+
+
+def derender_render_begin(
+    model: Derenderer,
+    bank: DeviceMeshBank,
+    frames: List[Dict[str, object]],
+    cfg: Optional[DerenderInferConfig] = None,
+    small_plan=None,
+    device="cuda",
+):
+    """First half of derender_images_batch: the host edit ops, one upload
+    and ONE render of every frame's slots, with the chunk's packed buffer
+    on its way to the host (HostFetch).  Returns a pending handle for
+    derender_render_finish, so a caller can do host work while the card
+    renders and copies."""
+    cfg = cfg or DerenderInferConfig()
+    H, W = frames[0]["image_rgb"].shape[:2]
+    per = []
+    for fr in frames:
+        if fr["image_rgb"].shape[:2] != (H, W):
+            raise ValueError("batched frames must share the full-frame size")
+        encoded = fr.get("encoded")
+        if encoded is None:
+            encoded = derender_encode(model, fr["image_rgb"], fr["class_ids"],
+                                      fr["image_masks"], fr["rois"], cfg,
+                                      device=device, bank=bank)
+        objs, blob = encoded
+        with phases.phase("geo.edit"):
+            blob_t, interests = _edited_blob(objs, blob,
+                                             fr.get("operations"))
+        per.append((objs, blob_t, interests))
+
+    dev = torch.device(device)
+    up = lambda arrays: to_device(  # noqa: E731
+        np.stack([np.asarray(a) for a in arrays]), dev)
+    with phases.phase("geo.render"):
+        blob_b = {k: up([p[1][k] for p in per]) for k in sorted(per[0][1])}
+        out, insts, nrms, deps, packed = phases.block(_render_composite_batch(
+            blob_b, bank, up([p[2] for p in per]),
+            up([p[0]["valid"] for p in per]), cfg, H, W, small=small_plan))
+        fetch = HostFetch(packed)
+    return per, frames, out, insts, nrms, deps, fetch, small_plan
+
+
+def derender_render_finish(pending) -> List[Dict[str, object]]:
+    """Second half of derender_images_batch: wait for the chunk's packed
+    copy and build each frame's host contract."""
+    per, frames, out, insts, nrms, deps, fetch, small_plan = pending
+    M = len(per[0][0]["valid"])
+    with phases.phase("geo.package"):
+        packed_np = fetch.result()     # ONE device-to-host copy a chunk
+        phases.add_bytes("geo.package", packed_np)
+        results = []
+        for i, (objs, _, interests) in enumerate(per):
+            out_i = {k: v[i * M:(i + 1) * M] for k, v in out.items()}
+            results.append(_package_frame(
+                objs, frames[i]["rois"], interests, out_i, insts[i],
+                nrms[i], deps[i], packed_np[i], small_plan=small_plan))
+    return results
+
+
+def derender_images_batch(
+    model: Derenderer,
+    bank: DeviceMeshBank,
+    frames: List[Dict[str, object]],
+    cfg: Optional[DerenderInferConfig] = None,
+    small_plan=None,
+    device="cuda",
+) -> List[Dict[str, object]]:
+    """Batched multi-frame geometric inference.  frames[i] holds
+    `image_rgb`, `class_ids`, `image_masks`, `rois` and optional
+    `operations` / `encoded`, the arguments of derender_image; all frames
+    share the full-frame size.  Returns one derender_image result per
+    frame, equal to derender_image's: the render gains a batch dimension,
+    and every slot and frame is computed as it is alone."""
+    return derender_render_finish(derender_render_begin(
+        model, bank, frames, cfg, small_plan=small_plan, device=device))
 
 
 def derender_image(
@@ -444,6 +626,7 @@ def derender_image(
     encoded: Optional[Tuple[Dict[str, np.ndarray],
                             Dict[str, np.ndarray]]] = None,
     device="cuda",
+    small_plan=None,
 ) -> Dict[str, object]:
     """Full single-image geometric inference (main.py:325-622).
 
@@ -453,22 +636,11 @@ def derender_image(
     class/depth/alpha), state (3D pkl equivalent), interests.  `encoded`
     optionally carries a cached derender_encode result for this frame;
     with cfg.num_opts > 0 the encoder's blob is refined against the masks
-    first."""
-    cfg = cfg or DerenderInferConfig()
-    H, W = image_rgb.shape[:2]
-    if encoded is None:
-        encoded = derender_encode(model, image_rgb, class_ids, image_masks,
-                                  rois, cfg, device=device, bank=bank)
-    objs, blob = encoded
-    with phases.phase("geo.edit"):
-        blob_t, interests = _edited_blob(objs, blob, operations)
-    dev = torch.device(device)
-    with phases.phase("geo.render"):
-        out, inst, nrm, dep, packed = phases.block(_render_composite(
-            blob_t, bank, torch.from_numpy(interests).to(dev),
-            torch.from_numpy(objs["valid"]).to(dev), cfg, H, W, dev))
-    with phases.phase("geo.package"):
-        packed_np = packed.cpu().numpy()     # the ONE d2h copy per frame
-        phases.add_bytes("geo.package", packed_np)
-        return _package_frame(objs, rois, interests, out, inst, nrm, dep,
-                              packed_np)
+    first.  `small_plan` (a pil_resize.TransformPlan) switches to the
+    serving contract: `instance_small` / `normal_small` at the textural
+    conditioning resolution replace the `*_png` planes."""
+    frame = {"image_rgb": image_rgb, "class_ids": class_ids,
+             "image_masks": image_masks, "rois": rois,
+             "operations": operations, "encoded": encoded}
+    return derender_images_batch(model, bank, [frame], cfg,
+                                 small_plan=small_plan, device=device)[0]

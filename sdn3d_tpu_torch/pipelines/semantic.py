@@ -19,6 +19,7 @@ import torch
 from sdn3d_tpu_torch.data.semantic_data import (
     IMG_MAX_SIZE_EVAL, MEAN_BGR, STD_BGR, round2nearest_multiple)
 from sdn3d_tpu_torch.models.semantic import SemanticModel, resize_bilinear
+from sdn3d_tpu_torch.utils.transfer import HostFetch, constant, to_device
 
 EVAL_SCALES = (100, 150, 200, 300, 375)   # short-edge sizes
 
@@ -45,9 +46,9 @@ def multiscale_probs_device(model: SemanticModel, image_rgb_u8: np.ndarray,
     device with the JAX program's float32 operations."""
     H, W = image_rgb_u8.shape[:2]
     dev = torch.device(device)
-    img = torch.from_numpy(np.array(image_rgb_u8, np.uint8)).to(dev)
-    mean = torch.tensor(MEAN_BGR, dtype=torch.float32, device=dev)
-    std = torch.tensor(STD_BGR, dtype=torch.float32, device=dev)
+    img = to_device(np.asarray(image_rgb_u8, np.uint8), dev)
+    mean = constant(tuple(MEAN_BGR), torch.float32, dev)
+    std = constant(tuple(STD_BGR), torch.float32, dev)
     with torch.no_grad():
         x = img.to(torch.float32).flip(-1)                  # BGR
         x = torch.div(x - mean, std)                        # true division
@@ -66,6 +67,16 @@ def multiscale_labels_device(model: SemanticModel, image_rgb_u8: np.ndarray,
     """Argmax labels [H, W] uint8 as a device tensor (one pass)."""
     probs = multiscale_probs_device(model, image_rgb_u8, scales, device)
     return torch.argmax(probs, dim=0).to(torch.uint8)
+
+
+def multiscale_labels_begin(model: SemanticModel, image_rgb_u8: np.ndarray,
+                            scales: Sequence[int] = EVAL_SCALES,
+                            device="cuda") -> HostFetch:
+    """multiscale_labels_fused with its copy left in flight: the labels'
+    HostFetch, whose result() is the uint8 [H, W] map.  The pipelined
+    chain enqueues a chunk's frames this way before it waits for any."""
+    return HostFetch(multiscale_labels_device(model, image_rgb_u8, scales,
+                                              device))
 
 
 def multiscale_labels_fused(model: SemanticModel, image_rgb_u8: np.ndarray,

@@ -14,6 +14,7 @@ wait for the textural trainer (ROADMAP.md A).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict
 
 import numpy as np
@@ -21,6 +22,7 @@ import torch
 
 from sdn3d_tpu_torch.models.pix2pixhd import (
     Encoder, GlobalGenerator, get_edges, instance_feature_means)
+from sdn3d_tpu_torch.utils.transfer import to_device
 
 _TRAINER = "the textural trainer (ROADMAP.md A, the other trainers)"
 
@@ -41,6 +43,9 @@ class TexturalConfig:
     n_downsample_e: int = 4
     pose_bins: int = 24
     max_instances: int = 64
+    # compute dtype of the G / E convolutions (JAX pipelines/textural.py:
+    # 69-71); parameters, instance norms and outputs stay float32
+    compute_dtype: str = "float32"
 
     @property
     def netG_input_nc(self) -> int:
@@ -98,6 +103,11 @@ def _normal_u8_table() -> np.ndarray:
 _NORMAL_U8_TABLE = _normal_u8_table()
 
 
+@functools.lru_cache(maxsize=None)
+def _normal_table(device: torch.device) -> torch.Tensor:
+    return to_device(_NORMAL_U8_TABLE, device)
+
+
 class TexturalTrainer:
     """netG (GlobalGenerator) and netE (Encoder) for edit-time inference:
     the inference surface of the JAX package's TexturalTrainer.  Build the
@@ -108,9 +118,10 @@ class TexturalTrainer:
         self.cfg = cfg
         self.netG = GlobalGenerator(cfg.netG_input_nc, cfg.output_nc, cfg.ngf,
                                     cfg.n_downsample_global,
-                                    cfg.n_blocks_global)
+                                    cfg.n_blocks_global,
+                                    dtype=cfg.compute_dtype)
         self.netE = Encoder(cfg.output_nc, cfg.feat_num, cfg.nef,
-                            cfg.n_downsample_e)
+                            cfg.n_downsample_e, dtype=cfg.compute_dtype)
 
     @property
     def device(self) -> torch.device:
@@ -168,8 +179,7 @@ class TexturalTrainer:
         feat = feat.reshape(*slots.shape, c.feat_num).permute(0, 3, 1, 2)
         normal = batch["normal"].to(dev)
         if normal.dtype == torch.uint8:
-            table = torch.from_numpy(_NORMAL_U8_TABLE).to(dev)
-            normal = table[normal.long()]
+            normal = _normal_table(dev)[normal.long()]
         if "normal_valid" in batch:
             normal = normal * batch["normal_valid"].to(dev)[:, None, None, None]
         g_in = assemble_generator_input(c, input_label, feat,

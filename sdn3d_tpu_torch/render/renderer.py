@@ -15,6 +15,7 @@ import torch
 
 from sdn3d_tpu_torch.geometry import camera
 from sdn3d_tpu_torch.ops import rasterize as R
+from sdn3d_tpu_torch.utils.transfer import constant
 
 
 class RenderType(enum.IntEnum):
@@ -57,12 +58,11 @@ def render(
     dt = vertices.dtype
     dev = vertices.device
     # x-flip fix (renderer.py:241-243)
-    vertices = vertices * torch.tensor([-1.0, 1.0, 1.0], dtype=dt, device=dev)
+    vertices = vertices * constant((-1.0, 1.0, 1.0), dt, dev)
     B = vertices.shape[0]
     eye = torch.zeros((B, 3), dtype=dt, device=dev)
-    direction = torch.tensor([0.0, 0.0, -1.0], dtype=dt,
-                             device=dev).expand(B, 3)
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=dt, device=dev).expand(B, 3)
+    direction = constant((0.0, 0.0, -1.0), dt, dev).expand(B, 3)
+    up = constant((0.0, 1.0, 0.0), dt, dev).expand(B, 3)
     vertices = camera.look(vertices, eye, direction, up)
     vertices = camera.perspective_divide(vertices, viewing_angle)
     if vertex_adjacency is not None:
@@ -93,12 +93,12 @@ def project_faces(vertices: torch.Tensor, faces: torch.Tensor,
     # renderer.py:226-229), so `look` is the rotation diag(-1, 1, -1);
     # composed with the x-flip fix that is diag(1, 1, -1) on the raw
     # vertices.  Normals come from the looked faces rotated back.
-    vlook = vertices * torch.tensor([1.0, 1.0, -1.0], dtype=dt, device=dev)
+    vlook = vertices * constant((1.0, 1.0, -1.0), dt, dev)
     fvl = camera.vertices_to_faces(vlook, faces)               # [B, F, 3, 3]
     colors = None
     if normals:
-        colors = camera.face_normals(fvl) * torch.tensor(
-            [-1.0, 1.0, -1.0], dtype=dt, device=dev)           # [B, F, 3]
+        colors = camera.face_normals(fvl) * constant(
+            (-1.0, 1.0, -1.0), dt, dev)                        # [B, F, 3]
 
     # perspective_divide, elementwise on face verts (perspective.py:5-19)
     angle = torch.as_tensor(viewing_angle, dtype=dt, device=dev) \
@@ -172,6 +172,6 @@ def render_targets(
         out["depth"] = finish(depth, 1)[:, None]
     if "normal" in targets:
         rgb = finish(rgb, 2)
-        out["normal"] = rgb * torch.tensor(
-            [-1.0, 1.0, 1.0], dtype=rgb.dtype, device=dev)[None, :, None, None]
+        out["normal"] = rgb * constant(
+            (-1.0, 1.0, 1.0), rgb.dtype, dev)[None, :, None, None]
     return out

@@ -64,12 +64,10 @@ def block(tree):
 
 
 def _nbytes(x) -> int:
+    """Bytes of a tensor, an array or a HostFetch (0 for anything else)."""
     if isinstance(x, torch.Tensor):
         return x.numel() * x.element_size()
-    try:
-        return int(x.size) * int(x.dtype.itemsize)
-    except AttributeError:
-        return 0
+    return int(getattr(x, "nbytes", 0))
 
 
 def add_bytes(name: str, *arrays) -> None:

@@ -1,8 +1,9 @@
 """flax variables -> PyTorch state_dicts (the reference's key layouts).
 
 The exact inverses of sdn3d_tpu/utils/port.py's port_derenderer,
-port_semantic, port_global_generator and port_encoder, so weights trained
-or ported on the JAX side load one to one into the port's models:
+port_semantic, port_global_generator, port_encoder and port_lpips, so
+weights trained or ported on the JAX side load one to one into the port's
+models:
 
   conv        [kh, kw, I, O] -> [O, I, kh, kw]
   conv_transpose [kh, kw, O, I] (transpose_kernel) -> [I, O, kh, kw]
@@ -153,4 +154,31 @@ def encoder_state_dict_from_jax(params: Mapping, n_downsampling: int = 4
     (inverse of JAX utils/port.py:port_encoder)."""
     sd: Dict[str, torch.Tensor] = {}
     _down_up_state_dict(sd, params, n_downsampling, 0)
+    return sd
+
+
+# torchvision vgg16.features index of each LPIPS conv (JAX utils/port.py
+# port_lpips)
+_LPIPS_CONV_FEATURES = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def lpips_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax LPIPS variables (models/lpips.init_lpips or port_lpips) ->
+    the official `lpips` state_dict layout that the port's LPIPS loads
+    (net.slice{s}.{i}.*, lin{k}.model.1.weight [1, C, 1, 1],
+    scaling_layer.shift/scale).  Inverse of JAX utils/port.py:port_lpips."""
+    from sdn3d_tpu_torch.models.lpips import _SCALE, _SHIFT, _SLICE_ENDS
+
+    P = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for conv_idx, feat_idx in enumerate(_LPIPS_CONV_FEATURES):
+        s = 1 + sum(feat_idx >= end for end in _SLICE_ENDS[:-1])
+        _conv(sd, f"net.slice{s}.{feat_idx}", P["net"][f"conv{conv_idx}"])
+    k = 0
+    while f"lin{k}" in P:
+        sd[f"lin{k}.model.1.weight"] = _t(
+            np.asarray(P[f"lin{k}"]).reshape(1, -1, 1, 1))
+        k += 1
+    sd["scaling_layer.shift"] = _t(np.asarray(_SHIFT).reshape(1, 3, 1, 1))
+    sd["scaling_layer.scale"] = _t(np.asarray(_SCALE).reshape(1, 3, 1, 1))
     return sd

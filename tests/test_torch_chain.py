@@ -336,15 +336,15 @@ def test_source_caches_change_no_answer(env, chains):
 
 def test_chain_config_matches_cli_and_jax_defaults():
     """The port's ChainConfig defaults equal its CLIs' defaults and the
-    JAX package's ChainConfig, except small_fetch (False in the port until
-    the device-downsized planes are ported)."""
+    JAX package's ChainConfig field by field, small_fetch True in both;
+    EditChain rejects a compute_dtype outside {float32, bfloat16}."""
     import dataclasses
 
     from sdn3d_tpu.pipelines.chain import ChainConfig as JConfig
     from sdn3d_tpu_torch.cli.edit_chain import build_argparser as chain_ap
     from sdn3d_tpu_torch.cli.geometric_main import build_argparser as geo_ap
     from sdn3d_tpu_torch.cli.semantic_test import build_argparser as sem_ap
-    from sdn3d_tpu_torch.pipelines.chain import ChainConfig
+    from sdn3d_tpu_torch.pipelines.chain import ChainConfig, EditChain
 
     cfg = ChainConfig()
     geo = geo_ap().parse_args([])
@@ -357,26 +357,29 @@ def test_chain_config_matches_cli_and_jax_defaults():
     for k in ("image_size", "render_size", "num_opts", "mode", "load_size",
               "fine_width", "fine_height", "compute_dtype"):
         assert getattr(cfg, k) == getattr(ch, k), k
+    assert cfg.compute_dtype == geo.compute_dtype == sem.compute_dtype
+    assert cfg.small_fetch is (not ch.full_fetch) is True
     jcfg = JConfig()
     names = [f.name for f in dataclasses.fields(JConfig)]
     assert names == [f.name for f in dataclasses.fields(ChainConfig)]
     for k in names:
-        if k == "small_fetch":
-            assert cfg.small_fetch is False and jcfg.small_fetch is True
-        else:
-            assert tuple(np.ravel(getattr(cfg, k))) == tuple(
-                np.ravel(getattr(jcfg, k))), k
-    with pytest.raises(NotImplementedError):
-        from sdn3d_tpu_torch.pipelines.chain import EditChain
-        EditChain(ChainConfig(small_fetch=True), None, (None, None), None)
+        assert tuple(np.ravel(getattr(cfg, k))) == tuple(
+            np.ravel(getattr(jcfg, k))), k
+    assert cfg.small_fetch is True and jcfg.small_fetch is True
+    with pytest.raises(ValueError, match="compute dtype"):
+        EditChain(ChainConfig(compute_dtype="float16"), None, (None, None),
+                  None)
 
 
 def test_edit_chain_cli_writes_benchmark(env, tmp_path):
     """cli.edit_chain --device cpu at the small shapes (full-width models,
     random weights from --seed) writes benchmark.json with the pairs and
-    finite metrics, the gallery and the dumped file contract; without
-    --device it runs on cuda, so here it raises; the options that wait for
-    later slices raise NotImplementedError."""
+    finite metrics (LPIPS on a random-init backbone), the gallery and the
+    dumped file contract (a full fetch); again with --batch_pairs 2
+    --pipeline --lpips_ckpt (an official-layout LPIPS checkpoint), whose
+    L1 / SSIM / PSNR equal the serial run's and whose LPIPS is the loaded
+    model's; without --device it runs on cuda, so here it raises; only
+    --source maskrcnn raises NotImplementedError."""
     from sdn3d_tpu_torch.cli import edit_chain
 
     _, root, edit_json, shapenet = env
@@ -394,9 +397,11 @@ def test_edit_chain_cli_writes_benchmark(env, tmp_path):
     with open(os.path.join(out, "benchmark.json")) as f:
         saved = json.load(f)
     assert saved["pairs"] == res["pairs"] == 2
-    for k in ("mean_L1", "mean_SSIM", "mean_PSNR", "chain_s",
+    for k in ("mean_L1", "mean_LPIPS", "mean_SSIM", "mean_PSNR", "chain_s",
               "edits_per_sec", "steady_s_per_pair"):
         assert np.isfinite(saved[k]), k
+    assert saved["lpips_backbone"] == "random-init (uncalibrated)"
+    assert (saved["batch_pairs"], saved["pipelined"]) == (1, False)
     assert set(saved["stage_s"]) == {"semantic", "geometric", "textural"}
     assert {"sem.infer", "geo.render", "tex.generate"} <= set(
         saved["phase_breakdown"])
@@ -408,8 +413,224 @@ def test_edit_chain_cli_writes_benchmark(env, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             edit_chain.main(common + ["--results_dir", out])
-    for extra in (["--batch_pairs", "2"], ["--pipeline"],
-                  ["--source", "maskrcnn"], ["--lpips_ckpt", "x"]):
-        with pytest.raises(NotImplementedError):
-            edit_chain.main(common + ["--device", "cpu", "--results_dir",
-                                      out] + extra)
+    from sdn3d_tpu_torch.models.lpips import init_lpips
+    from sdn3d_tpu_torch.utils import metrics
+
+    ckpt = str(tmp_path / "lpips_vgg.pth")
+    torch.save(init_lpips(5, "cpu").state_dict(), ckpt)
+    out2 = str(tmp_path / "out2")
+    res2 = edit_chain.main(common + ["--device", "cpu", "--results_dir", out2,
+                                     "--batch_pairs", "2", "--pipeline",
+                                     "--lpips_ckpt", ckpt])
+    assert (res2["batch_pairs"], res2["pipelined"]) == (2, True)
+    assert res2["pairs"] == 2 and res2["lpips_backbone"] == "ported"
+    for k in ("mean_L1", "mean_SSIM", "mean_PSNR"):
+        assert res2[k] == res[k], k
+    assert np.isfinite(res2["mean_LPIPS"])
+    assert res2["mean_LPIPS"] != res["mean_LPIPS"]
+    with pytest.raises(NotImplementedError, match="A6"):
+        edit_chain.main(common + ["--device", "cpu", "--results_dir", out,
+                                  "--source", "maskrcnn"])
+    assert metrics.lpips(np.zeros((32, 32, 3)), np.zeros((32, 32, 3)),
+                         device="cpu") == 0.0
+
+
+# fine 160x48 is scale_width(160) of a 1242x375 frame, so the transform
+# plan exists and the chain fetches the device-downsized planes (at the
+# 160x96 of SMALL the plan is None: PIL would pad, and the chain takes
+# the full fetch, as the JAX package's does)
+SMALL48 = dict(SMALL, fine_height=48)
+
+
+def _port_chain(tchain, **cfg):
+    """A fresh port EditChain (empty caches) over tchain's models."""
+    from sdn3d_tpu_torch.pipelines.chain import ChainConfig, EditChain
+    return EditChain(ChainConfig(**cfg), tchain.semantic_model,
+                     (tchain.derender_model, tchain.bank),
+                     tchain.textural_trainer, device="cpu")
+
+
+def _request_dicts(root, edit_json):
+    return [{"image_rgb": image, "operations": item.operations,
+             "dets": dets, "cache_key": item.source_name}
+            for item, image, dets in _requests(root, edit_json)]
+
+
+def _assert_same_pair(a, b):
+    """Two chain outputs of one pair, bit for bit."""
+    np.testing.assert_array_equal(a["label"], b["label"])
+    np.testing.assert_array_equal(a["fake"], b["fake"])
+    assert a["geo"]["json_obj"] == b["geo"]["json_obj"]
+    for k in ("instance_png", "normal_png", "depth_png", "instance_small",
+              "normal_small"):
+        assert (k in a["geo"]) == (k in b["geo"]), k
+        if k in a["geo"]:
+            np.testing.assert_array_equal(a["geo"][k], b["geo"][k])
+    for k in ("label", "inst", "pose", "normal"):
+        np.testing.assert_array_equal(a["maps"][k], b["maps"][k])
+
+
+def test_transform_plan_none_takes_the_full_fetch(env, chains):
+    """At 160x96 (taller than scale_width(160) of the 1242x375 frame) the
+    plan is None in both packages and the default (small_fetch) chain
+    fetches the full-resolution planes; at 160x48 it has a plan."""
+    import dataclasses
+
+    from sdn3d_tpu.ops.pil_resize import transform_plan as j_plan
+    from sdn3d_tpu_torch.ops.pil_resize import transform_plan
+
+    _, root, edit_json, _ = env
+    _, tchain, _, _ = chains
+    assert tchain.cfg.small_fetch and tchain._small_plan((375, 1242)) is None
+    assert j_plan((1242, 375), 160, (160, 96)) is None
+    r = _request_dicts(root, edit_json)[0]
+    out = tchain.edit_frame(r["image_rgb"], operations=r["operations"],
+                            dets=r["dets"], cache_key=r["cache_key"])
+    assert "instance_png" in out["geo"] and "instance_small" not in out["geo"]
+    small = _port_chain(tchain, **SMALL48)
+    assert small._small_plan((375, 1242)) == transform_plan(
+        (1242, 375), 160, (160, 48))
+    assert dataclasses.astuple(transform_plan((1242, 375), 160, (160, 48))) \
+        == dataclasses.astuple(j_plan((1242, 375), 160, (160, 48)))
+
+
+def test_small_fetch_matches_full_fetch_and_jax(env, chains):
+    """The serving contract (small_fetch at 160x48): instance_small and
+    normal_small byte-equal to the PIL transform of the full fetch's
+    planes, the fake and JSON bit-equal to the full fetch's, the packed
+    copy 6x smaller; and against the JAX package's small-fetch chain on
+    JAX's label and encode: instance_small equal, normal_small within the
+    +-1 of the full-resolution normal bytes (ROADMAP.md C) on at most
+    0.5% of values."""
+    from PIL import Image
+
+    from sdn3d_tpu.pipelines import chain as JC
+
+    _, root, edit_json, _ = env
+    jchain, tchain, _, _ = chains
+    small = _port_chain(tchain, **SMALL48)
+    full = _port_chain(tchain, small_fetch=False, **SMALL48)
+    on_jax = _port_chain(tchain, **SMALL48)   # JAX's encodes injected
+    jsmall = JC.EditChain(
+        JC.ChainConfig(small_fetch=True, **SMALL48),
+        (jchain.semantic_model, jchain.semantic_vars),
+        (jchain.derender_model, jchain.derender_vars, jchain.bank),
+        (jchain.textural_trainer, jchain.textural_state))
+    for r in _request_dicts(root, edit_json):
+        kw = dict(operations=r["operations"], dets=r["dets"],
+                  cache_key=r["cache_key"])
+        s = small.edit_frame(r["image_rgb"], **kw)
+        f = full.edit_frame(r["image_rgb"], **kw)
+        assert "instance_small" in s["geo"] and "instance_png" in f["geo"]
+        assert "instance_png" not in s["geo"]
+        np.testing.assert_array_equal(
+            s["geo"]["instance_small"], np.asarray(Image.fromarray(
+                f["geo"]["instance_png"]).resize((160, 48), Image.NEAREST)))
+        np.testing.assert_array_equal(
+            s["geo"]["normal_small"], np.asarray(Image.fromarray(
+                f["geo"]["normal_png"]).resize((160, 48), Image.BICUBIC)))
+        np.testing.assert_array_equal(s["fake"], f["fake"])
+        assert s["geo"]["json_obj"] == f["geo"]["json_obj"]
+
+        want = jsmall.edit_frame(r["image_rgb"], **kw)
+        key = r["cache_key"]
+        on_jax._encode_cache.put(key, jsmall._encode_cache.get(key))
+        got = on_jax.edit_frame(r["image_rgb"], label=want["label"],
+                               operations=r["operations"], dets=r["dets"],
+                               cache_key=key)
+        np.testing.assert_array_equal(got["geo"]["instance_small"],
+                                      want["geo"]["instance_small"])
+        d = np.abs(got["geo"]["normal_small"].astype(np.int64)
+                   - want["geo"]["normal_small"])
+        print(f"{key}: normal_small {int((d > 0).sum())} of {d.size} values "
+              f"off by one")
+        assert d.max() <= 1 and (d > 0).mean() <= 5e-3
+        assert got["geo"]["json_obj"].keys() == want["geo"]["json_obj"].keys()
+        dd = np.abs(got["fake"] - want["fake"])
+        assert dd.max() <= FAKE_E2E_MAX and dd.mean() <= FAKE_E2E_MEAN
+
+
+@pytest.mark.parametrize("cfg", [SMALL48, dict(SMALL, small_fetch=False)],
+                         ids=["small_fetch", "full_fetch"])
+def test_edit_frames_match_edit_frame(env, chains, cfg):
+    """edit_frames (one render of the chunk's slots, one generator
+    forward) over the two pairs and a padded tail (the second pair
+    repeated, as the CLI pads) equals edit_frame pair by pair, bit for
+    bit; the padded output equals its original; the batched encode equals
+    derender_encode."""
+    from sdn3d_tpu_torch.pipelines.derender_infer import (
+        derender_encode, derender_encode_batch)
+
+    _, root, edit_json, _ = env
+    _, tchain, _, _ = chains
+    requests = _request_dicts(root, edit_json)
+    serial = _port_chain(tchain, **cfg)
+    want = [serial.edit_frame(r["image_rgb"], operations=r["operations"],
+                              dets=r["dets"], cache_key=r["cache_key"])
+            for r in requests]
+    got = _port_chain(tchain, **cfg).edit_frames(requests + requests[-1:])
+    assert len(got) == 3
+    for a, b in zip(got, want + want[-1:]):
+        _assert_same_pair(a, b)
+
+    frames = [{"image_rgb": r["image_rgb"], "class_ids": r["dets"][0],
+               "image_masks": r["dets"][1], "rois": r["dets"][2]}
+              for r in requests]
+    for (objs, blob), fr in zip(derender_encode_batch(
+            serial.derender_model, frames, serial.infer_cfg, device="cpu"),
+            frames):
+        objs1, blob1 = derender_encode(
+            serial.derender_model, fr["image_rgb"], fr["class_ids"],
+            fr["image_masks"], fr["rois"], serial.infer_cfg, device="cpu")
+        assert blob.keys() == blob1.keys()
+        for k in blob:
+            np.testing.assert_array_equal(blob[k], blob1[k])
+
+
+def test_pipelined_matches_batched(env, chains):
+    """edit_frames_pipelined equals edit_frames bit for bit: two
+    one-pair chunks (the pipeline staggers: stage A runs two chunks ahead
+    of the yield) and one two-pair chunk, each on a chain with empty
+    caches."""
+    _, root, edit_json, _ = env
+    _, tchain, _, _ = chains
+    requests = _request_dicts(root, edit_json)
+    batched = _port_chain(tchain, **SMALL48).edit_frames(requests)
+    staggered = [outs[0] for outs in _port_chain(
+        tchain, **SMALL48).edit_frames_pipelined([[r] for r in requests])]
+    chunked = next(iter(_port_chain(tchain, **SMALL48).edit_frames_pipelined(
+        [requests])))
+    assert len(staggered) == len(chunked) == len(requests)
+    for a, b, c in zip(batched, staggered, chunked):
+        _assert_same_pair(a, b)
+        _assert_same_pair(a, c)
+
+
+def test_edit_frames_match_jax(env, chains):
+    """The port's edit_frames against the JAX package's edit_frames over
+    the same two pairs, on JAX's labels and JAX's encodes: the tolerances
+    of test_edit_frame_matches_jax (instance planes and conditioning maps
+    equal, normal/depth bytes +-1 on at most 0.1%, the fake within
+    FAKE_E2E_MAX / FAKE_E2E_MEAN)."""
+    _, root, edit_json, _ = env
+    jchain, tchain, _, _ = chains
+    requests = _request_dicts(root, edit_json)
+    want = jchain.edit_frames(requests)
+    port = _port_chain(tchain, small_fetch=False, **SMALL)
+    for r in requests:
+        key = r["cache_key"]
+        port._encode_cache.put(key, jchain._encode_cache.get(key))
+    got = port.edit_frames([dict(r, label=w["label"])
+                            for r, w in zip(requests, want)])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g["geo"]["instance_png"],
+                                      w["geo"]["instance_png"])
+        for k in ("normal_png", "depth_png"):
+            d = np.abs(g["geo"][k].astype(np.int64)
+                       - w["geo"][k].astype(np.int64))
+            assert d.max() <= 1 and (d > 0).mean() <= 1e-3, k
+        assert g["geo"]["json_obj"].keys() == w["geo"]["json_obj"].keys()
+        for k in ("label", "inst", "pose"):
+            np.testing.assert_array_equal(g["maps"][k], w["maps"][k])
+        d = np.abs(g["fake"] - w["fake"])
+        assert d.max() <= FAKE_E2E_MAX and d.mean() <= FAKE_E2E_MEAN

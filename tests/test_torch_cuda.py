@@ -241,11 +241,13 @@ def test_all_invalid_scene_has_zero_gradients(cuda):
 def test_edit_chain_pair_launches_the_forward_kernel(cuda, tmp_path):
     """One edit pair through EditChain on the card (full-width models with
     random weights, small shapes: scale 100, render 64, 160x48 textural
-    frames) on a synthetic VKITTI root: the re-render launches the forward
-    rasterizer kernel once and the plain forward never runs; the fake is
-    finite, in [-1, 1], and the labels are < 14.  The same pair again, once
-    from the per-source caches and once without them, gives the same
-    bits."""
+    frames, so the chain fetches the device-downsized planes) on a
+    synthetic VKITTI root: the re-render launches the forward rasterizer
+    kernel once and the plain forward never runs; the fake is finite, in
+    [-1, 1], and the labels are < 14.  The same pair again, once from the
+    per-source caches and once without them, gives the same bits; so do
+    the batched chain (edit_frames over the pair and a second pair: one
+    forward launch at 2 x 16 images) and the pipelined chain."""
     from PIL import Image
 
     from sdn3d_tpu_torch.cli.geometric_main import _keep_largest
@@ -285,15 +287,29 @@ def test_edit_chain_pair_launches_the_forward_kernel(cuda, tmp_path):
     assert out["fake"].shape == (48, 160, 3)
     assert np.isfinite(out["fake"]).all() and np.abs(out["fake"]).max() <= 1
     assert out["label"].shape == (375, 1242) and out["label"].max() < 14
-    assert (out["geo"]["instance_png"] > 0).any()
+    assert out["geo"]["instance_small"].shape == (48, 160)
+    assert (out["geo"]["instance_small"] > 0).any()
     cached = chain.edit_frame(image, operations=ops, dets=dets,
                               cache_key="0001_clone_00000")
     fresh = chain.edit_frame(image, operations=ops, dets=dets)
-    for again in (cached, fresh):
+    other = chain.edit_frame(image, dets=dets)
+    requests = [{"image_rgb": image, "operations": ops, "dets": dets,
+                 "cache_key": "0001_clone_00000"},
+                {"image_rgb": image, "operations": [], "dets": dets}]
+    TC.rasterize_face_index_cuda.launches = 0
+    batched = chain.edit_frames(requests)
+    torch.cuda.synchronize()
+    assert TC.rasterize_face_index_cuda.launches == 1
+    assert TR.rasterize_face_maps.calls == 0
+    piped = next(iter(chain.edit_frames_pipelined([requests])))
+    for again, want in ((cached, out), (fresh, out), (batched[0], out),
+                        (batched[1], other), (piped[0], out),
+                        (piped[1], other)):
         for k in ("fake", "label"):
-            np.testing.assert_array_equal(again[k], out[k])
-        for k in ("instance_png", "normal_png", "depth_png"):
-            np.testing.assert_array_equal(again["geo"][k], out["geo"][k])
+            np.testing.assert_array_equal(again[k], want[k])
+        for k in ("instance_small", "normal_small"):
+            np.testing.assert_array_equal(again["geo"][k], want["geo"][k])
+        assert again["geo"]["json_obj"] == want["geo"]["json_obj"]
 
 
 @pytest.mark.cuda
@@ -337,3 +353,71 @@ def test_instance_feature_means_same_bits_every_run(cuda):
     assert torch.equal(runs[0][1].cpu(), want_c)
     np.testing.assert_allclose(runs[0][0].cpu().numpy(), want_m.numpy(),
                                rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_apply_plan_u8_on_the_card_equals_the_cpu(cuda):
+    """The device downsize of the chain's planes (ops/pil_resize) on the
+    card: byte-equal to the CPU (and so to Pillow) at the serving geometry
+    1242x375 -> 624x192 and at 1242x375 -> 160 -> 128x32 (a crop), for
+    the nearest (instance) and bicubic (normal) planes."""
+    from sdn3d_tpu_torch.ops import pil_resize as PR
+
+    rng = np.random.RandomState(6)
+    inst = torch.from_numpy(rng.randint(0, 17, (375, 1242)).astype(np.uint8))
+    nrm = torch.from_numpy(rng.randint(0, 256, (375, 1242, 3)).astype(
+        np.uint8))
+    for load, fine in ((624, (624, 192)), (160, (128, 32))):
+        plan = PR.transform_plan((1242, 375), load, fine)
+        for img, nearest in ((inst, True), (nrm, False)):
+            got = PR.apply_plan_u8(img.to(cuda), plan, nearest=nearest)
+            assert got.is_cuda and got.dtype == torch.uint8
+            assert torch.equal(got.cpu(), PR.apply_plan_u8(img, plan,
+                                                           nearest=nearest))
+
+
+@pytest.mark.cuda
+def test_batched_render_equals_per_frame_renders(cuda):
+    """derender_images_batch over three frames (one forward-rasterizer
+    launch at 3 x 4 slot images) against derender_image per frame on the
+    card: the planes (full and device-downsized) and the JSON equal."""
+    from sdn3d_tpu_torch.data.synthetic import make_sphere_mesh
+    from sdn3d_tpu_torch.geometry.assets import build_mesh_bank
+    from sdn3d_tpu_torch.models.derenderer import Derenderer, DeviceMeshBank
+    from sdn3d_tpu_torch.ops.pil_resize import transform_plan
+    from sdn3d_tpu_torch.pipelines.derender_infer import (
+        DerenderInferConfig, derender_image, derender_images_batch)
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = Derenderer(num_classes=2).to(cuda).eval()
+    bank = DeviceMeshBank.from_host(
+        build_mesh_bank([make_sphere_mesh(12, 24)] * 2), device=cuda)
+    rng = np.random.RandomState(7)
+    cfg = DerenderInferConfig(image_size=64, render_size=64, max_objects=4)
+    frames = []
+    for k in range(3):
+        image = (rng.rand(96, 160, 3) * 255).astype(np.uint8)
+        rois = np.asarray([[20, 30 + k, 60, 80], [40, 90, 85, 150 - k]],
+                          np.float32)
+        masks = np.zeros((2, 1, 96, 160), np.float32)
+        for i, r in enumerate(rois.astype(int)):
+            masks[i, 0, r[0] + 5:r[2] - 5, r[1] + 5:r[3] - 5] = 1
+        frames.append({"image_rgb": image, "class_ids": np.asarray([1, 2]),
+                       "image_masks": masks, "rois": rois})
+    for plan in (None, transform_plan((160, 96), 80, (80, 40))):
+        TC.rasterize_face_index_cuda.launches = 0
+        batched = derender_images_batch(model, bank, frames, cfg,
+                                        small_plan=plan, device=cuda)
+        torch.cuda.synchronize()
+        assert TC.rasterize_face_index_cuda.launches == 1
+        keys = (("instance_png", "normal_png", "depth_png") if plan is None
+                else ("instance_small", "normal_small"))
+        for fr, b in zip(frames, batched):
+            one = derender_image(model, bank, fr["image_rgb"],
+                                 fr["class_ids"], fr["image_masks"],
+                                 fr["rois"], cfg, small_plan=plan,
+                                 device=cuda)
+            for k in keys:
+                np.testing.assert_array_equal(b[k], one[k])
+            assert b["json_obj"] == one["json_obj"]

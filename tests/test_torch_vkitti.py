@@ -93,7 +93,8 @@ need = {"sdn3d_tpu_torch." + n for n in (
     "models.semantic", "models.pix2pixhd", "data.semantic_data",
     "data.textural_data", "pipelines.semantic", "pipelines.textural",
     "pipelines.chain", "cli.semantic_test", "cli.edit_vkitti",
-    "cli.edit_chain", "utils.visualizer", "utils.metrics")}
+    "cli.edit_chain", "utils.visualizer", "utils.metrics", "ops.pil_resize",
+    "models.layers", "models.lpips", "utils.transfer")}
 print(len(names), bad, sorted(need - set(names)))
 assert len(names) >= 30 and need <= set(names) and not bad, bad
 """
