@@ -78,7 +78,27 @@ Phases, each of which must pass (any failure exits non-zero):
      over the edit set in turns, with each one's device idle share, and
      uncached and cached pairs apart, serial against batched; the per-pair
      profile (uncached and cached walls, device busy, top kernels); the
-     chain's CUDA path against its CPU path on small shapes.
+     chain's CUDA path against its CPU path on small shapes;
+  9. detection as the serving source (Mask R-CNN, MaskRCNNConfig(): a
+     ResNet-101 FPN at 1024^2, 6000 -> 1000 proposals, 100 detections):
+     its FLOP count; 9a. the detector with the CLIs' random weights from
+     --seed on the 16-car frame of phase 4, card against CPU stage by
+     stage (each card stage fed the CPU's inputs; DET_* tolerances,
+     validity and classes equal), the card's packed buffer bit-equal on
+     two runs; 9b. the RPN NMS at 6000 boxes: card keep equal to the
+     CPU's, its fixed-point steps, launches and time; 9c. the forward's
+     time a frame at batch 1 and 4 and detect's wall a frame, in float32
+     and bfloat16, with device busy and idle share; 9d.
+     cli/geometric_main.main at its defaults (--source maskrcnn) over the
+     three frames with a detector checkpoint written from --seed
+     (detector_checkpoint: the random weights' box and class layers scaled
+     so that objects reach the derenderer), one forward-kernel launch per
+     item, no plain forward, and once without the checkpoint; 9e. (in
+     phase 8's run) cli/edit_chain.main --source maskrcnn with that
+     checkpoint, serial, --batch_pairs 4 and --batch_pairs 4 --pipeline:
+     one forward launch per pair or chunk, no plain forward, pipelined
+     bit-equal to batched; then the three modes' wall per pair on one
+     stream.
 The line before last is the card's name and power limit, the line before
 that the kernels' JSON; the last line is {"ok": true, "device": {...}}.
 """
@@ -99,6 +119,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 H100_HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 H100_FP32_FLOPS = 67e12               # H100 SXM, fp32 outside tensor cores
+H100_BF16_FLOPS = 989e12              # H100 SXM, dense bf16 tensor cores
 EDGE_TEST_FLOPS = 15                  # 3 edge functions: 6 sub, 6 mul, 3 cmp
 # walk, per (pixel, edge) and step: where alpha there equals the pixel's,
 # the compare that rules the step out; where it differs, an OUT step of an
@@ -128,6 +149,25 @@ CHAIN_SHAPES = {"load_size": 624, "fine_width": 624, "fine_height": 192}
 # expected (the generator runs frame by frame); a difference is printed,
 # and anything above this bound fails
 FAKE_BATCH_BOUND = 1e-5
+# phase 9: the detector's card stages against the CPU's, each card stage
+# fed the CPU's inputs (cuDNN and oneDNN sum in other orders; CUDA's exp
+# differs from the CPU's in the last bit): relative to the output's
+# largest magnitude (the pyramid, the RPN's and the classifier's logits
+# and deltas), absolute (scores, normalised proposals, sigmoid masks),
+# and refined boxes, which round to whole pixels (an edge within an ulp
+# of .5 may round the other way); validity and classes equal.  A
+# softmax's slope is at most 1/4 and a difference of two logits moves by
+# at most twice either's error, so the probabilities are held to
+# DET_PROB_ATOL or half their logits' max |diff|, whichever is larger
+# (random weights put the logits near 1e3, where 5e-5 relative is 0.05)
+DET_RTOL = 5e-5
+DET_PROB_ATOL = 1e-4
+DET_PROPOSAL_ATOL = 1e-6
+DET_MASK_ATOL = 1e-4
+DET_BOX_ATOL = 1.0
+# the detector checkpoint of phase 9's CLI runs (detector_checkpoint)
+DET_TAME = 1e-3
+DET_CLASS_BIAS = (0.0, 3.0, 0.0)
 
 
 def log(msg: str) -> None:
@@ -304,9 +344,15 @@ def write_assets(root: str, seed: int):
     return shapenet, frames
 
 
-def check_outputs(out_dir: str, n_cars: int):
+def check_outputs(out_dir: str, n_cars: int, names=("00000", "00001"),
+                  min_objs: int = 1) -> int:
+    """The five files of each item: present, maps 375x1242, instance ids
+    <= n_cars, at least `min_objs` objects (with pixels when there are
+    any), finite JSON / pkl values.  Returns the first item's number of
+    objects."""
     from PIL import Image
-    for name in ("00000", "00001"):
+    counts = []
+    for name in names:
         paths = [os.path.join(out_dir, name + s) for s in
                  (".png", "-normal.png", "-depth.png", ".json", ".pkl")]
         missing = [p for p in paths if not os.path.exists(p)]
@@ -319,19 +365,23 @@ def check_outputs(out_dir: str, n_cars: int):
                 or dep.shape != (375, 1242):
             raise AssertionError(f"bad map shapes {inst.shape} {nrm.shape} "
                                  f"{dep.shape}")
-        if inst.max() > n_cars or not (inst > 0).any():
-            raise AssertionError(f"instance ids out of range / empty: "
-                                 f"max {inst.max()} for {n_cars} cars")
         with open(paths[3]) as fh:
             objs = json.load(fh)
         with open(paths[4], "rb") as fh:
             state = pickle.load(fh)
+        if inst.max() > n_cars or len(objs) < min_objs \
+                or (objs and not (inst > 0).any()):
+            raise AssertionError(f"instance ids out of range / empty: "
+                                 f"max {inst.max()} for {n_cars} cars, "
+                                 f"{len(objs)} objects")
         vals = [v for o in objs.values() for v in (o["depth"], o["alpha"])]
         n_obj = state["num_objs"]      # padded slots past it carry inf/nan
         vals += [float(x) for k in ("_scales", "_rotations", "_translations",
                                     "_zooms") for x in np.ravel(state[k][:n_obj])]
-        if not objs or not np.isfinite(vals).all():
-            raise AssertionError("json/pkl values empty or not finite")
+        if not np.isfinite(vals).all():
+            raise AssertionError("json/pkl values not finite")
+        counts.append(len(objs))
+    return counts[0]
 
 
 def profile_frame(frame, shapenet: str, seed: int, card: str,
@@ -753,14 +803,15 @@ def chain_requests(chain, root: str, edit_json: str):
 
 
 def fresh_chain(chain, **cfg):
-    """An EditChain over `chain`'s models with empty caches (and, with
-    `cfg`, another ChainConfig)."""
+    """An EditChain over `chain`'s models (and detector) with empty caches
+    (and, with `cfg`, another ChainConfig)."""
     import dataclasses
 
     from sdn3d_tpu_torch.pipelines.chain import EditChain
     return EditChain(dataclasses.replace(chain.cfg, **cfg),
                      chain.semantic_model, (chain.derender_model, chain.bank),
-                     chain.textural_trainer, device=chain.device)
+                     chain.textural_trainer, device=chain.device,
+                     detector=chain.detector)
 
 
 def edit_one(chain, r):
@@ -909,7 +960,8 @@ def dtype_times(chain, image: np.ndarray, card: str) -> None:
                 f"{busy['bfloat16']:.4f}); runs {ms} ({card})")
 
 
-def time_chain_modes(chain, requests, card: str, reps: int = 2) -> dict:
+def time_chain_modes(chain, requests, card: str, reps: int = 2,
+                     tag: str = "chain-modes", split: bool = True) -> dict:
     """Steady wall per pair of the serial (edit_frame), batched
     (edit_frames, chunks of BATCH_PAIRS, the tail padded by repetition as
     the CLI pads) and pipelined (edit_frames_pipelined, the same chunks)
@@ -919,7 +971,8 @@ def time_chain_modes(chain, requests, card: str, reps: int = 2) -> dict:
     serial, ...), after one warm-up run each; then the device idle share
     of one run of each under torch.profiler.  Then the first BATCH_PAIRS
     pairs all uncached (no cache keys: every stage runs for every pair)
-    and all cached, serial against batched, in turns."""
+    and all cached, serial against batched, in turns (unless not
+    `split`)."""
     import torch
 
     n = len(requests)
@@ -963,12 +1016,14 @@ def time_chain_modes(chain, requests, card: str, reps: int = 2) -> dict:
         # time of the profiled run over the unprofiled runs' wall
         idle = 1.0 - busy / np.mean(ms) if busy else float("nan")
         out[name] = float(np.mean(ms))
-        log(f"[chain-modes] {name}: {n} pairs (chunks of {BATCH_PAIRS}), "
+        log(f"[{tag}] {name}: {n} pairs (chunks of {BATCH_PAIRS}), "
             f"ms/pair over {len(ms)} runs mean {np.mean(ms):.3f} median "
             f"{np.median(ms):.3f} min {np.min(ms):.3f}; device busy "
             f"{busy:.3f} ms/pair (profiled run), idle share {idle:.4f} "
             f"({card})")
 
+    if not split:
+        return out
     head = requests[:BATCH_PAIRS]
     uncached = [dict(r, cache_key=None) for r in head]
     warm = fresh_chain(chain)
@@ -982,7 +1037,7 @@ def time_chain_modes(chain, requests, card: str, reps: int = 2) -> dict:
                     (lambda ch: batched(ch, [rs]))
                 split[(m, c)].append(wall(fn, warm) / len(rs))
     for c in ("uncached", "cached"):
-        log(f"[chain-modes] {len(head)} pairs {c}: serial "
+        log(f"[{tag}] {len(head)} pairs {c}: serial "
             f"{np.mean(split[('serial', c)]):.3f} ms/pair, batched "
             f"{np.mean(split[('batched', c)]):.3f} ms/pair (means of "
             f"{len(split[('serial', c)])} runs each, in turns) ({card})")
@@ -1029,6 +1084,374 @@ def chain_reference(shapenet: str, root: str, edit_json: str,
     log(f"[reference] chain cuda vs cpu on one pair (scale 100, render 64, "
         f"160x48): label agreement {lab}, instance agreement {inst}, fake "
         f"max |diff| {float(d.max()):.3g}, mean {float(d.mean()):.3g}")
+
+
+# -- 9. detection ----------------------------------------------------------
+
+def detector_flops(cfg) -> dict:
+    """Multiply-adds of one frame through the detector at `cfg`, by module
+    group, from the modules' shapes (forward hooks on the meta device,
+    nothing computed): the backbone and FPN at the molded size, the RPN
+    over P2..P6, the classifier at post_nms_rois_inference rois and the
+    mask head at detection_max_instances rois (its transposed convolution
+    counted by its useful products, not the zeros of the dilated input)."""
+    import torch
+
+    from sdn3d_tpu_torch.models.layers import ConvTranspose
+    from sdn3d_tpu_torch.models.maskrcnn import MaskRCNN
+
+    with torch.device("meta"):
+        m = MaskRCNN(cfg)
+    macs = {}
+
+    def hook(group):
+        def count(mod, inp, out):
+            if isinstance(mod, ConvTranspose):
+                n = inp[0].numel() * mod.weight[0].numel()
+            elif isinstance(mod, torch.nn.Conv2d):
+                n = out.numel() * mod.weight[0].numel()
+            else:
+                n = out.numel() * mod.weight.shape[1]
+            macs[group] = macs.get(group, 0) + n
+        return count
+
+    for name, mod in m.named_modules():
+        if isinstance(mod, (torch.nn.Conv2d, torch.nn.Linear, ConvTranspose)):
+            parts = name.split(".")
+            group = ".".join(parts[:2]) if parts[0] == "fpn" else parts[0]
+            mod.register_forward_hook(hook(group))
+    d = cfg.fpn_channels
+    with torch.no_grad():
+        m.rpn_forward(m.fpn(torch.empty(1, 3, cfg.image_max_dim,
+                                        cfg.image_max_dim, device="meta")))
+        c, mh = m.classifier, m.mask
+        x = c.conv2(c.conv1(torch.empty(cfg.post_nms_rois_inference, d,
+                                        cfg.pool_size, cfg.pool_size,
+                                        device="meta"))).reshape(-1, 1024)
+        c.linear_class(x)
+        c.linear_bbox(x)
+        x = torch.empty(cfg.detection_max_instances, d, cfg.mask_pool_size,
+                        cfg.mask_pool_size, device="meta")
+        for k in range(1, 5):
+            x = getattr(mh, f"conv{k}")(x)
+        mh.conv5(mh.deconv(x))
+    return macs
+
+
+def detector_checkpoint(path: str, seed: int) -> str:
+    """The Mask R-CNN state_dict that phase 9's CLI runs load
+    (--maskrcnn_ckpt), written from --seed: the weights the CLIs draw
+    without a checkpoint (models/maskrcnn.init_weights), with the RPN's and
+    the classifier's class and box weights scaled by DET_TAME and the
+    classifier's class bias set to DET_CLASS_BIAS.  As drawn, the
+    activations reach ~2e3 at full width: every RPN score is exactly 1.0
+    (the 6000 "best" anchors are then the first in index order, above the
+    frame's window), the box deltas reach ~1e3 (exp gives boxes of zero
+    width) and no detection survives unmolding, so no object would reach
+    the derenderer.  With this checkpoint the boxes stay near their
+    anchors and class 1 scores ~0.9, over the default 0.7 confidence; the
+    CLIs' configuration is unchanged."""
+    import torch
+
+    from sdn3d_tpu_torch.models.maskrcnn import (MaskRCNN, MaskRCNNConfig,
+                                                 init_weights)
+    sd = init_weights(MaskRCNN(MaskRCNNConfig()), seed).state_dict()
+    for k in ("rpn.conv_class.weight", "rpn.conv_bbox.weight",
+              "classifier.linear_class.weight",
+              "classifier.linear_bbox.weight"):
+        sd[k] = sd[k] * DET_TAME
+    sd["classifier.linear_class.bias"] = torch.tensor(DET_CLASS_BIAS)
+    torch.save(sd, path)
+    return path
+
+
+def detector_stages(model, x, anchors, windows, feed=None) -> dict:
+    """Each stage of MaskRCNN.forward on images `x` [F, 3, H, W]; with
+    `feed` (another run's stages, on this device) every stage after the
+    pyramid takes feed's inputs instead of its own stage's outputs."""
+    from sdn3d_tpu_torch.models import maskrcnn as TM
+
+    cfg, f, out = model.config, feed or {}, {}
+    out["pyramid"] = model.fpn(x)
+    pyr = f.get("pyramid", out["pyramid"])
+    out["logits"], out["probs"], out["bbox"] = model.rpn_forward(pyr)
+    out["props"], out["props_valid"] = TM.proposal_layer(
+        f.get("probs", out["probs"]), f.get("bbox", out["bbox"]), anchors,
+        cfg, cfg.post_nms_rois_inference)
+    props = f.get("props", out["props"])
+    feats = TM.RoiFeatures(pyr[:4])
+    out["clogits"], out["cprobs"], out["cbbox"] = model.classifier(feats,
+                                                                   props)
+    out["dets"], out["dets_valid"] = TM.refine_detections(
+        props, f.get("cprobs", out["cprobs"]), f.get("cbbox", out["cbbox"]),
+        windows, f.get("props_valid", out["props_valid"]), cfg)
+    dets = f.get("dets", out["dets"])
+    out["masks"] = model.mask(feats, dets[..., :4] / float(cfg.image_max_dim))
+    return out
+
+
+def check_detector_stages(got: dict, ref: dict) -> dict:
+    """The card's stages (each fed the CPU's inputs) against the CPU's:
+    the errors, failing above the DET_* tolerances."""
+    import torch
+
+    def absd(a, b):
+        # NaN against NaN and inf against the same inf count as equal (a
+        # box of random deltas may overflow); anything else by its |diff|
+        a, b = a.cpu().double(), b.cpu().double()
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+        return float(torch.where(same, 0.0, (a - b).abs()).max())
+
+    def rel(a, b):
+        b_fin = b.cpu().double()
+        scale = b_fin[torch.isfinite(b_fin)].abs().max().clamp(min=1e-30)
+        return absd(a, b) / float(scale)
+
+    e = {"pyramid": max(rel(a, b) for a, b in zip(got["pyramid"],
+                                                  ref["pyramid"])),
+         "rpn": max(rel(got[k], ref[k]) for k in ("logits", "bbox")),
+         "rpn_probs": absd(got["probs"], ref["probs"]),
+         "proposals": absd(got["props"], ref["props"]),
+         "classifier": max(rel(got[k], ref[k]) for k in ("clogits",
+                                                         "cbbox")),
+         "classifier_probs": absd(got["cprobs"], ref["cprobs"]),
+         "boxes": absd(got["dets"][..., :4], ref["dets"][..., :4]),
+         "scores": absd(got["dets"][..., 5], ref["dets"][..., 5]),
+         "masks": absd(got["masks"], ref["masks"])}
+    exact = (torch.equal(got["props_valid"].cpu(), ref["props_valid"])
+             and torch.equal(got["dets_valid"].cpu(), ref["dets_valid"])
+             and torch.equal(got["dets"][..., 4].cpu(), ref["dets"][..., 4]))
+    bounds = {"pyramid": DET_RTOL, "rpn": DET_RTOL,
+              "rpn_probs": max(DET_PROB_ATOL, 0.5 * absd(got["logits"],
+                                                         ref["logits"])),
+              "proposals": DET_PROPOSAL_ATOL, "classifier": DET_RTOL,
+              "classifier_probs": max(DET_PROB_ATOL, 0.5 * absd(
+                  got["clogits"], ref["clogits"])),
+              "boxes": DET_BOX_ATOL, "scores": DET_PROB_ATOL,
+              "masks": DET_MASK_ATOL}
+    bad = {k: v for k, v in e.items() if not v <= bounds[k]}
+    if bad or not exact:
+        raise AssertionError(f"detector card vs cpu: over the bounds {bad} "
+                             f"({bounds}); validity and classes equal: "
+                             f"{exact}")
+    return e
+
+
+def detection_phase(args, card: str, frames, shapenet: str, tmp: str,
+                    mark=lambda what: None) -> str:
+    """Phase 9 (detection as the serving source): 9a the full-width
+    detector card against CPU, stage by stage, and the card's packed
+    buffer to the same bits on two runs; 9b the RPN NMS at 6000 boxes;
+    9c the detector's time a frame, serial and at batch 4, float32 and
+    bfloat16, with device busy and idle share; 9d geometric_main at its
+    defaults (--source maskrcnn).  Returns the checkpoint of
+    detector_checkpoint, which the chain phase's detection runs load."""
+    import torch
+    from PIL import Image
+
+    from sdn3d_tpu_torch.cli import geometric_main
+    from sdn3d_tpu_torch.models import maskrcnn as TM
+    from sdn3d_tpu_torch.ops import nms as N
+    from sdn3d_tpu_torch.ops import rasterize as TR
+    from sdn3d_tpu_torch.ops import rasterize_cuda as TC
+    from sdn3d_tpu_torch.pipelines.detect import (MaskRCNNDetector,
+                                                  resize_image)
+
+    cfg = TM.MaskRCNNConfig()
+    macs = detector_flops(cfg)
+    total = sum(macs.values())
+    top = ", ".join(f"{k} {v / 1e9:.3f}" for k, v in
+                    sorted(macs.items(), key=lambda kv: -kv[1])[:6])
+    log(f"[detect] MaskRCNNConfig() at {cfg.image_max_dim}^2: "
+        f"{total / 1e9:.3f} GMAC = {2 * total / 1e9:.3f} GFLOP a frame "
+        f"(GMAC: {top}); bound {2 * total / H100_FP32_FLOPS * 1e3:.3f} ms "
+        f"float32, {2 * total / H100_BF16_FLOPS * 1e3:.3f} ms bfloat16")
+
+    # -- 9a. card against CPU, stage by stage (the CLIs' random weights) --
+    t0 = time.perf_counter()
+    gpu = MaskRCNNDetector(cfg, "cuda").init(args.seed)
+    cpu = MaskRCNNDetector(cfg, "cpu").init(args.seed)
+    image = np.asarray(Image.open(frames[-1][0]).convert("RGB"))
+    molded, window, _ = resize_image(image, cfg.image_min_dim,
+                                     cfg.image_max_dim)
+    x = torch.from_numpy(molded.astype(np.float32) - np.asarray(
+        cfg.mean_pixel, np.float32)).permute(2, 0, 1)[None].contiguous()
+    win = torch.tensor([window], dtype=torch.float32)
+    anchors = torch.from_numpy(cpu.anchors)
+    with torch.no_grad():
+        ref = detector_stages(cpu.model, x, anchors, win)
+        cuda = {k: ([t.cuda() for t in v] if isinstance(v, list)
+                    else v.cuda()) for k, v in ref.items()}
+        got = detector_stages(gpu.model, x.cuda(), anchors.cuda(),
+                              win.cuda(), feed=cuda)
+        errs = check_detector_stages(got, ref)
+        p1 = gpu._packed([molded], [window])
+        p2 = gpu._packed([molded], [window])
+        p_cpu = cpu._packed([molded], [window])
+    if not torch.equal(p1, p2) or not torch.isfinite(p1).all():
+        raise AssertionError("detector: two runs of one frame on the card "
+                             "gave different or non-finite bits")
+    D = cfg.detection_max_instances
+    v_gpu, v_cpu = p1[0, D * 6:D * 7].cpu(), p_cpu[0, D * 6:D * 7]
+    log(f"[detect-9a] full-width detector (ResNet-101 FPN, "
+        f"{cfg.image_max_dim}^2, {cfg.pre_nms_limit} -> "
+        f"{cfg.post_nms_rois_inference} proposals, {D} detections), random "
+        f"weights from --seed, card vs cpu with each card stage fed the "
+        f"cpu's inputs: validity and classes equal; max errors {errs}; the "
+        f"card's packed buffer bit-equal on two runs; end to end (each on "
+        f"its own stages) valid detections card {int(v_gpu.sum())} cpu "
+        f"{int(v_cpu.sum())}, packed max |diff| "
+        f"{float((p1[0].cpu() - p_cpu[0]).abs().max()):.3g} "
+        f"({time.perf_counter() - t0:.1f} s with the cpu reference) ({card})")
+    mark("9a. detector card vs cpu")
+
+    # -- 9b. the RPN NMS at 6000 boxes: raw weights, then the checkpoint's -
+    ckpt = detector_checkpoint(os.path.join(tmp, "maskrcnn.pth"), args.seed)
+    tamed = MaskRCNNDetector(cfg, "cuda").load_state_dict(torch.load(ckpt))
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for what, det in (("random weights", gpu), ("checkpoint", tamed)):
+        with torch.no_grad():
+            probs, bbox = det.model.rpn_forward(det.model.fpn(x.cuda()))[1:]
+            boxes, _ = TM.proposal_boxes(probs, bbox, anchors.cuda(), cfg)
+        boxes = boxes[0]
+        stats = {}
+        keep = N.nms(boxes, cfg.rpn_nms_threshold, stats=stats)
+        keep_cpu = N.nms(boxes.cpu(), cfg.rpn_nms_threshold)
+        if not torch.equal(keep.cpu(), keep_cpu):
+            raise AssertionError(f"RPN NMS ({what}): card keep != cpu keep")
+        ms = cuda_ms(lambda: N.nms(boxes, cfg.rpn_nms_threshold), iters=5)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            N.nms(boxes, cfg.rpn_nms_threshold)
+        launches = sum(e.device_type == DeviceType.CUDA
+                       for e in prof.events())
+        # bytes: the boxes read once, the keep mask written once
+        log(f"[detect-9b] RPN NMS ({what}) at {boxes.shape[0]} boxes: card "
+            f"keep == cpu keep ({int(keep.sum())} kept); {stats['steps']} "
+            f"fixed-point steps, {launches} device launches a call "
+            f"(profiler), {ms:.4f} ms a call ({card})")
+    mark("9b. RPN NMS")
+
+    # -- 9c. time a frame: forward and detect, float32 and bfloat16 -------
+    half = MaskRCNNDetector(TM.MaskRCNNConfig(compute_dtype="bfloat16"),
+                            "cuda").load_state_dict(torch.load(ckpt))
+    xb = x.cuda()
+    wb = win.cuda()
+    ab = anchors.cuda()
+    with torch.no_grad():
+        for name, det in (("float32", tamed), ("bfloat16", half)):
+            runs = {}
+            for n in (1, BATCH_PAIRS, BATCH_PAIRS, 1):
+                xs = xb.expand(n, -1, -1, -1).contiguous()
+                ws = wb.expand(n, -1).contiguous()
+                runs.setdefault(n, []).append(cuda_ms(
+                    lambda: det.model(xs, ab, ws), iters=3) / n)
+            log(f"[detect-9c] forward {name}, ms a frame (CUDA events, in "
+                f"turns 1, {BATCH_PAIRS}, {BATCH_PAIRS}, 1): batch 1 "
+                f"{np.mean(runs[1]):.3f}, batch {BATCH_PAIRS} "
+                f"{np.mean(runs[BATCH_PAIRS]):.3f} (runs {runs}) ({card})")
+    frames_rgb = [np.asarray(Image.open(f[0]).convert("RGB")) for f in frames]
+    for name, det in (("float32", tamed), ("bfloat16", half)):
+        det.detect(frames_rgb[0])
+        t0 = time.perf_counter()
+        outs = [det.detect(f) for f in frames_rgb for _ in range(2)]
+        wall = (time.perf_counter() - t0) * 1e3 / len(outs)
+        det.detect_batch(frames_rgb + frames_rgb[:1])
+        t0 = time.perf_counter()
+        det.detect_batch(frames_rgb + frames_rgb[:1])
+        det.detect_batch(frames_rgb + frames_rgb[:1])
+        wall_b = (time.perf_counter() - t0) * 1e3 / (2 * BATCH_PAIRS)
+        busy, top_k = device_time(lambda: [det.detect(f) for f in frames_rgb],
+                                  len(frames_rgb))
+        log(f"[detect-9c] detect {name}: {[len(o[0]) for o in outs[::2]]} "
+            f"objects on the three frames; wall {wall:.3f} ms a frame "
+            f"serial (mold, upload, forward, packed copy, unmold), "
+            f"{wall_b:.3f} ms a frame in detect_batch of {BATCH_PAIRS}; "
+            f"device busy {busy:.3f} ms a frame, idle share "
+            f"{1.0 - busy / wall:.4f} ({card})")
+        for kname, (kms, count) in top_k[:6]:
+            log(f"[detect-9c]   {kms:9.4f} ms/frame  {count // 3:4d} "
+                f"launches/frame  {kname[:90]}")
+    mark("9c. detector times")
+
+    # -- 9d. geometric_main at its defaults (--source maskrcnn) -----------
+    launch = TC.rasterize_face_index_cuda
+    launch.launches = 0
+    TR.rasterize_face_maps.calls = 0
+    n_objs, t0 = [], time.perf_counter()
+    for k, (img, _, edit, _) in enumerate(frames):
+        out_dir = os.path.join(tmp, f"detect{k}")
+        geometric_main.main(["--input_image", img, "--edit_json", edit,
+                             "--shapenet_root", shapenet, "--output_dir",
+                             out_dir, "--seed", str(args.seed),
+                             "--maskrcnn_ckpt", ckpt])
+        n_objs.append(check_outputs(out_dir, 16, min_objs=0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b1, plain = launch.launches, TR.rasterize_face_maps.calls
+    if b1 != 2 * len(frames) or plain or not sum(n_objs):
+        raise AssertionError(f"geometric_main --source maskrcnn: forward "
+                             f"launches {b1} for {2 * len(frames)} items, "
+                             f"plain calls {plain}, objects {n_objs}")
+    out_dir = os.path.join(tmp, "detect_random")
+    geometric_main.main(["--input_image", frames[0][0], "--shapenet_root",
+                         shapenet, "--output_dir", out_dir, "--seed",
+                         str(args.seed)])
+    n_random = check_outputs(out_dir, 16, names=("frame0",), min_objs=0)
+    frame_ms, frame_busy = detect_frame_wall(frames[-1], shapenet, ckpt,
+                                             args.seed)
+    log(f"[detect-9d] geometric_main at its defaults (--source maskrcnn, "
+        f"the detector checkpoint written from --seed): {len(frames)} "
+        f"frames x 2 items in {wall:.2f} s (models built included), objects "
+        f"per frame {n_objs}; forward kernel launches {b1}, plain forward "
+        f"calls {plain}; outputs ok.  Without --maskrcnn_ckpt (the weights "
+        f"as drawn): {n_random} objects, outputs ok.  One served frame "
+        f"(the 16-car frame, detect + derender_image, steady): wall "
+        f"{frame_ms:.3f} ms, device busy {frame_busy:.3f} ms, idle share "
+        f"{1.0 - frame_busy / frame_ms:.4f} ({card})")
+    mark("9d. geometric_main --source maskrcnn")
+    return ckpt
+
+
+def detect_frame_wall(frame, shapenet: str, ckpt: str, seed: int):
+    """One geometric_main --source maskrcnn frame without the CLI's file
+    writes and model builds: detect (the checkpoint's weights) and the
+    unrefined derender_image of its first edit item, host wall per frame
+    over 5 steady calls and device busy per frame under torch.profiler.
+    Returns (wall ms, busy ms)."""
+    import torch
+    from PIL import Image
+
+    from sdn3d_tpu_torch.cli import geometric_main
+    from sdn3d_tpu_torch.data.vkitti import load_edit_json
+    from sdn3d_tpu_torch.pipelines.derender_infer import (
+        DerenderInferConfig, derender_image, keep_largest_detections)
+
+    img, _, edit, _ = frame
+    args = geometric_main.build_argparser().parse_args(
+        ["--shapenet_root", shapenet, "--seed", str(seed), "--maskrcnn_ckpt",
+         ckpt])
+    model, bank = geometric_main.load_derenderer(args)
+    det = geometric_main.make_detector(args)
+    cfg = DerenderInferConfig()
+    image = np.asarray(Image.open(img).convert("RGB"))
+    ops = load_edit_json(edit)[0].operations
+
+    def run():
+        dets = keep_largest_detections(cfg, *det.detect(image))
+        derender_image(model, bank, image, *dets, cfg, operations=ops,
+                       device="cuda")
+        torch.cuda.synchronize()
+
+    run()
+    run()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        run()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 5
+    busy_ms, _ = device_time(lambda: [run() for _ in range(3)], 3)
+    return wall_ms, busy_ms
 
 
 def chain_phase(args, card: str, mark=lambda what: None) -> int:
@@ -1229,6 +1652,52 @@ def chain_phase(args, card: str, mark=lambda what: None) -> int:
                 f"bfloat16 {b16:.6f} ({card})")
 
         mark("8d. bfloat16")
+        # 9e. Mask R-CNN as the chain's source: serial, batched, pipelined
+        det_ckpt = detector_checkpoint(os.path.join(tmp, "maskrcnn.pth"),
+                                       args.seed)
+        mr = ["--source", "maskrcnn", "--maskrcnn_ckpt", det_ckpt]
+        (saved_m, m_serial, m_launches, _, m_plain, m_images,
+         m_wall) = run_cli("chain_mrcnn", mr)
+        (saved_mb, m_batched, mb_launches, _, mb_plain, mb_images,
+         _) = run_cli("chain_mrcnn_batched",
+                      mr + ["--batch_pairs", str(BATCH_PAIRS)])
+        saved_mp, m_piped, mp_launches, _, mp_plain, *_ = run_cli(
+            "chain_mrcnn_piped", mr + ["--batch_pairs", str(BATCH_PAIRS),
+                                       "--pipeline"], phases_on=False)
+        objs = [len(r["json"]) for r in m_serial]
+        if (m_launches, mb_launches, mp_launches) != (n_pairs, n_chunks,
+                                                      n_chunks) \
+                or any(m_plain) or any(mb_plain) or any(mp_plain) \
+                or set(m_images) != {16} \
+                or set(mb_images) != {16 * BATCH_PAIRS} or not any(objs):
+            raise AssertionError(f"maskrcnn chain: forward launches serial "
+                                 f"{m_launches} (images {m_images}), batched "
+                                 f"{mb_launches} (images {mb_images}), "
+                                 f"pipelined {mp_launches}; plain calls "
+                                 f"{m_plain} {mb_plain} {mp_plain}; objects "
+                                 f"a pair {objs}")
+        mp_diff = same_pairs(m_piped, m_batched, "9e pipelined vs batched",
+                             0.0)
+        same_json = all(a["json"] == b["json"]
+                        for a, b in zip(m_serial, m_batched))
+        sb_diff = max(float(np.abs(a["fake"] - b["fake"]).max())
+                      for a, b in zip(m_serial, m_batched))
+        log(f"[chain-9e] --source maskrcnn (detector checkpoint from "
+            f"--seed): {n_pairs} pairs in {m_wall:.2f} s serial (models "
+            f"built included), objects a pair {objs}; forward kernel "
+            f"launches serial {m_launches} at 16 images, batched "
+            f"{mb_launches} and pipelined {mp_launches} at "
+            f"{16 * BATCH_PAIRS}; plain forward calls 0; pipelined bit-equal "
+            f"to batched (fake max |diff| {mp_diff}); batched against serial "
+            f"(one detection pass of {BATCH_PAIRS} frames against one a "
+            f"frame): JSON equal {same_json}, fake max |diff| {sb_diff:.3g}; "
+            f"steady_s_per_pair serial "
+            f"{saved_m.get('steady_s_per_pair', float('nan')):.4f}, batched "
+            f"{saved_mb.get('steady_s_per_pair', float('nan')):.4f}, "
+            f"pipelined {saved_mp.get('steady_s_per_pair', float('nan')):.4f}"
+            f" ({card})")
+        log_phases("chain-9e", saved_m, n_pairs, card)
+        mark("9e. maskrcnn chain runs")
         chain = EditChain.build(ChainConfig(), shapenet, device="cuda",
                                 seed=args.seed)
         requests = chain_requests(chain, root, edit_json)
@@ -1237,6 +1706,12 @@ def chain_phase(args, card: str, mark=lambda what: None) -> int:
         mark("8b/8d. generator batch, dtype times")
         time_chain_modes(chain, requests, card)
         mark("8. modes on one stream")
+        time_chain_modes(EditChain.build(ChainConfig(), shapenet,
+                                         maskrcnn_ckpt=det_ckpt, device="cuda",
+                                         seed=args.seed),
+                         [dict(r, dets=None) for r in requests], card,
+                         reps=1, tag="chain-9e-modes", split=False)
+        mark("9e. maskrcnn modes on one stream")
         profile_chain_pair(chain, requests, card, n=6)
         mark("8. pair profile")
         chain_reference(write_meshes(os.path.join(tmp, "shapenet_small"),
@@ -1537,8 +2012,10 @@ def main(argv=None) -> int:
         profile_frame(frames[-1], shapenet, args.seed, card)
         profile_frame(frames[-1], shapenet, args.seed, card,
                       num_opts=NUM_OPTS)
+        mark("6. profiles")
+        # -- 9. detection as the serving source (9e in the chain phase) ----
+        detection_phase(args, card, frames, shapenet, tmp, mark)
 
-    mark("6. profiles")
     # -- 5. kernels vs plain at the main paths' shapes ------------------------
     cf, cv, cs, cc = (captured["faces"], captured["valid"], captured["size"],
                       captured["colors"])

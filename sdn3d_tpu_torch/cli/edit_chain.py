@@ -10,10 +10,14 @@ the per-stage file contract (and fetches the full-resolution planes).
 
     python -m sdn3d_tpu_torch.cli.edit_chain --edit_json E.json \\
         --data_root VKITTI_ROOT --shapenet_root SHAPENET_ROOT \\
+        [--source maskrcnn [--maskrcnn_ckpt mrcnn.pth]] \\
         [--batch_pairs N [--pipeline]] [--compute_dtype bfloat16] \\
         [--lpips_ckpt vgg.pth] [--full_fetch]
 
-Not ported yet: --source maskrcnn (NotImplementedError, ROADMAP.md A6).
+--source gt (the default) reads each source frame's objects from the
+VKITTI ground truth; --source maskrcnn detects them with Mask R-CNN
+(random weights from --seed unless --maskrcnn_ckpt names a torch
+state_dict in the reference layout).
 """
 
 from __future__ import annotations
@@ -36,7 +40,9 @@ def build_argparser():
     p.add_argument("--semantic_ckpt", default=None)
     p.add_argument("--derender_ckpt", default=None)
     p.add_argument("--textural_ckpt", default=None)
-    p.add_argument("--maskrcnn_ckpt", default=None)
+    p.add_argument("--maskrcnn_ckpt", default=None,
+                   help="torch state_dict file of the Mask R-CNN "
+                        "(utils/port.maskrcnn_state_dict_from_jax)")
     p.add_argument("--results_dir", default="./benchmark_chain_out")
     p.add_argument("--dump_dirs", default=None,
                    help="write the standard file contract under "
@@ -101,10 +107,6 @@ def main(argv=None):
     from sdn3d_tpu_torch.utils.visualizer import HTMLGallery, tensor2im
 
     args = build_argparser().parse_args(argv)
-    if args.source == "maskrcnn":
-        raise NotImplementedError(
-            "--source maskrcnn: Mask R-CNN is not ported yet (ROADMAP.md A6, "
-            "detection)")
     if args.phases:
         phases.reset(True)
     cfg = ChainConfig(scales=tuple(args.scales), image_size=args.image_size,
@@ -117,12 +119,15 @@ def main(argv=None):
     chain = EditChain.build(
         cfg, args.shapenet_root, semantic_ckpt=args.semantic_ckpt,
         derender_ckpt=args.derender_ckpt, textural_ckpt=args.textural_ckpt,
-        maskrcnn_ckpt=args.maskrcnn_ckpt, device=args.device, seed=args.seed)
+        maskrcnn_ckpt=args.maskrcnn_ckpt,
+        with_detector=(args.source == "maskrcnn"), device=args.device,
+        seed=args.seed)
 
     items = VK.benchmark_split(VK.load_edit_json(args.edit_json))
     if args.limit:
         items = items[:args.limit]
-    table_inst = VK.get_tables("inst", args.data_root)
+    table_inst = (VK.get_tables("inst", args.data_root)
+                  if args.source == "gt" else None)
     gallery = HTMLGallery(args.results_dir, "fused edit benchmark")
     wh = (args.fine_width, args.fine_height)
 
@@ -138,11 +143,14 @@ def main(argv=None):
         frame = int(item.source)
         image = np.asarray(Image.open(VK.rgb_path(
             args.data_root, item.world, item.topic, frame)).convert("RGB"))
-        dets = dets_cache.get(item.source_name)
-        if dets is None:
-            dets = _keep_largest(chain.infer_cfg, *VK.gt_objects(
-                args.data_root, item.world, item.topic, frame, table_inst))
-            dets_cache[item.source_name] = dets
+        dets = None         # --source maskrcnn: the chain detects
+        if table_inst is not None:
+            dets = dets_cache.get(item.source_name)
+            if dets is None:
+                dets = _keep_largest(chain.infer_cfg, *VK.gt_objects(
+                    args.data_root, item.world, item.topic, frame,
+                    table_inst))
+                dets_cache[item.source_name] = dets
         return {"image_rgb": image, "operations": item.operations,
                 "dets": dets, "cache_key": item.source_name}
 

@@ -1,17 +1,20 @@
 """Geometric branch CLI (mirrors geometric/scripts/main.py), PyTorch port.
 
---do test --mode extend --source gt --input_image ... --input_masks ...
-[--edit_json ...]: per-image de-render + edit + re-render, writing
-{name}.png (instance map), {name}.json, {name}-normal.png,
-{name}-depth.png, {name}.pkl — the inter-branch filesystem contract
-(scripts/main.py:530-622).  Runs on `--device` (default cuda).
+--do test --mode extend --source maskrcnn|gt --input_image ...
+[--input_masks ...] [--edit_json ...]: per-image de-render + edit +
+re-render, writing {name}.png (instance map), {name}.json,
+{name}-normal.png, {name}-depth.png, {name}.pkl — the inter-branch
+filesystem contract (scripts/main.py:530-622).  Runs on `--device`
+(default cuda).  The objects come from a GT npz (--input_masks) or, at
+the default --source maskrcnn, from the Mask R-CNN detector
+(pipelines/detect.py), built once and run once per source frame.
 --num_opts N refines each object's pose and shape against its mask with
 N Adam steps through the differentiable silhouette before the edits.
 
-Not ported yet: --source maskrcnn (Mask R-CNN), --vkitti_root dataset
-mode, and orbax checkpoints:
---ckpt_dir takes a torch state_dict file written from JAX variables by
-sdn3d_tpu_torch.utils.port.derenderer_state_dict_from_jax.
+Not ported yet: --vkitti_root dataset mode, and orbax checkpoints:
+--ckpt_dir and --maskrcnn_ckpt take torch state_dict files written from
+JAX variables by sdn3d_tpu_torch.utils.port.derenderer_state_dict_from_jax
+and maskrcnn_state_dict_from_jax.
 """
 
 from __future__ import annotations
@@ -37,11 +40,14 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt_dir", default=None,
                    help="torch state_dict file of the derenderer "
                         "(utils/port.derenderer_state_dict_from_jax)")
-    p.add_argument("--maskrcnn_ckpt", default=None)
+    p.add_argument("--maskrcnn_ckpt", default=None,
+                   help="torch state_dict file of the Mask R-CNN "
+                        "(utils/port.maskrcnn_state_dict_from_jax)")
     p.add_argument("--compute_dtype", default="float32",
                    choices=["float32", "bfloat16"],
-                   help="compute dtype of the derenderer's resnet18 trunk "
-                        "(its heads stay float32)")
+                   help="compute dtype of Mask R-CNN's convolutions and of "
+                        "the derenderer's resnet18 trunk (heads, BatchNorm "
+                        "and box math stay float32)")
     p.add_argument("--shapenet_root",
                    default=os.environ.get("SHAPENET_ROOT_DIR"))
     p.add_argument("--edit_json", default=None)
@@ -59,8 +65,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device; nothing falls back to the CPU")
     p.add_argument("--seed", type=int, default=0,
-                   help="seed of the random derenderer weights used when "
-                        "--ckpt_dir is not given")
+                   help="seed of the random derenderer and detector "
+                        "weights used where no checkpoint is given")
     return p
 
 
@@ -94,12 +100,39 @@ def load_derenderer(args):
     return model, bank
 
 
-def detect_objects(args, image_rgb: np.ndarray):
-    """Object proposals from a GT npz (rois/masks/class_ids)."""
+def make_detector(args):
+    """The Mask R-CNN detector on args.device, built once and reused for
+    every frame of the run, computing in args.compute_dtype: random
+    weights from args.seed, or args.maskrcnn_ckpt (a torch state_dict in
+    the reference layout)."""
+    import torch
+
+    from sdn3d_tpu_torch.models.maskrcnn import MaskRCNNConfig
+    from sdn3d_tpu_torch.pipelines.detect import MaskRCNNDetector
+
+    det = MaskRCNNDetector(MaskRCNNConfig(
+        compute_dtype=getattr(args, "compute_dtype", "float32")),
+        device=args.device)
+    if args.maskrcnn_ckpt:
+        det.load_state_dict(torch.load(args.maskrcnn_ckpt,
+                                       map_location="cpu"))
+        print(f"restored maskrcnn state_dict {args.maskrcnn_ckpt}")
+    else:
+        det.init(getattr(args, "seed", 0))
+        print("WARNING: no --maskrcnn_ckpt; random detector weights")
+    return det
+
+
+def detect_objects(args, image_rgb: np.ndarray, detector=None):
+    """Object proposals: from a GT npz (rois/masks/class_ids) or from
+    Mask R-CNN.  `detector` is make_detector's; when None a throwaway one
+    is built (single-shot callers)."""
     if args.source == "gt" or args.input_masks:
         data = np.load(args.input_masks)
         return data["class_ids"], data["masks"], data["rois"]
-    raise NotImplementedError("Mask R-CNN is not ported yet")
+    if detector is None:
+        detector = make_detector(args)
+    return detector.detect(image_rgb)
 
 
 def quantize_instance_map(inst: np.ndarray) -> np.ndarray:
@@ -190,8 +223,6 @@ def main(argv=None):
 
     parser = build_argparser()
     args = parser.parse_args(argv)
-    if args.source == "maskrcnn" and not args.input_masks:
-        raise NotImplementedError("Mask R-CNN is not ported yet")
     if args.source == "gt" and args.input_image and not args.input_masks:
         parser.error("--source gt with --input_image requires "
                      "--input_masks (npz with rois/masks/class_ids)")
@@ -200,6 +231,7 @@ def main(argv=None):
         image_size=args.image_size, render_size=args.render_size,
         num_opts=args.num_opts, mode=TargetType.BY_NAME[args.mode])
 
+    detector = None      # built lazily, once, for the maskrcnn source
     cached = {}
     for name, src_key, image, gt, ops in _iter_work(args):
         # lock-file skip/claim for concurrent or resumed runs
@@ -209,7 +241,13 @@ def main(argv=None):
             continue
         with crash_guard(name):
             if src_key not in cached:
-                dets = gt if gt is not None else detect_objects(args, image)
+                if gt is not None:
+                    dets = gt
+                else:
+                    if detector is None and not (
+                            args.source == "gt" or args.input_masks):
+                        detector = make_detector(args)
+                    dets = detect_objects(args, image, detector)
                 # keep the last source only (masks are large)
                 cached = {src_key: keep_largest_detections(cfg, *dets)}
             class_ids, masks, rois = cached[src_key]

@@ -65,6 +65,34 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
 
 
+class ConvTranspose(nn.ConvTranspose2d):
+    """ConvTranspose2d with the reference's parameters ([in, out, kh, kw]),
+    computed as the JAX package's lax.conv_transpose(transpose_kernel=True)
+    computes it: a forward convolution of the input dilated by the stride
+    (zeros between the pixels) and padded (k - 1 - p) before and
+    (k - 1 - p + output_padding) after, with the kernel flipped and its
+    in/out axes swapped.  On the card cuDNN's forward convolutions give the
+    same bits on every run; the backward-data algorithms behind torch's
+    transposed convolution add with atomics, so the same input would move
+    the output's last bits from run to run.  Computes in `compute_dtype`,
+    as Conv2d."""
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, H, W = x.shape
+        (kh, kw), (sh, sw) = self.kernel_size, self.stride
+        lo_h, lo_w = kh - 1 - self.padding[0], kw - 1 - self.padding[1]
+        if lo_h < 0 or lo_w < 0 or self.dilation != (1, 1) or self.groups != 1:
+            raise ValueError("ConvTranspose: padding <= kernel - 1, no "
+                             "dilation or groups")
+        hd, wd = (H - 1) * sh + 1, (W - 1) * sw + 1
+        z = x.new_zeros(B, C, 2 * lo_h + hd + self.output_padding[0],
+                        2 * lo_w + wd + self.output_padding[1])
+        z[:, :, lo_h:lo_h + hd:sh, lo_w:lo_w + wd:sw] = x
+        return conv2d(z, self.weight.flip(2, 3).transpose(0, 1), self.bias,
+                      self.compute_dtype)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm in float32 whatever its input's dtype."""
 
@@ -75,7 +103,7 @@ class BatchNorm2d(nn.BatchNorm2d):
 def set_compute_dtype(module: nn.Module,
                       dtype: Union[str, torch.dtype]) -> nn.Module:
     """Set the compute dtype of every layer under `module` that has one
-    (Conv2d, Linear, pix2pixhd.ConvTranspose).  Returns `module`."""
+    (Conv2d, Linear, ConvTranspose).  Returns `module`."""
     dt = as_dtype(dtype)
     for m in module.modules():
         if hasattr(type(m), "compute_dtype"):

@@ -26,7 +26,8 @@ import torch
 from torch import nn
 
 from sdn3d_tpu_torch.models.derenderer import strict_fp32
-from sdn3d_tpu_torch.models.layers import Conv2d, conv2d, set_compute_dtype
+from sdn3d_tpu_torch.models.layers import (Conv2d, ConvTranspose,
+                                           set_compute_dtype)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -63,27 +64,6 @@ class ReflectPad(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return reflect_pad(x, self.p)
-
-
-class ConvTranspose(nn.ConvTranspose2d):
-    """ConvTranspose2d(3, stride 2, padding 1, output_padding 1) with the
-    reference's parameters, computed as the JAX package's
-    lax.conv_transpose computes it: a convolution of the input dilated by
-    2 (zeros between the pixels) and padded (1, 2), with the kernel
-    flipped and its in/out axes swapped.  On the card cuDNN's forward
-    convolutions give the same bits on every run; the backward-data
-    algorithms behind torch's transposed convolution add with atomics, so
-    the same input would move the fake's last bits from run to run and a
-    pair served from the edit chain's per-source caches would differ from
-    a fresh one.  Computes in `compute_dtype`, as layers.Conv2d."""
-    compute_dtype = torch.float32
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, C, H, W = x.shape
-        z = x.new_zeros(B, C, 2 * H + 2, 2 * W + 2)
-        z[:, :, 1:2 * H:2, 1:2 * W:2] = x
-        return conv2d(z, self.weight.flip(2, 3).transpose(0, 1), self.bias,
-                      self.compute_dtype)
 
 
 def _conv_transpose(in_ch: int, out_ch: int) -> ConvTranspose:

@@ -13,8 +13,8 @@ symmetric, as the JAX package writes it; BatchNorm uses eps 1e-5 and, in
 eval mode, its running statistics.  `dtype` (float32 or bfloat16) is the
 convolutions' and the fc's compute dtype, as the JAX package's `dtype`
 (models/layers.py: BatchNorm stays float32, so a block's output is
-float32).  The resnet101 trunk of Mask R-CNN waits
-for the detection slice.
+float32).  Mask R-CNN's caffe-style ResNet-101 (stride on the 1x1 conv1,
+biases, BatchNorm eps 1e-3) is models/maskrcnn.py's own.
 """
 
 from __future__ import annotations

@@ -17,8 +17,11 @@ frame (`edit_frame`) or once per chunk of N frames (`edit_frames`,
 `ChainConfig.small_fetch` (the default, as in the JAX package) the
 instance and normal planes are downsized on the device to the textural
 conditioning resolution and fetched at that size; the outputs are those
-of the full fetch.  The Mask R-CNN source is not ported yet
-(NotImplementedError, ROADMAP.md A6): every request carries its `dets`.
+of the full fetch.  A request without `dets` gets its objects from the
+chain's Mask R-CNN detector (pipelines/detect.py; build with
+`with_detector` or `maskrcnn_ckpt`), once a request as in the JAX package:
+one frame at a time in `edit_frame`, every det-less request of a chunk in
+one batched pass in `edit_frames` and the pipelined chain's stage A.
 """
 
 from __future__ import annotations
@@ -34,8 +37,7 @@ from sdn3d_tpu_torch.models.layers import as_dtype
 from sdn3d_tpu_torch.pipelines.semantic import EVAL_SCALES
 from sdn3d_tpu_torch.utils import phases
 
-_DETECT = ("Mask R-CNN detection is not ported yet (ROADMAP.md A6, "
-           "detection as the chain's source); pass dets=")
+_NO_DETECTOR = "EditChain built without a detector; pass dets= to edit_frame"
 
 
 @dataclasses.dataclass
@@ -98,18 +100,19 @@ class EditChain:
 
     Build once with `EditChain.build(...)` (or from the models: `semantic`
     a SemanticModel, `derender` a (Derenderer, DeviceMeshBank) tuple,
-    `textural` a TexturalTrainer, all on `device`), then call `edit_frame`
-    per (source image, operations) pair.  Stage wall-clock accumulates in
-    `self.stage_s`."""
+    `textural` a TexturalTrainer, `detector` None or a MaskRCNNDetector,
+    all on `device`), then call `edit_frame` per (source image,
+    operations) pair.  Stage wall-clock accumulates in `self.stage_s`."""
 
     def __init__(self, cfg: ChainConfig, semantic, derender, textural,
-                 device="cuda"):
+                 device="cuda", detector=None):
         as_dtype(cfg.compute_dtype)          # float32 or bfloat16
         self.cfg = cfg
         self.device = device
         self.semantic_model = semantic
         self.derender_model, self.bank = derender
         self.textural_trainer = textural
+        self.detector = detector
         self.stage_s = {"semantic": 0.0, "geometric": 0.0, "textural": 0.0}
         self._label_cache = _SourceCache(cfg.cache_sources)
         # per-source textural inputs (transformed image, transformed label,
@@ -155,13 +158,15 @@ class EditChain:
               with_detector: bool = False, device="cuda",
               seed: int = 0) -> "EditChain":
         """The three loaders of the per-stage CLIs, on `device`, each
-        computing in cfg.compute_dtype (JAX chain.py:150-164); random
+        computing in cfg.compute_dtype (JAX chain.py:150-184); random
         weights come from `seed`, drawn inside torch.random.fork_rng (the
-        global generator is left as it was)."""
-        if with_detector or maskrcnn_ckpt:
-            raise NotImplementedError(_DETECT)
+        global generator is left as it was).  With `with_detector` or
+        `maskrcnn_ckpt` (a torch state_dict file in the reference layout)
+        the chain also holds the Mask R-CNN detector
+        (cli/geometric_main.make_detector)."""
         from sdn3d_tpu_torch.cli.edit_vkitti import load_trainer
-        from sdn3d_tpu_torch.cli.geometric_main import load_derenderer
+        from sdn3d_tpu_torch.cli.geometric_main import (load_derenderer,
+                                                         make_detector)
         from sdn3d_tpu_torch.cli.semantic_test import load_model
 
         common = dict(device=device, seed=seed,
@@ -173,7 +178,12 @@ class EditChain:
             shapenet_root=shapenet_root, **common))
         textural = load_trainer(SimpleNamespace(ckpt_dir=textural_ckpt,
                                                 **common))
-        return cls(cfg, semantic, derender, textural, device=device)
+        detector = None
+        if with_detector or maskrcnn_ckpt:
+            detector = make_detector(SimpleNamespace(
+                maskrcnn_ckpt=maskrcnn_ckpt, **common))
+        return cls(cfg, semantic, derender, textural, device=device,
+                   detector=detector)
 
     # -- stages -----------------------------------------------------------
 
@@ -196,19 +206,58 @@ class EditChain:
             self._label_cache.put(cache_key, pred)
         return pred
 
+    def _detector(self):
+        if self.detector is None:
+            raise ValueError(_NO_DETECTOR)
+        return self.detector
+
     def detect(self, image_rgb: np.ndarray):
-        raise NotImplementedError(_DETECT)
+        """Mask R-CNN objects of one frame, capped to the derenderer's
+        slots as cli/geometric_main caps them."""
+        from sdn3d_tpu_torch.pipelines.derender_infer import \
+            keep_largest_detections
+        with phases.phase("det.detect"):
+            return keep_largest_detections(
+                self.infer_cfg, *self._detector().detect(image_rgb))
+
+    def detect_begin(self, image_rgb: np.ndarray):
+        """Enqueue one frame's detection (its copy in flight);
+        detect_finish(pending) equals detect(image_rgb)."""
+        with phases.phase("det.detect"):
+            return self._detector().detect_begin(image_rgb)
+
+    def detect_finish(self, pending):
+        from sdn3d_tpu_torch.pipelines.derender_infer import \
+            keep_largest_detections
+        with phases.phase("det.detect"):
+            return keep_largest_detections(
+                self.infer_cfg, *self._detector().detect_finish(pending))
 
     def detect_missing_begin(self, requests, dets_list):
-        """The JAX package's batched detection for every request whose
-        dets are None; with every request's dets given there is nothing
-        to detect (None), and a missing one raises until Mask R-CNN is
-        ported."""
-        if any(d is None for d in dets_list):
-            raise NotImplementedError(_DETECT)
-        return None
+        """Enqueue ONE batched detection pass for every request whose dets
+        are None, padded to the chunk's size (detect_begin_batch), so the
+        serial and pipelined chains at one --batch_pairs run the same
+        batch.  Returns the pending handle, None when nothing is missing."""
+        idx = [i for i, d in enumerate(dets_list) if d is None]
+        if not idx:
+            return None
+        with phases.phase("det.detect"):
+            pending = self._detector().detect_begin_batch(
+                [requests[i]["image_rgb"] for i in idx],
+                pad_to=len(requests))
+        return (idx, pending)
 
     def detect_missing_finish(self, handle, dets_list):
+        """Fill dets_list in place from detect_missing_begin's copy."""
+        if handle is None:
+            return dets_list
+        from sdn3d_tpu_torch.pipelines.derender_infer import \
+            keep_largest_detections
+        idx, pending = handle
+        with phases.phase("det.detect"):
+            outs = self._detector().detect_finish_batch(pending)
+            for i, out in zip(idx, outs):
+                dets_list[i] = keep_largest_detections(self.infer_cfg, *out)
         return dets_list
 
     def _encoded(self, image_rgb: np.ndarray, dets,
@@ -311,9 +360,9 @@ class EditChain:
                    cache_key: Optional[str] = None) -> Dict[str, object]:
         """One source frame through all three branches, in memory.
 
-        `dets` is (class_ids, masks, rois) (e.g. VKITTI GT).  Returns
-        label, geometric outputs, and the generated frame
-        [fine_h, fine_w, 3] in [-1, 1]."""
+        `dets` is (class_ids, masks, rois) (e.g. VKITTI GT); when None
+        the chain's Mask R-CNN detector runs.  Returns label, geometric
+        outputs, and the generated frame [fine_h, fine_w, 3] in [-1, 1]."""
         if label is None:
             label = self.labels(image_rgb, cache_key=cache_key)
         if dets is None:
@@ -333,12 +382,14 @@ class EditChain:
         from sdn3d_tpu_torch.pipelines.derender_infer import \
             derender_images_batch
 
+        # detection for every det-less request in one batched pass, its
+        # copy in flight while the semantic passes run
         dets_list = [r.get("dets") for r in requests]
-        self.detect_missing_finish(
-            self.detect_missing_begin(requests, dets_list), dets_list)
+        det_handle = self.detect_missing_begin(requests, dets_list)
         labels = [r["label"] if r.get("label") is not None else
                   self.labels(r["image_rgb"], cache_key=r.get("cache_key"))
                   for r in requests]
+        self.detect_missing_finish(det_handle, dets_list)
 
         t0 = time.perf_counter()
         frames = []
@@ -369,9 +420,11 @@ class EditChain:
     # -- pipelined fused chain ---------------------------------------------
 
     def _stage_a(self, requests: Sequence[Dict[str, object]]):
-        """Pipeline stage A: enqueue the chunk's semantic passes, prepare
-        the object crops and enqueue the encoders, each copy to the host
-        started without waiting (HostFetch).  Returns as soon as the
+        """Pipeline stage A: enqueue the chunk's semantic passes, detect
+        (one batched pass for the det-less requests; the crops need its
+        masks, so stage A waits for it), prepare the object crops and
+        enqueue the encoders, each copy to the host started without
+        waiting (HostFetch).  Returns as soon as the
         card's queue holds the work.  Requests of one source (one cache
         key) in the chunk share one semantic pass and one encode: the
         per-source caches are filled only in stage B."""
@@ -538,9 +591,10 @@ class EditChain:
         """Generator: run chunks of requests through a 3-deep software
         pipeline and yield each chunk's outputs in order.
 
-        Stage A (semantic + crop prep + encoder, copies in flight) runs
-        two chunks ahead of the yield; stage B (edit ops + the chunk's
-        render + textural source prep) one chunk ahead; stage C (the
+        Stage A (semantic + detection + crop prep + encoder, copies in
+        flight) runs two chunks ahead of the yield; stage B (edit ops +
+        the chunk's render + textural source prep) one chunk ahead; stage
+        C (the
         packed planes + generate) yields.  The card's queue holds the
         next chunks' work while the host packages and scores the current
         one.  The outputs are edit_frames' per chunk (the same

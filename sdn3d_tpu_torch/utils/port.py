@@ -1,7 +1,8 @@
 """flax variables -> PyTorch state_dicts (the reference's key layouts).
 
 The exact inverses of sdn3d_tpu/utils/port.py's port_derenderer,
-port_semantic, port_global_generator, port_encoder and port_lpips, so
+port_semantic, port_global_generator, port_encoder, port_lpips and
+port_maskrcnn, so
 weights trained or ported on the JAX side load one to one into the port's
 models:
 
@@ -181,4 +182,51 @@ def lpips_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
         k += 1
     sd["scaling_layer.shift"] = _t(np.asarray(_SHIFT).reshape(1, 3, 1, 1))
     sd["scaling_layer.scale"] = _t(np.asarray(_SCALE).reshape(1, 3, 1, 1))
+    return sd
+
+
+def maskrcnn_state_dict_from_jax(variables: Mapping
+                                 ) -> Dict[str, torch.Tensor]:
+    """flax {"params", "batch_stats"} of the JAX MaskRCNN -> the
+    reference's state_dict (maskrcnn/model.py, mask_rcnn_*.pth), which the
+    port's models/maskrcnn.MaskRCNN loads: fpn.C1.0 / fpn.C1.1 (the stem's
+    conv and BN), fpn.C{2..5}.{j}.conv{k} / bn{k} / downsample.{0,1},
+    fpn.P{k}_conv1, fpn.P{k}_conv2.1, rpn.conv_{shared,class,bbox},
+    classifier.{conv,bn}{1,2} / linear_{class,bbox}, mask.conv{1..5} /
+    bn{1..4} / deconv.  The stage sizes are read off the variables.
+    Inverse of JAX utils/port.py:port_maskrcnn."""
+    P, S = variables["params"], variables["batch_stats"]
+    R, RS = P["fpn"]["resnet"], S["fpn"]["resnet"]
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "fpn.C1.0", R["conv1"])
+    _bn(sd, "fpn.C1.1", R["bn1"], RS["bn1"])
+    for s in range(2, 6):
+        j = 0
+        while f"C{s}_{j}" in R:
+            bp, bs, dst = R[f"C{s}_{j}"], RS[f"C{s}_{j}"], f"fpn.C{s}.{j}"
+            for k in range(1, 4):
+                _conv(sd, f"{dst}.conv{k}", bp[f"conv{k}"])
+                _bn(sd, f"{dst}.bn{k}", bp[f"bn{k}"], bs[f"bn{k}"])
+            if "downsample_conv" in bp:
+                _conv(sd, f"{dst}.downsample.0", bp["downsample_conv"])
+                _bn(sd, f"{dst}.downsample.1", bp["downsample_bn"],
+                    bs["downsample_bn"])
+            j += 1
+    for k in range(2, 6):
+        _conv(sd, f"fpn.P{k}_conv1", P["fpn"][f"P{k}_conv1"])
+        _conv(sd, f"fpn.P{k}_conv2.1", P["fpn"][f"P{k}_conv2"])
+    for n in ("conv_shared", "conv_class", "conv_bbox"):
+        _conv(sd, f"rpn.{n}", P["rpn"][n])
+    C, CS = P["classifier"], S["classifier"]
+    for k in (1, 2):
+        _conv(sd, f"classifier.conv{k}", C[f"conv{k}"])
+        _bn(sd, f"classifier.bn{k}", C[f"bn{k}"], CS[f"bn{k}"])
+    _linear(sd, "classifier.linear_class", C["linear_class"])
+    _linear(sd, "classifier.linear_bbox", C["linear_bbox"])
+    M, MS = P["mask"], S["mask"]
+    for k in range(1, 5):
+        _conv(sd, f"mask.conv{k}", M[f"conv{k}"])
+        _bn(sd, f"mask.bn{k}", M[f"bn{k}"], MS[f"bn{k}"])
+    _conv(sd, "mask.deconv", M["deconv"])
+    _conv(sd, "mask.conv5", M["conv5"])
     return sd

@@ -378,8 +378,8 @@ def test_edit_chain_cli_writes_benchmark(env, tmp_path):
     dumped file contract (a full fetch); again with --batch_pairs 2
     --pipeline --lpips_ckpt (an official-layout LPIPS checkpoint), whose
     L1 / SSIM / PSNR equal the serial run's and whose LPIPS is the loaded
-    model's; without --device it runs on cuda, so here it raises; only
-    --source maskrcnn raises NotImplementedError."""
+    model's; without --device it runs on cuda, so here it raises.  (The
+    --source maskrcnn runs are tests/test_torch_chain_maskrcnn.py's.)"""
     from sdn3d_tpu_torch.cli import edit_chain
 
     _, root, edit_json, shapenet = env
@@ -428,9 +428,6 @@ def test_edit_chain_cli_writes_benchmark(env, tmp_path):
         assert res2[k] == res[k], k
     assert np.isfinite(res2["mean_LPIPS"])
     assert res2["mean_LPIPS"] != res["mean_LPIPS"]
-    with pytest.raises(NotImplementedError, match="A6"):
-        edit_chain.main(common + ["--device", "cpu", "--results_dir", out,
-                                  "--source", "maskrcnn"])
     assert metrics.lpips(np.zeros((32, 32, 3)), np.zeros((32, 32, 3)),
                          device="cpu") == 0.0
 

@@ -421,3 +421,62 @@ def test_batched_render_equals_per_frame_renders(cuda):
             for k in keys:
                 np.testing.assert_array_equal(b[k], one[k])
             assert b["json_obj"] == one["json_obj"]
+
+
+def _detect_frame(seed):
+    """A 375x1242 frame: noise, a gradient and a few flat boxes."""
+    rng = np.random.RandomState(seed)
+    img = rng.rand(375, 1242, 3) * 64 + np.linspace(0, 160, 1242)[None, :,
+                                                                    None]
+    for y, x in ((150, 200), (180, 600), (160, 900)):
+        img[y:y + 80, x:x + 160] = rng.randint(0, 255, 3)
+    return img.astype(np.uint8)
+
+
+@pytest.mark.cuda
+def test_detector_same_bits_every_run(cuda):
+    """The full-width detector (MaskRCNNConfig(): ResNet-101 FPN at
+    1024^2, random weights from a seed) gives one frame's packed buffer
+    the same bits on three runs, and a batch of two frames the same bits
+    on two runs (no atomics: the transposed convolution is a forward
+    convolution, the NMS a fixed point of masked products)."""
+    from sdn3d_tpu_torch.models.maskrcnn import MaskRCNNConfig
+    from sdn3d_tpu_torch.pipelines.detect import (MaskRCNNDetector,
+                                                  resize_image)
+
+    cfg = MaskRCNNConfig()
+    det = MaskRCNNDetector(cfg, "cuda").init(0)
+    inputs = [resize_image(_detect_frame(s), cfg.image_min_dim,
+                           cfg.image_max_dim)[:2] for s in (0, 1)]
+    runs = [det._packed([inputs[0][0]], [inputs[0][1]]) for _ in range(3)]
+    assert torch.isfinite(runs[0]).all()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[1], runs[2])
+    pair = [det._packed([m for m, _ in inputs], [w for _, w in inputs])
+            for _ in range(2)]
+    assert pair[0].shape[0] == 2 and torch.equal(pair[0], pair[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [200, 6000])
+def test_nms_card_keep_equals_cpu(cuda, n):
+    """ops/nms on the card against the CPU on the same boxes (whole and
+    fractional pixels, duplicates, exact score ties, invalid rows, a NaN
+    box): nms's keep mask and nms_padded's indices and validity equal."""
+    from sdn3d_tpu_torch.ops.nms import nms, nms_padded
+
+    rng = np.random.RandomState(n)
+    lo = rng.uniform(0, 1000, (n, 2))
+    hi = lo + rng.uniform(4, 200, (n, 2))
+    boxes = np.concatenate([lo, hi], 1).astype(np.float32)
+    boxes[::3] = np.round(boxes[::3])
+    boxes[5::7] = boxes[4::7][:len(boxes[5::7])]
+    boxes[7] = np.nan
+    scores = rng.choice([0.3, 0.6, 0.9], n).astype(np.float32)
+    valid = rng.rand(n) > 0.2
+    b, s, v = (torch.from_numpy(a) for a in (boxes, scores, valid))
+    for thr in (0.3, 0.7):
+        assert torch.equal(nms(b.to(cuda), thr, v.to(cuda)).cpu(),
+                           nms(b, thr, v))
+        gi, gv = nms_padded(b.to(cuda), s.to(cuda), thr, 1000, v.to(cuda))
+        ci, cv = nms_padded(b, s, thr, 1000, v)
+        assert torch.equal(gv.cpu(), cv) and torch.equal(gi.cpu(), ci)

@@ -251,6 +251,3 @@ def test_geometric_main_writes_contract(tmp_path):
                 assert os.path.exists(tmp_path / out_dir / (name + suffix))
             inst = np.asarray(Image.open(tmp_path / out_dir / f"{name}.png"))
             assert inst.shape == image.shape[:2] and inst.max() <= 2
-    with pytest.raises(NotImplementedError):
-        geometric_main.main(["--source", "maskrcnn", "--device", "cpu",
-                             "--input_image", str(tmp_path / "frame.png")])
