@@ -7,7 +7,8 @@ Phases, each of which must pass (any failure exits non-zero):
   1. the card: requires torch.cuda; prints nvidia-smi's name and power limit;
   2. build: compiles the three CUDA kernels (csrc/rasterize.cu,
      silhouette_walk.cu, segment_face_grads.cu) from source, one nvcc each,
-     all started together;
+     all started together, and the native host library
+     (native/sdn3d_host.cpp, g++; data/native.py), which must load;
   3. kernels vs plain: the forward rasterizer against its plain PyTorch
      version on the card (2 x 37 random faces at 128^2, and at 144^2 with
      a whole-image sliver on the wide list; 2 images at 768^2 of a
@@ -98,7 +99,24 @@ Phases, each of which must pass (any failure exits non-zero):
      checkpoint, serial, --batch_pairs 4 and --batch_pairs 4 --pipeline:
      one forward launch per pair or chunk, no plain forward, pipelined
      bit-equal to batched; then the three modes' wall per pair on one
-     stream.
+     stream;
+ 10. the per-stage file contract at the chain's full widths, the weights
+     from --seed written once as core/checkpoint step directories: 10a.
+     semantic_test --test_img benchmark -> geometric_main --vkitti_root
+     --edit_json --source gt -> edit_benchmark --chain_times on a root of
+     phase 8's (write_chain_root), then edit_chain --dump_dirs with the
+     same step directories: the dumped label and contract files (.png,
+     -normal.png, -depth.png, .json) byte-equal to the per-stage CLIs',
+     mean L1 / SSIM / PSNR
+     within 1e-6, one forward launch per geometric item and no plain
+     forward; each stage's wall, textural_steady_s_per_pair and
+     edits_per_sec; 10b. geometric_main --vkitti_root --split test over a
+     root with motgt tables and frames in the test ranges, then
+     textural_test: every frame written, a finite avg; 10c.
+     geometric_main --input_image --edit_json --input_masks (stems 00000,
+     00001) -> edit_vkitti --edit_num 2: one launch an item, finite
+     fakes, the gallery; and geo.prep's crops through the native library
+     against the numpy + PIL path (host wall, in turns).
 The line before last is the card's name and power limit, the line before
 that the kernels' JSON; the last line is {"ok": true, "device": {...}}.
 """
@@ -621,6 +639,17 @@ def walk_bound(TR, alpha, pp, fi, walk: int):
     return nbytes, ops, walking
 
 
+def car_boxes(rng, n: int, H: int = 375, W: int = 1242):
+    """n car boxes (y1, x1, y2, x2) in a HxW frame, sized and placed as
+    write_assets places them."""
+    hh = rng.randint(40, 130, n)
+    ww = (hh * rng.uniform(1.2, 2.2, n)).astype(int)
+    y1 = np.clip(rng.randint(150, H - 20, n) - hh // 2, 0, H - 2)
+    x1 = rng.randint(0, W - 60, n)
+    return [(int(a), int(b), int(min(a + h, H)), int(min(b + w, W)))
+            for a, b, h, w in zip(y1, x1, hh, ww)]
+
+
 def write_chain_root(root: str, seed: int):
     """A VKITTI-layout root for the chain: three 375x1242 source frames
     (5, 11 and 16 cars, sized and placed as write_assets places them), each
@@ -631,15 +660,9 @@ def write_chain_root(root: str, seed: int):
     from sdn3d_tpu_torch.data.synthetic import write_vkitti_root
 
     rng = np.random.RandomState(seed + 1)
-    H, W = 375, 1242
     frames, pairs, twins = {}, [], []
     for k, (topic, n) in enumerate((("clone", 5), ("fog", 11), ("rain", 16))):
-        hh = rng.randint(40, 130, n)
-        ww = (hh * rng.uniform(1.2, 2.2, n)).astype(int)
-        y1 = np.clip(rng.randint(150, H - 20, n) - hh // 2, 0, H - 2)
-        x1 = rng.randint(0, W - 60, n)
-        boxes = [(int(a), int(b), int(min(a + h, H)), int(min(b + w, W)))
-                 for a, b, h, w in zip(y1, x1, hh, ww)]
+        boxes = car_boxes(rng, n)
         src = f"{10 * k:05d}"
         frames[("0001", topic, src)] = boxes
 
@@ -1722,6 +1745,284 @@ def chain_phase(args, card: str, mark=lambda what: None) -> int:
     return c_launches
 
 
+# -- 10. the per-stage file contract -------------------------------------
+
+def step_directories(tmp: str, seed: int) -> dict:
+    """The chain's weights from `seed`, drawn as the CLIs draw them when no
+    checkpoint is given, written once as core/checkpoint step directories:
+    the semantic model ("encoder", "decoder"), the derenderer
+    ("derenderer") and the full-width textural nets ("netG", "netE", meta
+    as the textural trainer persists it).  Returns {name: directory}."""
+    import torch
+
+    from sdn3d_tpu_torch.core.checkpoint import save_checkpoint
+    from sdn3d_tpu_torch.models.derenderer import Derenderer
+    from sdn3d_tpu_torch.models.semantic import SemanticModel
+    from sdn3d_tpu_torch.pipelines.textural import (TexturalConfig,
+                                                    TexturalTrainer)
+
+    dirs = {k: os.path.join(tmp, f"ckpt_{k}") for k in ("sem", "der", "tex")}
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        sem = SemanticModel(num_class=14)
+        torch.manual_seed(seed)
+        der = Derenderer(num_classes=8)
+        torch.manual_seed(seed)
+        tex = TexturalTrainer(TexturalConfig())
+    save_checkpoint(dirs["sem"], 0, {"encoder": sem.encoder.state_dict(),
+                                     "decoder": sem.decoder.state_dict()})
+    save_checkpoint(dirs["der"], 0, {"derenderer": der.state_dict()})
+    save_checkpoint(dirs["tex"], 0, {"netG": tex.netG.state_dict(),
+                                     "netE": tex.netE.state_dict()},
+                    meta={"small": False, "no_vgg": True})
+    return dirs
+
+
+def same_files(a_dir: str, b_dir: str, names) -> None:
+    for name in names:
+        with open(os.path.join(a_dir, name), "rb") as a, \
+                open(os.path.join(b_dir, name), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{name}: {a_dir} and {b_dir} differ")
+
+
+def crop_times(image: np.ndarray, rois: np.ndarray, masks: np.ndarray,
+               class_ids: np.ndarray, card: str, reps: int = 5) -> None:
+    """geo.prep's host work (derender_infer.prepare_objects: the uint8
+    crops of a frame's objects) through the native host library against
+    its numpy + PIL path, in turns; the two crops' bytes differ by at most
+    one (the float crops agree to 1e-5, so a byte flips where its value
+    lies that close to a rounding boundary)."""
+    from sdn3d_tpu_torch.data import native
+    from sdn3d_tpu_torch.pipelines.derender_infer import (DerenderInferConfig,
+                                                          prepare_objects)
+
+    cfg = DerenderInferConfig()
+    saved = dict(native._state)
+    runs = {"native": [], "PIL": []}
+    outs = {}
+    try:
+        for path in ("native", "PIL", "PIL", "native") * reps:
+            native._state.update(saved if path == "native"
+                                 else {"tried": True, "lib": None})
+            t0 = time.perf_counter()
+            outs[path] = prepare_objects(image, rois, masks, class_ids, cfg)
+            runs[path].append(time.perf_counter() - t0)
+    finally:
+        native._state.update(saved)
+    diff = np.abs(outs["native"]["rgbs"].astype(int)
+                  - outs["PIL"]["rgbs"].astype(int))
+    n = outs["native"]["num_objs"]
+    if diff.max() > 1:
+        raise AssertionError(f"native against PIL crops: max {diff.max()}")
+    log(f"[files-prep] prepare_objects of {n} objects at "
+        f"{cfg.image_size}^2: native {np.median(runs['native']) * 1e3:.3f} "
+        f"ms, numpy + PIL {np.median(runs['PIL']) * 1e3:.3f} ms (medians of "
+        f"{2 * reps}, host wall); bytes differing by one "
+        f"{int((diff > 0).sum())} of {diff.size} ({card})")
+
+
+def file_contract_phase(args, card: str, mark=lambda what: None) -> None:
+    """Phase 10: the reference's per-stage file contract at the chain's
+    full widths (ChainConfig defaults), the weights from --seed written
+    once as step directories (step_directories).  10a: semantic_test
+    --test_img benchmark -> geometric_main --vkitti_root --edit_json
+    --source gt -> edit_benchmark --chain_times on the chain phase's root,
+    then edit_chain --dump_dirs with the same step directories: the dumped
+    label and contract files byte-equal to the per-stage CLIs', mean L1 /
+    SSIM / PSNR within 1e-6, one forward-kernel launch per geometric item
+    and no plain forward.  10b: geometric_main --vkitti_root --split test
+    -> textural_test on a root whose frames lie in the test ranges, with
+    motgt tables: every frame written, a finite avg.  10c: geometric_main
+    --input_image --edit_json --input_masks -> edit_vkitti (--edit_num 2):
+    one launch an item, finite fakes, the gallery.  Also the native crops
+    against the numpy + PIL path in geo.prep."""
+    import torch
+    from PIL import Image
+
+    from sdn3d_tpu_torch.cli import (edit_benchmark, edit_chain, edit_vkitti,
+                                     geometric_main, semantic_test,
+                                     textural_test)
+    from sdn3d_tpu_torch.data import native
+    from sdn3d_tpu_torch.data import vkitti as VK
+    from sdn3d_tpu_torch.data.synthetic import write_vkitti_root
+    from sdn3d_tpu_torch.ops import rasterize as TR
+    from sdn3d_tpu_torch.ops import rasterize_cuda as TC
+
+    if not native.available():
+        raise AssertionError("the native host library is not built")
+    launch = TC.rasterize_face_index_cuda
+    inner = (TC.bin_faces_cuda, TC.raster_binned_cuda)
+
+    def geometric(tag, argv, items):
+        """geometric_main with the forward's counts set to 0 just before
+        and read just after; one launch an item, no plain forward."""
+        launch.launches = 0
+        for fn in inner:
+            fn.launches = 0
+        TR.rasterize_face_maps.calls = 0
+        t0 = time.perf_counter()
+        geometric_main.main(["--ckpt_dir", ckpt["der"], "--shapenet_root",
+                             shapenet] + argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = (launch.launches, tuple(fn.launches for fn in inner),
+                  TR.rasterize_face_maps.calls)
+        if counts != (items, (items, items), 0):
+            raise AssertionError(f"{tag}: forward launches (wrapper, bin / "
+                                 f"raster, plain) {counts} for {items} items")
+        log(f"[{tag}] geometric_main: {items} items in {wall:.3f} s (models "
+            f"and mesh bank loaded included), forward launches {counts[0]} "
+            f"(bin, raster {counts[1]}), plain forward calls 0 ({card})")
+        return wall
+
+    def timed(fn, argv):
+        t0 = time.perf_counter()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="sdn3d_files_") as tmp:
+        t0 = time.perf_counter()
+        shapenet = write_meshes(os.path.join(tmp, "shapenet"), args.seed)
+        root = os.path.join(tmp, "vkitti")
+        edit_json, n_pairs = write_chain_root(root, args.seed)
+        with open(edit_json) as fh:
+            items = json.load(fh)
+        geo_json = os.path.join(tmp, "pairs.json")
+        with open(geo_json, "w") as fh:
+            json.dump(items[:n_pairs], fh)
+        ckpt = step_directories(tmp, args.seed)
+        log(f"[files] assets, root ({n_pairs} pairs) and step directories "
+            f"written in {time.perf_counter() - t0:.1f} s")
+        out = {k: os.path.join(tmp, k) for k in (
+            "segm", "geo", "bench", "fused", "dump", "segm_b", "geo_b", "tt",
+            "geo_c", "gallery")}
+
+        # -- 10a. semantic_test -> geometric_main -> edit_benchmark --------
+        _, semantic_s = timed(semantic_test.main, [
+            "--test_img", "benchmark", "--edit_json", edit_json,
+            "--data_root", root, "--result", out["segm"], "--ckpt_dir",
+            ckpt["sem"]])
+        geometric_s = geometric("files-10a", [
+            "--source", "gt", "--vkitti_root", root, "--edit_json", geo_json,
+            "--output_dir", out["geo"]], n_pairs)
+        times = os.path.join(tmp, "chain_times.json")
+        with open(times, "w") as fh:
+            json.dump({"semantic_s": semantic_s, "geometric_s": geometric_s},
+                      fh)
+        bench, textural_s = timed(edit_benchmark.main, [
+            "--edit_json", edit_json, "--data_root", root, "--segm_dir",
+            out["segm"], "--geo_dir", out["geo"], "--ckpt_dir", ckpt["tex"],
+            "--results_dir", out["bench"], "--chain_times", times])
+        fused, fused_s = timed(edit_chain.main, [
+            "--edit_json", edit_json, "--data_root", root, "--shapenet_root",
+            shapenet, "--dump_dirs", out["dump"], "--results_dir",
+            out["fused"], "--semantic_ckpt", ckpt["sem"], "--derender_ckpt",
+            ckpt["der"], "--textural_ckpt", ckpt["tex"]])
+        pairs = items[:n_pairs]
+        sources = sorted({f"{i['world']}_{i['topic']}_{i['source']}.png"
+                          for i in pairs})
+        same_files(out["segm"], os.path.join(out["dump"], "segm"), sources)
+        targets = [f"{i['world']}_{i['topic']}_{i['source']}_{i['target']}"
+                   for i in pairs]
+        same_files(out["geo"], os.path.join(out["dump"], "geo"),
+                   [t + suffix for t in targets
+                    for suffix in (".png", "-normal.png", "-depth.png",
+                                   ".json")])
+        worst = {k: abs(fused[k] - bench[k])
+                 for k in ("mean_L1", "mean_SSIM", "mean_PSNR")}
+        if not bench["pairs"] == fused["pairs"] == n_pairs \
+                or max(worst.values()) > 1e-6 \
+                or not np.isfinite(bench["edits_per_sec"]):
+            raise AssertionError(f"file chain {bench} against fused "
+                                 f"{fused}: {worst}")
+        log(f"[files-10a] per-stage chain over {n_pairs} pairs: dumped "
+            f"labels ({len(sources)}) and contract files ({4 * n_pairs}) "
+            f"byte-equal to the per-stage CLIs'; |metric diff| {worst}")
+        log(f"[files-10a] wall s (process-level, models loaded included): "
+            f"semantic_test {semantic_s:.3f}, geometric_main "
+            f"{geometric_s:.3f}, edit_benchmark {textural_s:.3f} (textural_s "
+            f"{bench['textural_s']:.4f}, textural_steady_s_per_pair "
+            f"{bench['textural_steady_s_per_pair']:.4f}), edits_per_sec "
+            f"{bench['edits_per_sec']:.4f} over the three stages; fused "
+            f"edit_chain --dump_dirs {fused_s:.3f} s, steady_s_per_pair "
+            f"{fused['steady_s_per_pair']:.4f}, edits_per_sec "
+            f"{fused['edits_per_sec']:.4f} ({card})")
+        mark("10a. file chain against the fused chain")
+
+        # -- 10b. dataset mode over the test split -> textural_test --------
+        rng = np.random.RandomState(args.seed + 2)
+        frames = {("0001", "clone", "00360"): car_boxes(rng, 6),
+                  ("0001", "clone", "00372"): car_boxes(rng, 9),
+                  ("0002", "fog", "00200"): car_boxes(rng, 4)}
+        root_b = os.path.join(tmp, "vkitti_test")
+        write_vkitti_root(root_b, frames, seed=args.seed)
+        names = [f"{w}_{t}_{f}" for w, t, f in sorted(frames)]
+        geometric("files-10b", ["--source", "gt", "--vkitti_root", root_b,
+                                "--split", "test", "--output_dir",
+                                out["geo_b"]], len(frames))
+        written = sorted(n[:-4] for n in os.listdir(out["geo_b"])
+                         if n.endswith(".pkl"))
+        if written != names:
+            raise AssertionError(f"--split test wrote {written}, not {names}")
+        labels_json = os.path.join(tmp, "test_frames.json")
+        with open(labels_json, "w") as fh:
+            json.dump([{"world": w, "topic": t, "source": f, "target": f}
+                       for w, t, f in sorted(frames)] * 2, fh)
+        semantic_test.main(["--test_img", "benchmark", "--edit_json",
+                            labels_json, "--data_root", root_b, "--result",
+                            out["segm_b"], "--ckpt_dir", ckpt["sem"]])
+        l1s, tt_s = timed(textural_test.main, [
+            "--data_root", root_b, "--segm_dir", out["segm_b"], "--geo_dir",
+            out["geo_b"], "--ckpt_dir", ckpt["tex"], "--results_dir",
+            out["tt"]])
+        avg = float(np.mean(list(l1s.values())))
+        if sorted(l1s) != names or not np.isfinite(avg):
+            raise AssertionError(f"textural_test: {l1s}")
+        log(f"[files-10b] --split test: {len(names)} frames written; "
+            f"textural_test avg L1 {avg:.6f} over {len(l1s)} frames in "
+            f"{tt_s:.3f} s ({card})")
+        mark("10b. dataset mode, textural_test")
+
+        # -- 10c. the single-frame route -> edit_vkitti --------------------
+        src_item = pairs[-1]
+        src = VK.rgb_path(root, src_item["world"], src_item["topic"],
+                          int(src_item["source"]))
+        dets = VK.gt_objects(root, src_item["world"], src_item["topic"],
+                             int(src_item["source"]),
+                             VK.get_tables("inst", root))
+        masks_npz = os.path.join(tmp, "gt.npz")
+        np.savez(masks_npz, class_ids=dets[0], masks=dets[1], rois=dets[2])
+        src_json = os.path.join(tmp, "source_edits.json")
+        with open(src_json, "w") as fh:
+            json.dump([i for i in pairs if i["source"] == src_item["source"]
+                       and i["topic"] == src_item["topic"]], fh)
+        geometric("files-10c", ["--source", "gt", "--input_image", src,
+                                "--edit_json", src_json, "--input_masks",
+                                masks_npz, "--output_dir", out["geo_c"]], 2)
+        crop_times(np.asarray(Image.open(src).convert("RGB")), dets[2],
+                   dets[1], dets[0], card)
+        segm_src = os.path.join(out["segm"], "{world}_{topic}_{source}.png"
+                                .format(**src_item))
+        fakes, ev_s = timed(edit_vkitti.main, [
+            "--edit_source", src, "--segm_path", segm_src, "--edit_dir",
+            out["geo_c"], "--edit_num", "2", "--ckpt_dir", ckpt["tex"],
+            "--results_dir", out["gallery"]])
+        shape = (CHAIN_SHAPES["fine_height"], CHAIN_SHAPES["fine_width"], 3)
+        if len(fakes) != 2 or any(f.shape != shape or not np.isfinite(f).all()
+                                  for f in fakes) \
+                or not os.path.exists(os.path.join(out["gallery"],
+                                                   "index.html")) \
+                or len(os.listdir(os.path.join(out["gallery"],
+                                               "images"))) != 6:
+            raise AssertionError("edit_vkitti: fakes or gallery missing")
+        log(f"[files-10c] geometric_main --input_image (stems 00000, 00001) "
+            f"-> edit_vkitti --edit_num 2: finite {shape} fakes, gallery "
+            f"written, {ev_s:.3f} s ({card})")
+        mark("10c. single frame, edit_vkitti")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1760,6 +2061,15 @@ def main(argv=None) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build] {name}: {line.strip()}")
+    # the native host library (data/native.py: scenegt decode, crops), so
+    # the measured host path is the native one
+    from sdn3d_tpu_torch.data import native
+    t0 = time.perf_counter()
+    lib = native.build()
+    if not native.available():
+        raise AssertionError("native host library not loaded")
+    log(f"[build] {os.path.relpath(lib, REPO)} built+loaded in "
+        f"{time.perf_counter() - t0:.2f} s (g++)")
 
     mark("2. build")
     # -- 3. kernels vs plain at small sizes ----------------------------------
@@ -2183,6 +2493,8 @@ def main(argv=None) -> int:
     mark("7. reference")
     # -- 8. chain: the fused edit chain at full width ------------------------
     c_launches = chain_phase(args, card, mark)
+    # -- 10. the per-stage file contract --------------------------------------
+    file_contract_phase(args, card, mark)
 
     kernels = [{
         "name": "rasterize_forward",

@@ -1,6 +1,6 @@
 """sdn3d_tpu_torch: the PyTorch / CUDA (Hopper) port of sdn3d_tpu.
 
-Mirrors the JAX package's layout (geometry/, ops/, render/, models/,
+Mirrors the JAX package's layout (core/, geometry/, ops/, render/, models/,
 pipelines/, data/, utils/, cli/) so each module's counterpart is easy to
 find.  Plain tensor code is PyTorch; each TPU kernel of the JAX package
 is a hand-written CUDA kernel (csrc/: the forward rasterizer, and the

@@ -15,9 +15,12 @@ the per-stage file contract (and fetches the full-resolution planes).
         [--lpips_ckpt vgg.pth] [--full_fetch]
 
 --source gt (the default) reads each source frame's objects from the
-VKITTI ground truth; --source maskrcnn detects them with Mask R-CNN
-(random weights from --seed unless --maskrcnn_ckpt names a torch
-state_dict in the reference layout).
+VKITTI ground truth; --source maskrcnn detects them with Mask R-CNN.
+--semantic_ckpt, --derender_ckpt, --textural_ckpt and --maskrcnn_ckpt
+each take what the per-stage CLI's checkpoint argument takes: a
+checkpoint directory (core/checkpoint) or a torch file written from JAX
+variables by utils/port; a model without one gets random weights from
+--seed.
 """
 
 from __future__ import annotations
@@ -37,12 +40,14 @@ def build_argparser():
     p.add_argument("--shapenet_root",
                    default=os.environ.get("SHAPENET_ROOT_DIR"))
     p.add_argument("--source", choices=["gt", "maskrcnn"], default="gt")
-    p.add_argument("--semantic_ckpt", default=None)
-    p.add_argument("--derender_ckpt", default=None)
-    p.add_argument("--textural_ckpt", default=None)
+    p.add_argument("--semantic_ckpt", default=None,
+                   help="semantic_test's --ckpt_dir")
+    p.add_argument("--derender_ckpt", default=None,
+                   help="geometric_main's --ckpt_dir")
+    p.add_argument("--textural_ckpt", default=None,
+                   help="edit_benchmark's --ckpt_dir")
     p.add_argument("--maskrcnn_ckpt", default=None,
-                   help="torch state_dict file of the Mask R-CNN "
-                        "(utils/port.maskrcnn_state_dict_from_jax)")
+                   help="geometric_main's --maskrcnn_ckpt")
     p.add_argument("--results_dir", default="./benchmark_chain_out")
     p.add_argument("--dump_dirs", default=None,
                    help="write the standard file contract under "

@@ -1,20 +1,26 @@
 """Geometric branch CLI (mirrors geometric/scripts/main.py), PyTorch port.
 
---do test --mode extend --source maskrcnn|gt --input_image ...
-[--input_masks ...] [--edit_json ...]: per-image de-render + edit +
+--do test --mode extend --source maskrcnn|gt: per-image de-render + edit +
 re-render, writing {name}.png (instance map), {name}.json,
 {name}-normal.png, {name}-depth.png, {name}.pkl — the inter-branch
 filesystem contract (scripts/main.py:530-622).  Runs on `--device`
-(default cuda).  The objects come from a GT npz (--input_masks) or, at
-the default --source maskrcnn, from the Mask R-CNN detector
-(pipelines/detect.py), built once and run once per source frame.
---num_opts N refines each object's pose and shape against its mask with
-N Adam steps through the differentiable silhouette before the edits.
-
-Not ported yet: --vkitti_root dataset mode, and orbax checkpoints:
---ckpt_dir and --maskrcnn_ckpt take torch state_dict files written from
-JAX variables by sdn3d_tpu_torch.utils.port.derenderer_state_dict_from_jax
-and maskrcnn_state_dict_from_jax.
+(default cuda).  Three modes, as scripts/main.py test():
+  * --input_image FRAME [--edit_json E]: one frame, once per edit item
+    (outputs {i:05d}) or once (outputs named by the frame);
+  * --vkitti_root ROOT --edit_json E: each edit item's own source frame,
+    outputs named by the item's target_name;
+  * --vkitti_root ROOT: every frame of --split in the motgt tables
+    (data/vkitti_derender.VKittiMotgt), outputs {world}_{topic}_{frame}.
+The objects come from a GT npz (--input_masks), from the VKITTI scenegt
+(--source gt in dataset mode) or, at the default --source maskrcnn, from
+the Mask R-CNN detector (pipelines/detect.py), built once and run once
+per source frame.  --num_opts N refines each object's pose and shape
+against its mask with N Adam steps through the differentiable silhouette
+before the edits.  --ckpt_dir and --maskrcnn_ckpt take a checkpoint
+directory (core/checkpoint: the newest step's "derenderer" or "maskrcnn"
+state_dict) or a torch state_dict file written from JAX variables by
+sdn3d_tpu_torch.utils.port.derenderer_state_dict_from_jax and
+maskrcnn_state_dict_from_jax.
 """
 
 from __future__ import annotations
@@ -38,10 +44,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--image_size", type=int, default=256)
     p.add_argument("--render_size", type=int, default=384)
     p.add_argument("--ckpt_dir", default=None,
-                   help="torch state_dict file of the derenderer "
+                   help="checkpoint directory (core/checkpoint) or torch "
+                        "state_dict file of the derenderer "
                         "(utils/port.derenderer_state_dict_from_jax)")
     p.add_argument("--maskrcnn_ckpt", default=None,
-                   help="torch state_dict file of the Mask R-CNN "
+                   help="checkpoint directory (core/checkpoint) or torch "
+                        "state_dict file of the Mask R-CNN "
                         "(utils/port.maskrcnn_state_dict_from_jax)")
     p.add_argument("--compute_dtype", default="float32",
                    choices=["float32", "bfloat16"],
@@ -58,7 +66,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         " (gt source)")
     p.add_argument("--vkitti_root",
                    default=os.environ.get("VKITTI_ROOT_DIR"),
-                   help="dataset mode (not ported yet)")
+                   help="dataset mode: iterate VKITTI frames (edit_json "
+                        "sources, or the whole --split)")
     p.add_argument("--split", choices=["train", "test", "all"],
                    default="test")
     p.add_argument("--output_dir", default="./geometric_out")
@@ -73,10 +82,11 @@ def build_argparser() -> argparse.ArgumentParser:
 def load_derenderer(args):
     """(model, bank) on args.device, the trunk computing in
     args.compute_dtype (default float32).  Random weights from args.seed
-    (inside torch.random.fork_rng) unless --ckpt_dir names a torch
-    state_dict."""
+    (inside torch.random.fork_rng) unless --ckpt_dir names a checkpoint
+    directory or a torch state_dict file."""
     import torch
 
+    from sdn3d_tpu_torch.core.checkpoint import load_state_dicts
     from sdn3d_tpu_torch.geometry.assets import load_shapenet_bank
     from sdn3d_tpu_torch.models.derenderer import Derenderer, DeviceMeshBank
 
@@ -89,9 +99,8 @@ def load_derenderer(args):
         model = Derenderer(num_classes=8, dtype=getattr(
             args, "compute_dtype", "float32"))
     if args.ckpt_dir:
-        sd = torch.load(args.ckpt_dir, map_location="cpu")
-        model.load_state_dict(sd)
-        print(f"restored derenderer state_dict {args.ckpt_dir}")
+        model.load_state_dict(load_state_dicts(
+            args.ckpt_dir, ["derenderer"])["derenderer"])
     else:
         print("WARNING: no --ckpt_dir; random derenderer weights")
     model = model.to(device).eval()
@@ -103,10 +112,9 @@ def load_derenderer(args):
 def make_detector(args):
     """The Mask R-CNN detector on args.device, built once and reused for
     every frame of the run, computing in args.compute_dtype: random
-    weights from args.seed, or args.maskrcnn_ckpt (a torch state_dict in
-    the reference layout)."""
-    import torch
-
+    weights from args.seed, or args.maskrcnn_ckpt (a checkpoint directory
+    or a torch state_dict file, in the reference layout)."""
+    from sdn3d_tpu_torch.core.checkpoint import load_state_dicts
     from sdn3d_tpu_torch.models.maskrcnn import MaskRCNNConfig
     from sdn3d_tpu_torch.pipelines.detect import MaskRCNNDetector
 
@@ -114,9 +122,8 @@ def make_detector(args):
         compute_dtype=getattr(args, "compute_dtype", "float32")),
         device=args.device)
     if args.maskrcnn_ckpt:
-        det.load_state_dict(torch.load(args.maskrcnn_ckpt,
-                                       map_location="cpu"))
-        print(f"restored maskrcnn state_dict {args.maskrcnn_ckpt}")
+        det.load_state_dict(load_state_dicts(
+            args.maskrcnn_ckpt, ["maskrcnn"])["maskrcnn"])
     else:
         det.init(getattr(args, "seed", 0))
         print("WARNING: no --maskrcnn_ckpt; random detector weights")
@@ -194,25 +201,55 @@ def _keep_largest(cfg, class_ids, masks, rois):
 
 def _iter_work(args):
     """Yield (name, src_key, image_rgb, gt_or_None, operations) items.
+    `src_key` identifies the SOURCE frame: the detection cache key, so
+    items sharing a source reuse its objects.
 
-    --input_image mode: one frame, repeated per edit item when
-    --edit_json is given.  --vkitti_root dataset mode is not ported yet.
+    Three modes, as scripts/main.py test():
+      * --input_image: one frame (repeated per edit item);
+      * --vkitti_root + --edit_json: each edit item's own source frame;
+      * --vkitti_root alone: the whole --split.
     """
     from PIL import Image
 
-    if not args.input_image:
-        if args.vkitti_root:
-            raise NotImplementedError(
-                "--vkitti_root dataset mode is not ported yet")
-        raise ValueError("provide --input_image")
-    image = np.asarray(Image.open(args.input_image).convert("RGB"))
+    from sdn3d_tpu_torch.data import vkitti as VK
+
+    if args.input_image:
+        image = np.asarray(Image.open(args.input_image).convert("RGB"))
+        if args.edit_json:
+            for i, item in enumerate(VK.load_edit_json(args.edit_json)):
+                yield (f"{i:05d}", args.input_image, image, None,
+                       item.operations)
+        else:
+            name = os.path.splitext(os.path.basename(args.input_image))[0]
+            yield name, args.input_image, image, None, None
+        return
+
+    if not args.vkitti_root:
+        raise ValueError("provide --input_image or --vkitti_root "
+                         "(dataset mode)")
+    table_inst = (VK.get_tables("inst", args.vkitti_root)
+                  if args.source == "gt" else None)
+
+    def read(world, topic, frame):
+        image = np.asarray(Image.open(VK.rgb_path(
+            args.vkitti_root, world, topic, frame)).convert("RGB"))
+        gt = (None if table_inst is None else
+              VK.gt_objects(args.vkitti_root, world, topic, frame,
+                            table_inst))
+        return image, gt
+
     if args.edit_json:
-        from sdn3d_tpu_torch.data.vkitti import load_edit_json
-        for i, item in enumerate(load_edit_json(args.edit_json)):
-            yield f"{i:05d}", args.input_image, image, None, item.operations
+        for item in VK.load_edit_json(args.edit_json):
+            image, gt = read(item.world, item.topic, int(item.source))
+            yield (item.target_name, item.source_name, image, gt,
+                   item.operations)
     else:
-        name = os.path.splitext(os.path.basename(args.input_image))[0]
-        yield name, args.input_image, image, None, None
+        from sdn3d_tpu_torch.data.vkitti_derender import VKittiMotgt
+        for world, topic, frame in VKittiMotgt(
+                args.vkitti_root).frames(args.split):
+            name = f"{world}_{topic}_{frame:05d}"
+            image, gt = read(world, topic, frame)
+            yield name, name, image, gt, None
 
 
 def main(argv=None):

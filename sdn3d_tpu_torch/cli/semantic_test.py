@@ -5,8 +5,9 @@ Modes: single image (--test_img path/to.png) or the whole benchmark list
 (--test_img benchmark with --edit_json and --data_root).  Writes raw
 label PNGs consumed by the downstream branches (vkitti_test.py:21-27,
 46-79) plus colorized previews.  Runs on `--device` (default cuda).
---ckpt_dir takes a torch file {"encoder": state_dict, "decoder":
-state_dict} written from JAX variables by
+--ckpt_dir takes a checkpoint directory (core/checkpoint: the newest
+step's "encoder" and "decoder" state_dicts) or a torch file {"encoder":
+state_dict, "decoder": state_dict} written from JAX variables by
 sdn3d_tpu_torch.utils.port.semantic_state_dicts_from_jax; without it the
 weights are random, drawn from --seed.
 """
@@ -26,7 +27,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--data_root", default=os.environ.get("VKITTI_ROOT_DIR"))
     p.add_argument("--edit_json", default=None)
     p.add_argument("--ckpt_dir", default=None,
-                   help="torch file {encoder, decoder} of state_dicts "
+                   help="checkpoint directory (core/checkpoint) or torch "
+                        "file {encoder, decoder} of state_dicts "
                         "(utils/port.semantic_state_dicts_from_jax)")
     p.add_argument("--result", default="./semantic_out")
     p.add_argument("--num_class", type=int, default=14)
@@ -48,10 +50,11 @@ def load_model(args):
     """SemanticModel in eval mode on args.device, computing in
     args.compute_dtype (default float32).  Random weights from
     args.seed (drawn inside torch.random.fork_rng, so the caller's global
-    generator is untouched) unless --ckpt_dir names a torch file of the
-    encoder's and decoder's state_dicts."""
+    generator is untouched) unless --ckpt_dir names a checkpoint directory
+    or a torch file of the encoder's and decoder's state_dicts."""
     import torch
 
+    from sdn3d_tpu_torch.core.checkpoint import load_state_dicts
     from sdn3d_tpu_torch.models.semantic import SemanticModel
 
     device = torch.device(args.device)
@@ -62,10 +65,9 @@ def load_model(args):
         model = SemanticModel(num_class=args.num_class,
                               dtype=getattr(args, "compute_dtype", "float32"))
     if args.ckpt_dir:
-        sd = torch.load(args.ckpt_dir, map_location="cpu")
+        sd = load_state_dicts(args.ckpt_dir, ["encoder", "decoder"])
         model.encoder.load_state_dict(sd["encoder"])
         model.decoder.load_state_dict(sd["decoder"])
-        print(f"restored semantic state_dicts {args.ckpt_dir}")
     else:
         print("WARNING: no --ckpt_dir; running with random weights")
     return model.to(device).eval()

@@ -44,15 +44,37 @@ def _car_color(j: int) -> Tuple[int, int, int]:
     return 200, 20 + 12 * j, 40 + 7 * j
 
 
+MOTGT_HEADER = ("frame tid label truncated occluded alpha l t r b w3d h3d "
+                "l3d x3d y3d z3d ry rx rz truncr occupr orig_label moving "
+                "model color")
+
+
+def _motgt_row(frame: int, tid: int, box, ry: float) -> str:
+    """A motgt line for a car of 1.5 x 1.8 x 4.2 m whose 2D box is `box`:
+    the depth that makes its height span the box, its bottom on the box's
+    bottom edge (the VKITTI intrinsics of data/vkitti.Camera)."""
+    from sdn3d_tpu_torch.data.vkitti import Camera
+
+    y1, x1, y2, x2 = box
+    z = Camera.focal * 1.5 / max(y2 - y1, 1)
+    x = ((x1 + x2) / 2 - Camera.u0) * z / Camera.focal
+    y = (y2 - Camera.v0) * z / Camera.focal
+    return (f"{frame} {tid} Car 0 0 {ry - np.arctan2(x, z):.4f} {x1} {y1} "
+            f"{x2} {y2} 1.8 1.5 4.2 {x:.4f} {y:.4f} {z:.4f} {ry:.4f} 0 0 "
+            f"0 0.95 Car True Sedan4Door Black")
+
+
 def write_vkitti_root(root: str, frames, seed: int = 0,
                       height: int = 375, width: int = 1242) -> None:
     """A Virtual KITTI 1.3.1 layout under `root` for the data layer
-    (data/vkitti.py): for each (world, topic, frame) -> list of car boxes
-    (y1, x1, y2, x2) in `frames`, the RGB frame (sky and road gradient with
-    noise, each car a shaded rectangle) and the scenegt PNG (one colour per
-    car instance), and the scenegt encoding txt of every world x topic (the
-    lookup tables read all 50).  A frame with no boxes is background
-    only."""
+    (data/vkitti.py, data/vkitti_derender.py): for each (world, topic,
+    frame) -> list of car boxes (y1, x1, y2, x2) in `frames`, the RGB frame
+    (sky and road gradient with noise, each car a shaded rectangle) and the
+    scenegt PNG (one colour per car instance), the scenegt encoding txt of
+    every world x topic (the lookup tables read all 50), and a motgt table
+    per (world, topic) with frames (one row per car: track id j for the
+    topic's j-th box, its box, a 3D pose that projects onto it and a yaw
+    drawn from `seed`).  A frame with no boxes is background only."""
     import os
 
     from PIL import Image
@@ -60,8 +82,11 @@ def write_vkitti_root(root: str, frames, seed: int = 0,
     from sdn3d_tpu_torch.data.vkitti import SCENE_IDS, WORLD_IDS
 
     rng = np.random.RandomState(seed)
+    yaw = np.random.RandomState(seed + 1)
     cars = {}                      # (world, topic) -> number of cars
+    motgt = {}                     # (world, topic) -> motgt lines
     for (world, topic, frame), boxes in sorted(frames.items()):
+        motgt.setdefault((world, topic), [])
         horizon = height // 3
         rgb = np.zeros((height, width, 3), np.float32)
         rgb[:horizon] = (135, 196, 235)
@@ -73,6 +98,8 @@ def write_vkitti_root(root: str, frames, seed: int = 0,
         for (y1, x1, y2, x2) in boxes:
             j = cars.get((world, topic), 0)
             cars[(world, topic)] = j + 1
+            motgt[(world, topic)].append(_motgt_row(
+                int(frame), j, (y1, x1, y2, x2), yaw.uniform(-np.pi, np.pi)))
             color = np.asarray(_car_color(j), np.float32)
             rgb[y1:y2, x1:x2] = color
             rgb[y1:y2, x1:x2, 0] = np.linspace(color[0] - 40, color[0] + 40,
@@ -88,9 +115,14 @@ def write_vkitti_root(root: str, frames, seed: int = 0,
         for scene in SCENE_IDS:
             lines = ["Category(:id) r g b"]
             lines += [f"{c} {r} {g} {b}" for c, (r, g, b) in _BG_COLORS.items()]
-            lines += ["Car:{:03d} {} {} {}".format(j + 1, *_car_color(j))
+            lines += ["Car:{} {} {} {}".format(j, *_car_color(j))
                       for j in range(cars.get((world, scene), 0))]
             with open(os.path.join(
                     gt_dir, f"{world}_{scene}_scenegt_rgb_encoding.txt"),
                     "w") as f:
                 f.write("\n".join(lines) + "\n")
+    mot_dir = os.path.join(root, "vkitti_1.3.1_motgt")
+    os.makedirs(mot_dir, exist_ok=True)
+    for (world, topic), rows in motgt.items():
+        with open(os.path.join(mot_dir, f"{world}_{topic}.txt"), "w") as f:
+            f.write("\n".join([MOTGT_HEADER] + rows) + "\n")

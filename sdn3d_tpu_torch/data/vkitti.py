@@ -3,12 +3,12 @@ serving paths use.
 
 Counterpart of sdn3d_tpu/data/vkitti.py: the scenegt lookup tables and
 GT objects (datasets/vkitti_utils.py, the geometric CLI's `--source gt`),
-the camera intrinsics, the ROI crop transforms
-(geometric/derender3d/datasets.py:18-137) and the edit-benchmark JSON
-protocol.  Crops and the scenegt decode go through numpy + PIL (the JAX
-package may route them through its native host library, whose float
-crops match this path to 1e-5 and whose decode is the same lookup).
-The train/test split lists wait for the trainers.
+the train/test split lists, the camera intrinsics, the ROI crop
+transforms (geometric/derender3d/datasets.py:18-137) and the
+edit-benchmark JSON protocol.  The scenegt decode and the RGB crops go
+through the native host library (data/native.py) as in the JAX package,
+or its numpy path where no compiler is found; the mask crops go through
+PIL in both packages.
 """
 
 from __future__ import annotations
@@ -27,6 +27,15 @@ SCENE_IDS = ["15-deg-left", "15-deg-right", "30-deg-left", "30-deg-right",
 CATEGORIES = ["Misc", "Building", "Car", "GuardRail", "Pole", "Road", "Sky",
               "Terrain", "TrafficLight", "TrafficSign", "Tree", "Truck",
               "Van", "Vegetation"]
+# Train/test frame ranges per world (vkitti_utils.py:50-53).
+SPLIT_RANGES = {
+    "train": [range(0, 356), range(0, 185), range(69, 270), range(0, 270),
+              range(167, 837)],
+    "test": [range(356, 447), range(185, 233), range(0, 69),
+             range(270, 339), range(0, 167)],
+    "all": [range(0, 447), range(0, 233), range(0, 270), range(0, 339),
+            range(0, 837)],
+}
 
 
 class Camera:
@@ -66,11 +75,23 @@ def get_tables(opt: str, datadir: str
     return table_segm if opt == "segm" else table_inst
 
 
+def get_lists(opt: str) -> List[str]:
+    """Train/test file lists (vkitti_utils.py:45-59)."""
+    out = []
+    for wi, world in enumerate(WORLD_IDS):
+        for scene in SCENE_IDS:
+            for img in SPLIT_RANGES[opt][wi]:
+                out.append(f"{world}/{scene}/{img:05d}.png")
+    return out
+
+
 def decode_scenegt(img_rgb: np.ndarray, world: str, scene: str,
                    table: Dict) -> np.ndarray:
     """scenegt RGB png [H, W, 3] -> id map [H, W] int32 via the lookup
-    table (-1 for colours not in it): a sorted-key search over the packed
-    24-bit colours (the JAX package's numpy path of its native decode)."""
+    table (-1 for colours not in it), in the native host library's one
+    pass (data/native.scenegt_decode)."""
+    from sdn3d_tpu_torch.data import native
+
     keys = {}
     for (w, s, r, g, b), v in table.items():
         if w == world and s == scene:
@@ -79,13 +100,8 @@ def decode_scenegt(img_rgb: np.ndarray, world: str, scene: str,
         return np.full(img_rgb.shape[:2], -1, np.int32)
     lut_keys = np.asarray(sorted(keys), np.uint32)
     lut_vals = np.asarray([keys[int(k)] for k in lut_keys], np.int32)
-    img = np.ascontiguousarray(img_rgb, np.uint8)
-    flat = ((img[..., 0].astype(np.uint32) << 16)
-            | (img[..., 1].astype(np.uint32) << 8)
-            | img[..., 2].astype(np.uint32)).ravel()
-    idx = np.clip(np.searchsorted(lut_keys, flat), 0, len(lut_keys) - 1)
-    out = np.where(lut_keys[idx] == flat, lut_vals[idx], -1)
-    return out.reshape(img.shape[:2]).astype(np.int32)
+    return native.scenegt_decode(img_rgb.astype(np.uint8), lut_keys,
+                                 lut_vals)
 
 
 def rgb_path(root: str, world: str, topic: str, frame: int) -> str:
@@ -165,6 +181,21 @@ def resize_bilinear_np(image: np.ndarray, size: int) -> np.ndarray:
     return np.stack(chans, axis=-1)
 
 
+def transform_rgb(image_rgb: np.ndarray, roi: Sequence[int],
+                  image_size: int = 256,
+                  mean=(0.5, 0.5, 0.5), std=(0.25, 0.25, 0.25),
+                  prescaled: bool = False) -> np.ndarray:
+    """Square-crop (fill 0.5), resize and normalize an object crop for the
+    derenderer (geometric/scripts/main.py:365-373), through the native
+    host library: [image_size, image_size, 3] float32.  `prescaled=True`
+    means the caller already converted the frame to float32 in [0, 1]."""
+    from sdn3d_tpu_torch.data import native
+    img = (image_rgb if prescaled
+           else np.asarray(image_rgb, np.float32) / 255.0)
+    return native.crop_square_resize(img, [int(v) for v in roi], image_size,
+                                     fill=0.5, mean=mean, std=std)
+
+
 def transform_rgb_u8(image_rgb: np.ndarray, roi: Sequence[int],
                      image_size: int = 256,
                      prescaled: bool = False) -> np.ndarray:
@@ -172,11 +203,8 @@ def transform_rgb_u8(image_rgb: np.ndarray, roi: Sequence[int],
     uint8; normalization happens on the device
     (pipelines/derender_infer._U8_NORM_TABLE).  `prescaled=True` means the
     caller already converted the frame to float32 in [0, 1]."""
-    img = (image_rgb if prescaled
-           else np.asarray(image_rgb, np.float32) / 255.0)
-    crop = crop_square(np.ascontiguousarray(img, np.float32),
-                       [int(v) for v in roi], fill=0.5)
-    crop = resize_bilinear_np(crop, image_size).astype(np.float32)
+    crop = transform_rgb(image_rgb, roi, image_size, mean=(0.0, 0.0, 0.0),
+                         std=(1.0, 1.0, 1.0), prescaled=prescaled)
     return np.clip(np.rint(crop * 255.0), 0, 255).astype(np.uint8)
 
 

@@ -160,8 +160,9 @@ class EditChain:
         """The three loaders of the per-stage CLIs, on `device`, each
         computing in cfg.compute_dtype (JAX chain.py:150-184); random
         weights come from `seed`, drawn inside torch.random.fork_rng (the
-        global generator is left as it was).  With `with_detector` or
-        `maskrcnn_ckpt` (a torch state_dict file in the reference layout)
+        global generator is left as it was).  Each checkpoint is a
+        checkpoint directory (core/checkpoint) or a torch file, as the
+        per-stage CLIs take them.  With `with_detector` or `maskrcnn_ckpt`
         the chain also holds the Mask R-CNN detector
         (cli/geometric_main.make_detector)."""
         from sdn3d_tpu_torch.cli.edit_vkitti import load_trainer

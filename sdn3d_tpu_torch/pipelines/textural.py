@@ -32,7 +32,9 @@ class TexturalConfig:
     """The architecture fields of the JAX package's TexturalConfig that
     edit-time inference reads (the 3D-SDN configuration: instance edges,
     the 24-bin pose one-hot and the normal map on; no depth, no global
-    encoder).  Training fields wait for the textural trainer."""
+    encoder), and the training fields a checkpoint's meta carries over
+    (config_from_train_meta); the other training fields wait for the
+    textural trainer."""
     label_nc: int = 14
     output_nc: int = 3
     ngf: int = 64
@@ -46,6 +48,10 @@ class TexturalConfig:
     # compute dtype of the G / E convolutions (JAX pipelines/textural.py:
     # 69-71); parameters, instance norms and outputs stay float32
     compute_dtype: str = "float32"
+    # training fields read from a checkpoint's meta (the trainer's)
+    lr: float = 2e-4
+    use_vgg_loss: bool = True
+    pool_size: int = 0
 
     @property
     def netG_input_nc(self) -> int:
@@ -58,6 +64,31 @@ class TexturalConfig:
 SMALL_NET_OVERRIDES = dict(ngf=8, nef=4, n_downsample_global=2,
                            n_blocks_global=2, n_downsample_e=2,
                            max_instances=8)
+
+
+def config_from_train_meta(meta: dict, **overrides) -> TexturalConfig:
+    """The TexturalConfig a checkpoint's nets were trained with, from its
+    manifest's training meta (the JAX package's config_from_train_meta;
+    the reference persists opt.txt for the same purpose,
+    options/base_options.py:112-128): `small` selects SMALL_NET_OVERRIDES,
+    `pool_size` and `lr` carry over, `no_vgg` sets use_vgg_loss.
+    `overrides` (inference-time choices such as compute_dtype) win over
+    meta.  A global-encoder checkpoint raises: GlobalEncoder is not
+    ported."""
+    if meta.get("use_global_encoder"):
+        raise NotImplementedError(
+            "use_global_encoder checkpoints: the global encoder waits for "
+            "the textural trainer (ROADMAP.md A8)")
+    kw = {}
+    if meta.get("small"):
+        kw.update(SMALL_NET_OVERRIDES)
+    for k in ("pool_size", "lr"):
+        if k in meta:
+            kw[k] = meta[k]
+    if "no_vgg" in meta:
+        kw["use_vgg_loss"] = not meta["no_vgg"]
+    kw.update(overrides)
+    return TexturalConfig(**kw)
 
 
 def one_hot_label(label_map: torch.Tensor, num_classes: int) -> torch.Tensor:

@@ -31,6 +31,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from sdn3d_tpu.models import derenderer as JD
 from sdn3d_tpu.models import pix2pixhd as JX
 from sdn3d_tpu.models import semantic as JS

@@ -16,6 +16,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 
 # two edit pairs sharing a source frame, and their reconstruction twins

@@ -20,6 +20,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tests.test_torch_chain import (  # noqa: F401 (fixtures)
     FAKE_E2E_MAX, FAKE_E2E_MEAN, SMALL, _port_chain, _requests, chains, env)
 from tests.test_torch_detect import MASK_FLIPS

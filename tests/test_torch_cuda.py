@@ -480,3 +480,97 @@ def test_nms_card_keep_equals_cpu(cuda, n):
         gi, gv = nms_padded(b.to(cuda), s.to(cuda), thr, 1000, v.to(cuda))
         ci, cv = nms_padded(b, s, thr, 1000, v)
         assert torch.equal(gv.cpu(), cv) and torch.equal(gi.cpu(), ci)
+
+
+@pytest.mark.cuda
+def test_native_crops_on_the_card_path_equal_the_cpu_path(cuda):
+    """The card's machine builds the native host library (data/native.py),
+    so the card path's crops are the native ones: the scenegt decode equals
+    the numpy path; the float crops agree with the numpy + PIL path's to
+    1e-5 (tests/test_native.py's bound for the library against PIL), so
+    prepare_objects' uint8 crops differ from that path's by at most one
+    (where a value lies within 255e-5 of a rounding boundary: 0.3% of the
+    bytes on this noise frame in the first card run, 9 of 3.1M on
+    chip_smoke.py's smooth frame); and the normalised crops the encoder
+    reads on the card equal those of the CPU path bit for bit."""
+    from sdn3d_tpu_torch.data import native
+    from sdn3d_tpu_torch.pipelines import derender_infer as TI
+
+    assert native.available()
+    rng = np.random.RandomState(0)
+    img = rng.randint(0, 4, (60, 90, 3)).astype(np.uint8) * 60
+    keys = np.unique((img[..., 0].astype(np.uint32) << 16)
+                     | (img[..., 1].astype(np.uint32) << 8) | img[..., 2])
+    vals = np.arange(len(keys), dtype=np.int32)
+    np.testing.assert_array_equal(native.scenegt_decode(img, keys[::2],
+                                                        vals[::2]),
+                                  native.scenegt_decode_np(img, keys[::2],
+                                                           vals[::2]))
+    image = (rng.rand(375, 1242, 3) * 255).astype(np.uint8)
+    rois = np.asarray([[150, 200, 260, 420], [180, 900, 300, 1240],
+                       [-5, 0, 60, 80]], np.float32)
+    masks = np.zeros((3, 1, 375, 1242), np.float32)
+    for i, (a, b, c, d) in enumerate(rois.astype(int)):
+        masks[i, 0, max(a, 0):c, b:d] = 1
+    cfg = TI.DerenderInferConfig()
+    objs = TI.prepare_objects(image, rois, masks, np.asarray([1, 2, 1]), cfg)
+    saved = dict(native._state)
+    native._state.update(tried=True, lib=None)
+    try:
+        plain = TI.prepare_objects(image, rois, masks, np.asarray([1, 2, 1]),
+                                   cfg)
+    finally:
+        native._state.update(saved)
+    diff = np.abs(objs["rgbs"].astype(int) - plain["rgbs"].astype(int))
+    assert diff.max() <= 1
+    for roi in rois:
+        np.testing.assert_allclose(
+            native.crop_square_resize(image / np.float32(255), roi, 256),
+            native.crop_square_resize_np(image / np.float32(255), roi, 256),
+            rtol=0, atol=1e-5)
+    crops = torch.from_numpy(objs["rgbs"]).long()
+    torch.testing.assert_close(TI._norm_table(cuda)[crops.to(cuda)].cpu(),
+                               TI._norm_table(torch.device("cpu"))[crops],
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_geometric_main_dataset_mode_launches_the_forward_once_an_item(
+        cuda, tmp_path):
+    """geometric_main --vkitti_root --split test on the card (its default
+    device) over the motgt frames of a synthetic root: one forward-kernel
+    launch an item, no plain forward, every frame's contract written."""
+    import os
+
+    from sdn3d_tpu_torch.cli import geometric_main
+    from sdn3d_tpu_torch.data.synthetic import (make_sphere_mesh,
+                                                write_vkitti_root)
+    from sdn3d_tpu_torch.geometry.assets import SHAPENET_CARS
+    from sdn3d_tpu_torch.geometry.obj import save_obj
+
+    v, f = make_sphere_mesh(6, 12)
+    for cls, obj in SHAPENET_CARS:
+        d = tmp_path / "shapenet" / cls / obj / "models"
+        d.mkdir(parents=True, exist_ok=True)
+        save_obj(str(d / "model_normalized.obj"), v, f)
+    root = str(tmp_path / "vkitti")
+    write_vkitti_root(root, {
+        ("0001", "clone", "00360"): [(180, 300, 260, 440),
+                                     (200, 700, 300, 900)],
+        ("0001", "clone", "00361"): [],
+        ("0002", "fog", "00200"): [(170, 500, 250, 650)],
+        ("0002", "fog", "00010"): [(170, 500, 250, 650)]})   # train range
+    out = str(tmp_path / "geo")
+    TC.rasterize_face_index_cuda.launches = 0
+    TR.rasterize_face_maps.calls = 0
+    geometric_main.main(["--source", "gt", "--vkitti_root", root,
+                         "--split", "test", "--output_dir", out,
+                         "--shapenet_root", str(tmp_path / "shapenet"),
+                         "--image_size", "64", "--render_size", "64"])
+    torch.cuda.synchronize()
+    assert TC.rasterize_face_index_cuda.launches == 2
+    assert TR.rasterize_face_maps.calls == 0
+    for name in ("0001_clone_00360", "0002_fog_00200"):
+        for suffix in (".png", "-normal.png", "-depth.png", ".json", ".pkl"):
+            assert os.path.exists(os.path.join(out, name + suffix))
+    assert not os.path.exists(os.path.join(out, "0002_fog_00010.png"))

@@ -24,6 +24,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from sdn3d_tpu.models import maskrcnn as JM
 from sdn3d_tpu.ops import nms as JN
 from sdn3d_tpu.ops.roi_align import crop_and_resize as j_crop

@@ -12,6 +12,7 @@ import torch
 
 import jax.numpy as jnp
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from sdn3d_tpu.geometry import assets as JA
 from sdn3d_tpu.geometry import camera as JC
 from sdn3d_tpu.geometry import ffd as JF

@@ -11,6 +11,7 @@ import torch
 
 import jax
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from sdn3d_tpu.models.lpips import init_lpips as j_init, lpips as j_lpips
 from sdn3d_tpu.utils import metrics as JM
 from sdn3d_tpu_torch.models.lpips import LPIPS, init_lpips, lpips

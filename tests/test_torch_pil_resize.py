@@ -13,6 +13,7 @@ from PIL import Image
 
 import jax.numpy as jnp
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from sdn3d_tpu.ops import pil_resize as JR
 from sdn3d_tpu_torch.ops import pil_resize as TR
 

@@ -9,6 +9,7 @@ import torch
 
 import jax.numpy as jnp
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from sdn3d_tpu.ops import rasterize as JR
 from sdn3d_tpu_torch.ops import rasterize as TR
 from sdn3d_tpu_torch.ops import rasterize_cuda as TC

@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from sdn3d_tpu.data.synthetic import make_sphere_mesh
 from sdn3d_tpu.geometry.assets import build_mesh_bank
 from sdn3d_tpu.models import derenderer as JD

@@ -7,6 +7,7 @@ import torch
 
 import jax.numpy as jnp
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from sdn3d_tpu.data.synthetic import make_sphere_mesh
 from sdn3d_tpu.render import render_targets as j_render_targets
 from sdn3d_tpu_torch.render.renderer import render_targets

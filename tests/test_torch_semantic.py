@@ -10,6 +10,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from sdn3d_tpu.data.semantic_data import MEAN_BGR, STD_BGR
 from sdn3d_tpu.models import semantic as JS
 from sdn3d_tpu.pipelines import semantic as JP

@@ -11,6 +11,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from sdn3d_tpu.data.synthetic import make_sphere_mesh
 from sdn3d_tpu.geometry import camera as JC
 from sdn3d_tpu.geometry.assets import build_mesh_bank
