@@ -116,14 +116,36 @@ Phases, each of which must pass (any failure exits non-zero):
      geometric_main --input_image --edit_json --input_masks (stems 00000,
      00001) -> edit_vkitti --edit_num 2: one launch an item, finite
      fakes, the gallery; and geo.prep's crops through the native library
-     against the numpy + PIL path (host wall, in turns).
+     against the numpy + PIL path (host wall, in turns);
+ 11. derenderer training at full width (batch 16, image 256, render 384 ->
+     768^2, walk window 64, phase 4's eight 39.6k-face meshes, random
+     weights from --seed): 11a. cli/geometric_train.main --mode full
+     (synthetic batches) for TRAIN_STEPS iterations: every loss finite,
+     B1, B3 and B2 launched once a step (no plain version, no invariant
+     stack), the train-state step written, then geometric_main --ckpt_dir
+     serving phase 4's frames from it (one launch an item); 11c. the last
+     step's forward (TRAIN_PLAIN_IMAGES of its images), walk and reduction
+     against their plain versions as in phase 5; 11b. DESCENT_STEPS steps
+     (lr 3e-3, mask_weight 1.0) on one batch: the mask loss descends;
+     11d. one step on a small shape, the card against the CPU (losses,
+     running statistics, the gradient's two halves) within the CPU tests'
+     bounds; 11e. two runs of a step give the same bits; ms a step
+     (CUDA events, TIME_STEPS a run) for full float32 with cuDNN's
+     deterministic algorithms on and off (TIME_TURNS runs each, in turns,
+     and device busy of each under the profiler), full bfloat16 and
+     pretrain; device busy and idle share, the three kernels' ms and the
+     top kernels in a step; --dataset vkitti through the prefetch loader
+     on a root of LOADER_TOPICS x 5 topics (450 objects, one loader
+     epoch): the fill, then steps/s and the wait for a batch over steps
+     after LOADER_WARM, and one item's decode against its whole cost.
 The line before last is the card's name and power limit, the line before
-that the kernels' JSON; the last line is {"ok": true, "device": {...}}.
+that the kernels' JSON (launches: phase 11a's training run); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import pickle
@@ -2023,6 +2045,666 @@ def file_contract_phase(args, card: str, mark=lambda what: None) -> None:
         mark("10c. single frame, edit_vkitti")
 
 
+# 11a: the CLI's iterations at full width; 11b: descent steps on one batch;
+# 11e: timed steps a run (after 3 warm-up steps), and the runs of full
+# float32 with the deterministic algorithms on and off, in turns
+TRAIN_STEPS = 12
+DESCENT_STEPS = 30
+TIME_STEPS = 10
+TIME_TURNS = 4
+TRAIN_SHAPES = {"batch_size": 16, "image_size": 256, "render_size": 384}
+# 11c: images of the last training step's forward held against the plain
+# forward (at 16 x 768^2 the plain forward takes ~60 s; phase 5 holds all
+# 16 serving images)
+TRAIN_PLAIN_IMAGES = 4
+# 11d: the card against the CPU, one step on the small shape, with the
+# bounds of tests/test_torch_derender_train.py (port against JAX): losses
+# relative (geometry, reprojection), running statistics and the two
+# gradient halves against their largest entry, the cosines
+SMALL_TRAIN = {"batch_size": 4, "image_size": 64, "render_size": 64}
+TRAIN_LOSS_RTOL = (2e-5, 5e-4)
+TRAIN_STATS_ATOL = 5e-5
+TRAIN_HEAD_ATOL, TRAIN_HEAD_COS = 0.03, 0.999
+# the encoder's backward is held to a float64 run of itself on the CPU,
+# each parameter's gradient within TRAIN_ENC_ATOL of its largest entry and
+# at cosine TRAIN_ENC_COS (the bounds of the CPU tests); at this shape
+# (layer-4 batch statistics over 16 values, ReLU kinks) the CPU's own
+# float32 gradient is off the float64 one by a few % in the early layers,
+# a reading that is printed and bounds nothing
+TRAIN_ENC_ATOL, TRAIN_ENC_COS = 2e-3, 0.9999
+# 11e: the loader's root: in each world LOADER_TOPICS topics of three
+# frames at the start of its train range, six non-overlapping cars a frame
+# (18 a topic: write_vkitti_root colours at most 20), so 5 x 5 x 18 = 450
+# objects, 28 batches of 16; LOADER_ITERS steps stay inside one loader
+# epoch, and the first LOADER_WARM (the pipeline's fill) are reported
+# apart from the steady window after them
+LOADER_TOPICS = 5
+LOADER_ITERS = 24
+LOADER_WARM = 4
+# the three kernels' device functions, for their share of a step
+KERNEL_NAMES = {"B1": ("bin_count_kernel", "bin_scan_kernel",
+                       "bin_scatter_kernel", "raster_binned_kernel"),
+                "B3": ("walk_faces_kernel",),
+                "B2": ("won_box_kernel", "segment_kernel")}
+# the card phase 11 trains on (a CPU rehearsal of the phase's control flow
+# sets "cpu" and fakes the kernels with their plain versions)
+TRAIN_DEVICE = "cuda"
+HEAD_KEYS = ("_theta_deltas", "_translation2ds", "_log_scales",
+             "_log_depths", "_class_probs", "_ffd_coeffs")
+
+
+def step_generator(seed: int, it: int, dev):
+    from sdn3d_tpu_torch.cli.geometric_train import step_generator as g
+    return g(seed, it, dev)
+
+
+def train_batch(seed: int, dev, shapes=None):
+    """A synthetic training batch at `shapes` (TRAIN_SHAPES by default)
+    with the CLI's masks."""
+    import torch
+
+    from sdn3d_tpu_torch.data.synthetic import (centred_square_masks,
+                                                make_derender_batch)
+    shapes = shapes or TRAIN_SHAPES
+    b = make_derender_batch(shapes["batch_size"], shapes["image_size"], seed)
+    b.update(centred_square_masks(shapes["batch_size"],
+                                  shapes["render_size"]))
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def new_trainer(bank, seed: int, dev, mode: str = "full",
+                dtype: str = "float32", shapes=None, **kw):
+    """A fresh trainer at `shapes` (TRAIN_SHAPES by default), weights
+    drawn from `seed` as the CLI draws them."""
+    import torch
+
+    from sdn3d_tpu_torch.models.derenderer import Derenderer, TargetType
+    from sdn3d_tpu_torch.pipelines.derender import DerenderTrainer
+    shapes = shapes or TRAIN_SHAPES
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = Derenderer(num_classes=8, dtype=dtype)
+    return DerenderTrainer(model=model.to(dev), bank=bank,
+                           mode=TargetType.BY_NAME[mode],
+                           image_size=shapes["image_size"],
+                           render_size=shapes["render_size"], **kw)
+
+
+def close_to(got, want, frac: float, min_cos: float, what: str) -> float:
+    """|got - want| <= frac * max|want| and cosine >= min_cos, or fail.
+    Returns the max |diff| / max|want|."""
+    got, want = got.double().cpu(), want.double().cpu()
+    scale = float(want.abs().max())
+    rel = float((got - want).abs().max()) / max(scale, 1e-30)
+    cos = float((got * want).sum() / (got.norm() * want.norm())) \
+        if scale > 0 else 1.0
+    if rel > frac or cos < min_cos:
+        raise AssertionError(f"{what}: max diff {rel:.3e} of the largest "
+                             f"(bound {frac}), cosine {cos:.6f}")
+    return rel
+
+
+def fixed_draws(idx):
+    """A select_class returning the given classes and their
+    log-probabilities under the caller's class_probs."""
+    import torch
+
+    def select(class_probs, generator=None, sample=False):
+        i = idx.to(class_probs.device).long()
+        logp = torch.log(torch.gather(class_probs, 1, i[:, None])[:, 0]
+                         + 1e-20)
+        return i.to(torch.int32), logp
+    return select
+
+
+def card_against_cpu(seed: int, card: str) -> None:
+    """11d: one train step on the small shape, the card against the CPU
+    from the same weights, batch and class draws: the losses, the new
+    running statistics, and the gradient in its two halves (the loss's
+    gradient in the encoder outputs at the CPU's outputs; the encoder's
+    backward of the CPU's cotangent, where a fc1 / fc2 pre-activation
+    nearer zero than the two forwards differ is moved onto the CPU's side
+    of the ReLU), each within the CPU tests' bounds."""
+    import torch
+
+    from sdn3d_tpu_torch.data.synthetic import make_sphere_mesh
+    from sdn3d_tpu_torch.geometry.assets import build_mesh_bank
+    from sdn3d_tpu_torch.models import derenderer as TD
+
+    host = build_mesh_bank([make_sphere_mesh(8, 16)] * 8)
+    devs = {"cpu": torch.device("cpu"), "card": torch.device(TRAIN_DEVICE)}
+    trainers = {k: new_trainer(TD.DeviceMeshBank.from_host(host, d), seed,
+                               d, shapes=SMALL_TRAIN) for k, d in devs.items()}
+    sd0 = {k: v.clone() for k, v in trainers["cpu"].model.state_dict().items()}
+    batches = {k: train_batch(seed + 5, d, SMALL_TRAIN)
+               for k, d in devs.items()}
+    mroi, droi = TD.roi_features(batches["cpu"]["roi_norms"])
+    cpu_model = trainers["cpu"].model.train()
+    pre = {}
+    hooks = [getattr(cpu_model, n).register_forward_hook(
+        lambda m, i, o, n=n: pre.__setitem__(n, o.detach().clone()))
+        for n in ("fc1", "fc2")]
+    enc = {k: v.detach() for k, v in cpu_model(
+        batches["cpu"]["images"], mroi, droi).items()}
+    for h in hooks:
+        h.remove()
+    cpu_model.load_state_dict(sd0)
+    draws, _ = TD.select_class(enc["_class_probs"],
+                               torch.Generator().manual_seed(seed), True)
+    select = TD.select_class
+    TD.select_class = fixed_draws(draws)
+    try:
+        out = {}
+        for key, d in devs.items():
+            t = trainers[key]
+            t.model.load_state_dict(sd0)
+            state = t.init()
+            _, losses = t.gradients(state, batches[key], None)
+            stats = {k: v.clone() for k, v in t.model.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))}
+            t.model.load_state_dict(sd0)
+            # the loss's gradient in the encoder outputs, at the CPU's
+            b = batches[key]
+            leaves = {k: v.to(d).clone().requires_grad_(True)
+                      for k, v in enc.items()}
+            m_, d_ = TD.roi_features(b["roi_norms"])
+            blob = {"_roi_norms": b["roi_norms"], "_mroi_norms": m_,
+                    "_droi_norms": d_, "_focals": b["focals"], **leaves}
+            blob.update(TD.render_blob(blob, t.bank, t.mode,
+                                       SMALL_TRAIN["image_size"],
+                                       SMALL_TRAIN["render_size"],
+                                       training=True))
+            head = torch.autograd.grad(sum(t.losses(blob, b).values()),
+                                       [leaves[k] for k in HEAD_KEYS])
+            out[key] = (losses, stats, head)
+        cot = out["cpu"][2]
+        flips = []
+        ref64 = copy.deepcopy(trainers["cpu"].model).double()
+        enc_grads = {}
+        for key, model, d, dt in (
+                ("cpu", trainers["cpu"].model, devs["cpu"], torch.float32),
+                ("card", trainers["card"].model, devs["card"],
+                 torch.float32),
+                ("f64", ref64, devs["cpu"], torch.float64)):
+            model.load_state_dict(sd0)
+            model.train()
+
+            def align(name):
+                def hook(_, __, o):
+                    ref = pre[name].to(o.device, o.dtype)
+                    flip = (o > 0) != (ref > 0)
+                    flips.append((key, name, int(flip.sum()),
+                                  float((o.detach() - ref).abs().max())))
+                    return o + torch.where(flip, ref - o, 0.0).detach()
+                return hook
+            hooks = [getattr(model, n).register_forward_hook(align(n))
+                     for n in ("fc1", "fc2")]
+            b = batches["cpu"]
+            e = model(b["images"].to(d, dt),
+                      *(x.to(d, dt) for x in TD.roi_features(
+                          b["roi_norms"])))
+            enc_grads[key] = torch.autograd.grad(
+                [e[k] for k in HEAD_KEYS], list(model.parameters()),
+                [c.to(d, dt) for c in cot])
+            for h in hooks:
+                h.remove()
+    finally:
+        TD.select_class = select
+    torch.cuda.synchronize()
+    (l_c, s_c, h_c), (l_g, s_g, h_g) = out["cpu"], out["card"]
+    worst = {"loss": 0.0, "stats": 0.0, "head": 0.0, "encoder": 0.0}
+    for k in l_c:
+        rtol = TRAIN_LOSS_RTOL[k in ("mask_loss", "class_reward")]
+        rel = abs(float(l_g[k]) - float(l_c[k])) / max(abs(float(l_c[k])),
+                                                       1e-30)
+        if not rel <= rtol:
+            raise AssertionError(f"11d loss {k}: card {float(l_g[k])}, cpu "
+                                 f"{float(l_c[k])}")
+        worst["loss"] = max(worst["loss"], rel)
+    for k in s_c:
+        worst["stats"] = max(worst["stats"], close_to(
+            s_g[k], s_c[k], TRAIN_STATS_ATOL, 0.0, f"11d {k}"))
+    for k, a, b in zip(HEAD_KEYS, h_g, h_c):
+        worst["head"] = max(worst["head"], close_to(
+            a, b, TRAIN_HEAD_ATOL, TRAIN_HEAD_COS, f"11d d/d{k}"))
+    names = [n for n, _ in trainers["cpu"].model.named_parameters()]
+    cpu_worst = 0.0
+    for n, a, b, r in zip(names, enc_grads["card"], enc_grads["cpu"],
+                          enc_grads["f64"]):
+        e_cpu = close_to(b, r, float("inf"), -1.0, f"11d cpu {n}")
+        cpu_worst = max(cpu_worst, e_cpu)
+        worst["encoder"] = max(worst["encoder"], close_to(
+            a, r, TRAIN_ENC_ATOL, TRAIN_ENC_COS, f"11d card {n}"))
+    if any(n > 2 or band > 2e-4 for _, _, n, band in flips):
+        raise AssertionError(f"11d ReLU flips beyond the band: {flips}")
+    log(f"[train-11d] card against CPU, one step on {SMALL_TRAIN}: worst "
+        f"loss rel {worst['loss']:.3e} (bounds {TRAIN_LOSS_RTOL}), running "
+        f"stats {worst['stats']:.3e} (bound {TRAIN_STATS_ATOL}), loss "
+        f"gradient in the encoder outputs {worst['head']:.3e} (bound "
+        f"{TRAIN_HEAD_ATOL}), encoder gradients against a float64 CPU run "
+        f"{worst['encoder']:.3e} (bound {TRAIN_ENC_ATOL}, cosine "
+        f"{TRAIN_ENC_COS}; the CPU's float32 {cpu_worst:.3e}); ReLU "
+        f"pre-activations moved to the CPU's side "
+        f"{[f for f in flips if f[2]]}")
+
+
+def same_bits_step(trainer, batch, seed: int) -> None:
+    """Two runs of one full-width step from the same weights, batch and
+    draws give the same bits (losses, weights, running statistics,
+    moments), or fail."""
+    import torch
+    sd0 = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    runs = []
+    for _ in range(2):
+        trainer.model.load_state_dict(sd0)
+        state = trainer.init()
+        state, losses = trainer.train_step(state, batch, step_generator(
+            seed, 0, TRAIN_DEVICE))
+        torch.cuda.synchronize()
+        runs.append(({k: v.clone() for k, v in
+                      state.model.state_dict().items()},
+                     state.mu.clone(), state.nu.clone(), losses))
+    (a, amu, anu, al), (b, bmu, bnu, bl) = runs
+    bad = [k for k in a if not torch.equal(a[k], b[k])]
+    bad += [k for k in al if not torch.equal(al[k], bl[k])]
+    if bad or not torch.equal(amu, bmu) or not torch.equal(anu, bnu):
+        raise AssertionError(f"two runs of a training step differ: {bad}")
+    trainer.model.load_state_dict(sd0)
+
+
+def time_steps(trainer, batch, seed: int, n: int = None):
+    """ms a step (CUDA events around each step after 3 warm-up steps;
+    median, min, max of n), host wall ms a step (synchronised) and the n
+    step times."""
+    import torch
+    n = n or TIME_STEPS
+    state = trainer.init()
+    for i in range(3):
+        state, _ = trainer.train_step(state, batch,
+                                      step_generator(seed, i, TRAIN_DEVICE))
+    torch.cuda.synchronize()
+    ms = []
+    t0 = time.perf_counter()
+    for i in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, _ = trainer.train_step(state, batch,
+                                      step_generator(seed, 3 + i,
+                                                     TRAIN_DEVICE))
+        b.record()
+        ms.append((a, b))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    ms = sorted(a.elapsed_time(b) for a, b in ms)
+    return ms[len(ms) // 2], ms[0], ms[-1], wall, ms
+
+
+def loader_root(root: str, seed: int) -> None:
+    """A VKITTI root of every world, LOADER_TOPICS topics each, three
+    frames a topic at the start of the world's train range, six
+    non-overlapping cars a frame (motgt rows that pass
+    training_row_filter)."""
+    from sdn3d_tpu_torch.data.synthetic import write_vkitti_root
+    from sdn3d_tpu_torch.data.vkitti import (SCENE_IDS, SPLIT_RANGES,
+                                             WORLD_IDS)
+    rng = np.random.RandomState(seed + 11)
+    frames = {}
+    for wi, world in enumerate(WORLD_IDS):
+        for topic in SCENE_IDS[:LOADER_TOPICS]:
+            for k in range(3):
+                boxes = []
+                for j in range(6):
+                    h = int(rng.randint(40, 100))
+                    w = int(h * rng.uniform(1.2, 1.9))
+                    y1 = int(rng.randint(150, 375 - h))
+                    x1 = 207 * j + int(rng.randint(0, 207 - w))
+                    boxes.append((y1, x1, y1 + h, x1 + w))
+                first = SPLIT_RANGES["train"][wi][0]
+                frames[(world, topic, f"{first + k:05d}")] = boxes
+    write_vkitti_root(root, frames, seed=seed)
+
+
+def training_phase(args, card: str, frames, shapenet: str, tmp: str,
+                   mark=lambda what: None) -> tuple:
+    """Phase 11: derenderer training at full width (batch 16, image 256,
+    render 384 -> 768^2, walk window 64, phase 4's eight 39.6k-face
+    meshes).  Returns the kernel launches of 11a's run (B1, B3, B2)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from sdn3d_tpu_torch.cli import geometric_main, geometric_train
+    from sdn3d_tpu_torch.geometry.assets import load_shapenet_bank
+    from sdn3d_tpu_torch.models.derenderer import DeviceMeshBank
+    from sdn3d_tpu_torch.ops import rasterize as TR
+    from sdn3d_tpu_torch.ops import rasterize_cuda as TC
+    from sdn3d_tpu_torch.pipelines import derender as TP
+
+    kernels = (TC.rasterize_face_index_cuda, TC.walk_grads_cuda,
+               TC.segment_face_grads_cuda)
+    inner = (TC.bin_faces_cuda, TC.raster_binned_cuda, TC.won_pixel_boxes_cuda)
+    plain = (TR.rasterize_face_maps, TR.walk_grads_plain,
+             TR.segment_face_grads_plain, TR.edge_invariant_stack,
+             TR.face_pixel_coords)
+
+    def reset():
+        for fn in kernels + inner:
+            fn.launches = 0
+        for fn in plain:
+            fn.calls = 0
+
+    # -- 11a. the CLI at full width, its last step's kernel inputs kept ----
+    seen, last = [], {}
+    fwd, walk, seg = TC.rasterize_face_index, TC.walk_grads, \
+        TC.segment_face_grads
+    step = TP.DerenderTrainer.train_step
+
+    def rec_fwd(faces, face_valid, image_size, near=TR.DEFAULT_NEAR,
+                far=TR.DEFAULT_FAR, colors=None):
+        last.update(faces=faces, valid=face_valid, size=image_size)
+        return fwd(faces, face_valid, image_size, near, far, colors)
+
+    def rec_walk(alpha, grad_alpha, pp, face_index, n_steps, eps):
+        last.update(alpha=alpha, cot=grad_alpha, pp=pp, walk=n_steps)
+        return walk(alpha, grad_alpha, pp, face_index, n_steps, eps)
+
+    def rec_seg(acc_x, acc_y, face_index, num_faces):
+        last.update(acc_x=acc_x, acc_y=acc_y, fi=face_index, F=num_faces)
+        return seg(acc_x, acc_y, face_index, num_faces)
+
+    def rec_step(self, state, batch, generator=None):
+        state, losses = step(self, state, batch, generator)
+        seen.append(losses)
+        return state, losses
+
+    ck = os.path.join(tmp, "train_ck")
+    S = TRAIN_SHAPES
+    argv = ["--mode", "full", "--batch_size", str(S["batch_size"]),
+            "--image_size", str(S["image_size"]), "--render_size",
+            str(S["render_size"]), "--shapenet_root", shapenet,
+            "--num_iters", str(TRAIN_STEPS), "--save_every",
+            str(TRAIN_STEPS), "--ckpt_dir", ck, "--seed", str(args.seed),
+            "--device", TRAIN_DEVICE]
+    TC.rasterize_face_index, TC.walk_grads, TC.segment_face_grads = \
+        rec_fwd, rec_walk, rec_seg
+    TP.DerenderTrainer.train_step = rec_step
+    printed = io.StringIO()
+    try:
+        reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            state = geometric_train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = tuple(fn.launches for fn in kernels)
+        inner_counts = tuple(fn.launches for fn in inner)
+        plain_calls = tuple(fn.calls for fn in plain)
+    finally:
+        TC.rasterize_face_index, TC.walk_grads, TC.segment_face_grads = \
+            fwd, walk, seg
+        TP.DerenderTrainer.train_step = step
+    for line in printed.getvalue().splitlines():
+        log(f"[train-11a] {line}")
+    values = [float(v) for losses in seen for v in losses.values()]
+    printed_values = [float(kv.split("=")[1])
+                      for line in printed.getvalue().splitlines()
+                      if line.startswith("iter ")
+                      for kv in line.split(": ", 1)[1].split()]
+    if len(seen) != TRAIN_STEPS or not np.isfinite(values).all() \
+            or not printed_values or not np.isfinite(printed_values).all():
+        raise AssertionError(f"11a: {len(seen)} steps, losses {values}")
+    want = (TRAIN_STEPS,) * 3
+    if counts != want or inner_counts != want or any(plain_calls) \
+            or state.step != TRAIN_STEPS:
+        raise AssertionError(f"11a: launches {counts} (bin, raster, box "
+                             f"pass {inner_counts}), need {want}; plain "
+                             f"calls {plain_calls}")
+    if sorted(os.listdir(os.path.join(ck, f"step-{TRAIN_STEPS}"))) != [
+            "derenderer.pt", "opt_state.pt", "step.pt"]:
+        raise AssertionError("11a: the train-state step is incomplete")
+    log(f"[train-11a] geometric_train --mode full {S} on 8 x "
+        f"{last['faces'].shape[1]}-face meshes, {TRAIN_STEPS} steps in "
+        f"{wall:.2f} s (model build and mesh parse included): every loss "
+        f"finite; launches B1 {counts[0]}, B3 {counts[1]}, B2 {counts[2]} "
+        f"(bin / raster / box pass {inner_counts}); plain calls (rasterizer, "
+        f"walk, reduction, edge_invariant_stack, face_pixel_coords) "
+        f"{plain_calls}; step-{TRAIN_STEPS} written ({card})")
+
+    # the trained step served by geometric_main --ckpt_dir
+    reset()
+    for k, (img, npz, edit, n) in enumerate(frames):
+        out_dir = os.path.join(tmp, f"served{k}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            geometric_main.main([
+                "--source", "gt", "--input_image", img, "--input_masks",
+                npz, "--edit_json", edit, "--shapenet_root", shapenet,
+                "--output_dir", out_dir, "--ckpt_dir", ck, "--device",
+                TRAIN_DEVICE])
+        check_outputs(out_dir, n)
+    torch.cuda.synchronize()
+    served = kernels[0].launches
+    if served != 2 * len(frames) or any(fn.calls for fn in plain):
+        raise AssertionError(f"11a serving: {served} forward launches for "
+                             f"{2 * len(frames)} items")
+    log(f"[train-11a] geometric_main --ckpt_dir (the trained step) over "
+        f"{len(frames)} frames x 2 items: outputs ok, {served} forward "
+        f"launches, no plain forward")
+    mark("11a. training CLI")
+
+    # -- 11c. the kernels at the last training step's own inputs ------------
+    n_img = TRAIN_PLAIN_IMAGES
+    err, hits, plain_ms = compare(TC, TR, last["faces"][:n_img].contiguous(),
+                                  last["valid"][:n_img].contiguous(),
+                                  last["size"], None)
+    walk_err = check_walk(TC, TR, last["alpha"], last["cot"], last["pp"],
+                          last["fi"], last["walk"], TR.DEFAULT_EPS)
+    red_err = check_reduction(TC, TR, last["acc_x"], last["acc_y"],
+                              last["fi"], last["F"])
+    log(f"[train-11c] last step's forward, {n_img} of "
+        f"{last['faces'].shape[0]} images @{last['size']}^2: kernel == "
+        f"plain ({hits} covered pixels, plain {plain_ms:.1f} ms); walk "
+        f"{tuple(last['alpha'].shape)}, window {last['walk']}: bit-equal "
+        f"(both axes); reduction: boxes == won_pixel_boxes, max err vs "
+        f"float64 {red_err:.3e}, bit-equal across launches")
+    mark("11c. kernels at the training inputs")
+
+    # -- 11b. descent on one fixed full-width batch ---------------------------
+    bank = DeviceMeshBank.from_host(load_shapenet_bank(shapenet), TRAIN_DEVICE)
+    batch = train_batch(args.seed + 1, TRAIN_DEVICE)
+    trainer = new_trainer(bank, args.seed, TRAIN_DEVICE, lr=3e-3,
+                          mask_weight=1.0)
+    state = trainer.init()
+    mask, every = [], []
+    for i in range(DESCENT_STEPS):
+        state, losses = trainer.train_step(state, batch,
+                                           step_generator(args.seed, i,
+                                                          TRAIN_DEVICE))
+        mask.append(losses["mask_loss"])
+        every.extend(losses.values())
+    mask = torch.stack(mask).tolist()
+    first, lastm = np.mean(mask[:4]), np.mean(mask[-4:])
+    if not torch.isfinite(torch.stack(every)).all() or not (
+            lastm < 0.85 * first or lastm < 0.75 * max(mask)):
+        raise AssertionError(f"11b: the mask loss did not descend: {mask}")
+    log(f"[train-11b] {DESCENT_STEPS} steps, lr 3e-3, mask_weight 1.0, one "
+        f"batch: mask loss first 4 {first:.6f}, last 4 {lastm:.6f}, peak "
+        f"{max(mask):.6f}; every loss finite; trajectory "
+        f"{[round(m, 6) for m in mask]}")
+    mark("11b. descent")
+
+    # -- 11d. the card against the CPU on the small shape ------------------
+    card_against_cpu(args.seed, card)
+    mark("11d. card against CPU")
+
+    # -- 11e. timing --------------------------------------------------------
+    same_bits_step(new_trainer(bank, args.seed, TRAIN_DEVICE), batch,
+                   args.seed)
+    log("[train-11e] two runs of a full-width step: the same bits (losses, "
+        "weights, running statistics, moments)")
+    rows = {}
+
+    def timed(tag, mode="full", dtype="float32"):
+        t = new_trainer(bank, args.seed, TRAIN_DEVICE, mode=mode, dtype=dtype)
+        rows.setdefault(tag, []).append(time_steps(t, batch, args.seed))
+
+    @contextlib.contextmanager
+    def nondeterministic_cudnn():
+        # the trainer's step with cuDNN free to pick its algorithms
+        c = torch.backends.cudnn
+        found = c.deterministic, c.benchmark
+        c.deterministic, c.benchmark = False, False
+        try:
+            yield
+        finally:
+            c.deterministic, c.benchmark = found
+
+    @contextlib.contextmanager
+    def determinism(on: bool):
+        ctx = TP.deterministic_cudnn
+        if not on:
+            TP.deterministic_cudnn = nondeterministic_cudnn
+        try:
+            yield
+        finally:
+            TP.deterministic_cudnn = ctx
+
+    off_tag = "full float32, deterministic off"
+    for turn in range(TIME_TURNS):
+        for on in ((True, False) if turn % 2 == 0 else (False, True)):
+            with determinism(on):
+                timed("full float32" if on else off_tag)
+    timed("full bfloat16", dtype="bfloat16")
+    timed("pretrain float32", mode="pretrain")
+    for tag, runs in rows.items():
+        for med, lo, hi, wall, _ in runs:
+            log(f"[train-11e] {tag}: {med:.3f} ms/step median of "
+                f"{TIME_STEPS} (min {lo:.3f}, max {hi:.3f}), host wall "
+                f"{wall:.3f} ms/step ({card})")
+    pooled = {k: sorted(x for r in rows[k] for x in r[4])
+              for k in ("full float32", off_tag)}
+    busy_det, top = {True: [], False: []}, None
+    for on in (True, False, False, True):
+        t = new_trainer(bank, args.seed, TRAIN_DEVICE)
+        st = t.init()
+
+        def three_steps():
+            nonlocal st
+            for i in range(3):
+                st, _ = t.train_step(st, batch, step_generator(
+                    args.seed, i, TRAIN_DEVICE))
+            torch.cuda.synchronize()
+        with determinism(on):
+            three_steps()
+            busy, kernels_top = device_time(three_steps, 3)
+        busy_det[on].append(busy)
+        top = top or kernels_top        # the first run with them on
+    med = {k: v[len(v) // 2] for k, v in pooled.items()}
+    log(f"[train-11e] deterministic algorithms on / off, {TIME_TURNS} runs "
+        f"each in turns: CUDA-event median of the {len(pooled[off_tag])} "
+        f"steps {med['full float32']:.3f} / {med[off_tag]:.3f} ms/step "
+        f"(on - off {med['full float32'] - med[off_tag]:.3f}); device busy "
+        f"{[round(x, 3) for x in busy_det[True]]} / "
+        f"{[round(x, 3) for x in busy_det[False]]} ms/step (profiler, in "
+        f"turns on, off, off, on) ({card})")
+    busy, wall = busy_det[True][0], rows["full float32"][0][3]
+    log(f"[train-11e] full float32: device busy {busy:.3f} ms/step, idle "
+        f"share {1.0 - busy / wall:.4f} of the host wall {wall:.3f} ms, "
+        f"{sum(v[1] for _, v in top) // 3} device launches/step ({card})")
+    for name, group in KERNEL_NAMES.items():
+        ms = sum(v[0] for k, v in top if any(g in k for g in group))
+        log(f"[train-11e] {name} in a step: {ms:.4f} ms")
+    elem = [v for k, v in top if "elementwise_kernel" in k]
+    log(f"[train-11e] PyTorch elementwise kernels "
+        f"{sum(v[0] for v in elem):.4f} ms/step, "
+        f"{sum(v[1] for v in elem) // 3} launches/step")
+    for name, (ms, count) in top[:12]:
+        log(f"[train-11e]   {ms:9.4f} ms/step  {count // 3:4d} launches/step"
+            f"  {name[:90]}")
+
+    mark("11e. training times")
+
+    # the prefetch loader on VKITTI items at full width
+    from sdn3d_tpu_torch.data import loader as TL
+    from sdn3d_tpu_torch.data.select import select_derender_dataset
+    from sdn3d_tpu_torch.models.derenderer import TargetType
+    root = os.path.join(tmp, "vk_train")
+    t0 = time.perf_counter()
+    loader_root(root, args.seed)
+    write_s = time.perf_counter() - t0
+    # one item's cost in the main thread: its two PNG decodes, and the
+    # whole item (the decodes, a full-frame mask per object of its frame,
+    # the occlusion ignores, the crops)
+    ds, _ = select_derender_dataset(
+        "vkitti", TargetType.full, vkitti_root=root, is_train=True,
+        image_size=S["image_size"], render_size=S["render_size"])
+    n_obj, png_ms, item_ms = len(ds), [], []
+    if n_obj // S["batch_size"] < LOADER_ITERS:
+        raise AssertionError(f"11e loader: {n_obj} objects make fewer than "
+                             f"{LOADER_ITERS} batches")
+    for i in range(S["batch_size"]):
+        world, topic, frame, _ = ds.items[i]
+        t0 = time.perf_counter()
+        ds.read_scene(world, topic, frame)
+        ds.read_rgb(world, topic, frame)
+        t1 = time.perf_counter()
+        ds[i]
+        png_ms.append((t1 - t0) * 1e3)
+        item_ms.append((time.perf_counter() - t1) * 1e3)
+    png_ms, item_ms = float(np.median(png_ms)), float(np.median(item_ms))
+    loaders, stamps, waits = [], [], []
+    Loader = TL.PrefetchLoader
+
+    class Recording(Loader):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            loaders.append(self)
+
+    def stamp_step(self, state, batch, generator=None):
+        out = step(self, state, batch, generator)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        waits.append(sum(ld.wait_s for ld in loaders))
+        return out
+
+    TL.PrefetchLoader, TP.DerenderTrainer.train_step = Recording, stamp_step
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            geometric_train.main([
+                "--dataset", "vkitti", "--vkitti_root", root, "--mode",
+                "full", "--batch_size", str(S["batch_size"]),
+                "--image_size", str(S["image_size"]), "--render_size",
+                str(S["render_size"]), "--shapenet_root", shapenet,
+                "--num_iters", str(LOADER_ITERS), "--ckpt_dir",
+                os.path.join(tmp, "vk_ck"), "--seed", str(args.seed),
+                "--device", TRAIN_DEVICE])
+    finally:
+        TL.PrefetchLoader, TP.DerenderTrainer.train_step = Loader, step
+    if len(stamps) != LOADER_ITERS or len(loaders) != 1:
+        raise AssertionError(f"11e loader: {len(stamps)} steps, "
+                             f"{len(loaders)} loader epochs")
+    w = LOADER_WARM
+    n = LOADER_ITERS - w
+    rate = n / (stamps[-1] - stamps[w - 1])
+    wait = (waits[-1] - waits[w - 1]) * 1e3 / n
+    fill = (waits[w - 1] - waits[0]) * 1e3
+    serial = S["batch_size"] * item_ms
+    log(f"[train-11e] --dataset vkitti through the prefetch loader "
+        f"(8 workers): {n_obj} objects in one loader epoch, root written in "
+        f"{write_s:.2f} s; the fill: first batch waited "
+        f"{waits[0] * 1e3:.3f} ms, steps 2-{w} {fill:.3f} ms in all; "
+        f"steady, steps {w + 1}-{LOADER_ITERS}: {rate:.3f} steps/s "
+        f"(synchronised), wait for a batch {wait:.3f} ms/step mean ({card})")
+    log(f"[train-11e] one VKITTI item in the main thread (median of "
+        f"{S['batch_size']}): {item_ms:.3f} ms, of which its two PNG decodes "
+        f"{png_ms:.3f} ms; a batch serially {serial:.1f} ms, so the steady "
+        f"loader made batches at {rate * serial / 1e3:.2f} times one "
+        f"thread's rate")
+    mark("11e. the loader")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2325,6 +3007,8 @@ def main(argv=None) -> int:
         mark("6. profiles")
         # -- 9. detection as the serving source (9e in the chain phase) ----
         detection_phase(args, card, frames, shapenet, tmp, mark)
+        # -- 11. derenderer training at full width ---------------------------
+        t_launches = training_phase(args, card, frames, shapenet, tmp, mark)
 
     # -- 5. kernels vs plain at the main paths' shapes ------------------------
     cf, cv, cs, cc = (captured["faces"], captured["valid"], captured["size"],
@@ -2492,7 +3176,7 @@ def main(argv=None) -> int:
 
     mark("7. reference")
     # -- 8. chain: the fused edit chain at full width ------------------------
-    c_launches = chain_phase(args, card, mark)
+    chain_phase(args, card, mark)
     # -- 10. the per-stage file contract --------------------------------------
     file_contract_phase(args, card, mark)
 
@@ -2501,7 +3185,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "sdn3d_tpu_torch/csrc/rasterize.cu",
         "replaces": "sdn3d_tpu/ops/rasterize_pallas.py:662",
-        "launches": c_launches,       # the chain path's (phase 8)
+        "launches": t_launches[0],    # the training path's (phase 11a)
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -2513,7 +3197,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "sdn3d_tpu_torch/csrc/silhouette_walk.cu",
         "replaces": "sdn3d_tpu/ops/rasterize_pallas.py:1071",
-        "launches": r_counts[1],
+        "launches": t_launches[1],
         "max_abs_err": walk_err,
         "ms": walk_ms,
         "plain_ms": walk_plain_ms,
@@ -2525,7 +3209,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "sdn3d_tpu_torch/csrc/segment_face_grads.cu",
         "replaces": "sdn3d_tpu/ops/rasterize_pallas.py:941",
-        "launches": r_counts[2],
+        "launches": t_launches[2],
         "max_abs_err": red_err,
         "ms": red_ms,
         "plain_ms": red_plain_ms,

@@ -1,9 +1,9 @@
-"""Synthetic meshes and a synthetic Virtual KITTI root for tests, smoke
-runs and benchmarks."""
+"""Synthetic meshes, derenderer training batches and a synthetic Virtual
+KITTI root for tests, smoke runs and benchmarks."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -32,6 +32,40 @@ def make_sphere_mesh(n_theta: int = 12, n_phi: int = 24,
             if i < n_theta - 1:
                 faces.append([b, c, d])
     return verts, np.asarray(faces, np.int32)
+
+
+def make_derender_batch(batch_size: int, image_size: int = 224,
+                        seed: int = 0) -> Dict[str, np.ndarray]:
+    """Random batch with the GT fields the derenderer losses consume
+    (geometric/derender3d/datasets.py:366-391 target structure); the JAX
+    package's data/synthetic.make_derender_batch, draw for draw."""
+    rng = np.random.RandomState(seed)
+    x0 = rng.uniform(-0.8, 0.0, (batch_size, 2)).astype(np.float32)
+    wh = rng.uniform(0.2, 0.6, (batch_size, 2)).astype(np.float32)
+    roi = np.concatenate([x0, x0 + wh], axis=1)
+    return {
+        "images": rng.rand(batch_size, image_size, image_size, 3
+                           ).astype(np.float32),
+        "roi_norms": roi,
+        "focals": np.full((batch_size, 1), 725.0, np.float32),
+        "targets": np.full((batch_size,), 3, np.int32),  # geometry|reproject
+        "thetas": rng.uniform(-np.pi, np.pi, (batch_size, 1)
+                              ).astype(np.float32),
+        "translation2ds": rng.randn(batch_size, 2).astype(np.float32) * 0.1,
+        "log_scales": rng.randn(batch_size, 3).astype(np.float32) * 0.1,
+        "log_depths": rng.randn(batch_size, 1).astype(np.float32) * 0.1,
+    }
+
+
+def centred_square_masks(batch_size: int, render_size: int
+                         ) -> Dict[str, np.ndarray]:
+    """The synthetic training batches' reprojection targets (JAX
+    cli/geometric_train.py:98-108): "masks" [B, 1, R, R], one on the
+    centred square from R // 4 to -R // 4, and "ignores" all zero."""
+    r = render_size
+    masks = np.zeros((batch_size, 1, r, r), np.float32)
+    masks[:, :, r // 4:-r // 4, r // 4:-r // 4] = 1.0
+    return {"masks": masks, "ignores": np.zeros_like(masks)}
 
 
 _BG_COLORS = {"Sky": (90, 200, 255), "Road": (100, 60, 100)}

@@ -4,9 +4,11 @@ PyTorch counterpart of sdn3d_tpu/models/derenderer.py: the encoder is a
 resnet18 trunk + FC heads (derender3d/models/derenderer.py:7-65);
 `render_blob` gathers each slot's mesh from a padded MeshBank, deforms it
 (FFD) and renders every slot in one rasterization, either for inference
-(no gradient) or, with `training=True`, as differentiable silhouettes
-under the training camera (argmax class; REINFORCE sampling waits for the
-training slice).
+(no gradient, argmax class) or, with `training=True`, as differentiable
+renders under the training camera, the class drawn for REINFORCE
+(`select_class(sample=True)`) unless `force_no_sample`.
+`derender_forward` is the whole Derenderer3d.forward: ROI features,
+encoder, reprojection.
 Module names follow the reference state_dict (`net.conv1`,
 `net.layerI.J.*`, `net.fc`, `fc1`, `fc2`, `_fc3`).
 """
@@ -191,11 +193,30 @@ def pose_from_blob(blob: Dict[str, torch.Tensor], image_size: int,
     return out
 
 
-def select_class(class_probs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Argmax class (eval, __init__.py:131-140); REINFORCE sampling waits
-    for the training slice.  Returns (class_idx [B] int32, log_prob [B])."""
-    idx = torch.argmax(class_probs, dim=1)
-    logp = torch.log(torch.amax(class_probs, dim=1))
+def select_class(class_probs: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 sample: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Categorical draw (training, REINFORCE) or argmax (eval)
+    (__init__.py:131-140).  Returns (class_idx [B] int32, log_prob [B]).
+
+    The draw is jax.random.categorical's: the argmax of log(p + 1e-20)
+    plus Gumbel noise -log(-log(u)), u uniform in [tiny, 1) from
+    `generator` (a torch.Generator on the tensor's device); log_prob is
+    log(p[idx] + 1e-20), differentiable in class_probs."""
+    if sample:
+        if generator is None:
+            raise ValueError("select_class(sample=True) needs a generator")
+        u = torch.rand(class_probs.shape, generator=generator,
+                       dtype=class_probs.dtype, device=class_probs.device)
+        u = torch.clamp_min(u, torch.finfo(class_probs.dtype).tiny)
+        gumbel = -torch.log(-torch.log(u))
+        idx = torch.argmax(torch.log(class_probs.detach() + 1e-20) + gumbel,
+                           dim=1)
+        logp = torch.log(torch.gather(class_probs, 1, idx[:, None])[:, 0]
+                         + 1e-20)
+    else:
+        idx = torch.argmax(class_probs, dim=1)
+        logp = torch.log(torch.amax(class_probs, dim=1))
     return idx.to(torch.int32), logp
 
 
@@ -208,6 +229,7 @@ def render_blob(
     obj_valid: Optional[torch.Tensor] = None,
     training: bool = False,
     force_no_sample: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> Dict[str, torch.Tensor]:
     """Batched re-rendering of all object slots (replaces
     __init__.py:94-250).
@@ -215,25 +237,21 @@ def render_blob(
     blob must contain encoder outputs plus _mroi_norms/_droi_norms/_focals.
     Returns the render dict (_masks, _normals, _depth_maps, poses, ...).
     training=False: the inference camera (zoom solved from `_zoom_tos`),
-    one non-differentiable rasterization of the mode's targets.
-    training=True: the training camera (`_zooms` from the ROI), and
-    `_masks` are differentiable silhouettes (the walk window is 64 for
-    render_size > 128, else exact), carrying gradients to the pose and
-    FFD entries of the blob.  Only the argmax class
-    (`force_no_sample=True`) is ported.
+    the argmax class, one non-differentiable rasterization of the mode's
+    targets.
+    training=True: the training camera (`_zooms` from the ROI), the class
+    drawn from `_class_probs` with `generator` (REINFORCE; the argmax with
+    `force_no_sample`), `_masks` differentiable silhouettes (the walk
+    window is 64 for render_size > 128, else exact) carrying gradients to
+    the pose and FFD entries of the blob, and, where the mode asks for
+    them, `_normals` and `_depth_maps` through render() (no loss reads
+    them).
     """
-    if training and not force_no_sample:
-        raise NotImplementedError(
-            "REINFORCE class sampling (training without force_no_sample) "
-            "is not ported yet: it comes with the training slice")
-    if training and mode & (TargetType.normal | TargetType.depth):
-        raise NotImplementedError(
-            "differentiable normal/depth renders are not ported yet: they "
-            "come with the training slice")
     pose = pose_from_blob(blob, image_size, render_size, training=training)
     class_probs = blob["_class_probs"]
     B = class_probs.shape[0]
-    cls, logp = select_class(class_probs)
+    cls, logp = select_class(class_probs, generator,
+                             sample=training and not force_no_sample)
     cls_l = cls.long()
 
     # Gather per-object mesh + FFD basis and deform (batched FFD).
@@ -284,10 +302,23 @@ def render_blob(
         # windowed silhouette gradient for large renders: the exact out-walk
         # spans the whole image; contributions decay as 1/dist
         gw = 0 if render_size <= 128 else 64
+        adj = bank.adjacency[cls_l]
         out["_masks"] = render(verts_cam, faces, RenderType.Silhouette,
                                face_valid, image_size=render_size,
                                viewing_angle=viewing_angle, grad_walk=gw,
-                               vertex_adjacency=bank.adjacency[cls_l])
+                               vertex_adjacency=adj)
+        # (JAX gathers these two renders' faces without the adjacency; the
+        # sums of the gather's backward then run in another order)
+        if mode & TargetType.normal:
+            out["_normals"] = render(verts_cam, faces, RenderType.Normal,
+                                     face_valid, image_size=render_size,
+                                     viewing_angle=viewing_angle,
+                                     vertex_adjacency=adj)
+        if mode & TargetType.depth:
+            out["_depth_maps"] = render(verts_cam, faces, RenderType.Depth,
+                                        face_valid, image_size=render_size,
+                                        viewing_angle=viewing_angle,
+                                        vertex_adjacency=adj)
         return out
 
     targets = ["silhouette"]
@@ -304,3 +335,49 @@ def render_blob(
     if "depth" in maps:
         out["_depth_maps"] = maps["depth"]
     return out
+
+
+def roi_features(roi_norms: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mroi, droi) of roi_norms [B, 4] (__init__.py:70-77): the ROI's
+    centre ((r2 + r0)/2, (r3 + r1)/2) and size (r2 - r0, r3 - r1)."""
+    mroi = torch.stack([roi_norms[:, 2] + roi_norms[:, 0],
+                        roi_norms[:, 3] + roi_norms[:, 1]], dim=1) / 2.0
+    droi = torch.stack([roi_norms[:, 2] - roi_norms[:, 0],
+                        roi_norms[:, 3] - roi_norms[:, 1]], dim=1)
+    return mroi, droi
+
+
+def derender_forward(
+    model: Derenderer,
+    images: torch.Tensor,
+    roi_norms: torch.Tensor,
+    focals: torch.Tensor,
+    bank: Optional[DeviceMeshBank],
+    mode: int,
+    image_size: int = 256,
+    render_size: int = 384,
+    training: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> Dict[str, torch.Tensor]:
+    """Full Derenderer3d.forward (__init__.py:67-92): ROI features, the
+    encoder, and the reprojection when the mode has it.  training=True
+    puts the model in train mode, so its BatchNorm layers normalise with
+    the batch statistics and update their running statistics (flax's
+    rule, models/layers.BatchNorm2d); training=False puts it in eval
+    mode."""
+    mroi, droi = roi_features(roi_norms)
+    blob = {
+        "_roi_norms": roi_norms,
+        "_mroi_norms": mroi,
+        "_droi_norms": droi,
+        "_focals": focals,
+    }
+    model.train(training)
+    blob.update(model(images, mroi, droi))
+    if mode & TargetType.reproject:
+        if bank is None:
+            raise ValueError("the reprojection needs a mesh bank")
+        blob.update(render_blob(blob, bank, mode, image_size, render_size,
+                                training=training, generator=generator))
+    return blob

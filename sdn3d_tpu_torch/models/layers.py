@@ -94,10 +94,36 @@ class ConvTranspose(nn.ConvTranspose2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm in float32 whatever its input's dtype."""
+    """BatchNorm in at least float32 whatever its input's dtype (flax's
+    force_float32_reductions: a bfloat16 input is cast up, a float64
+    one stays).
+
+    In eval mode it is torch's batch_norm over the running statistics.  In
+    train mode it computes as flax's nn.BatchNorm (use_fast_variance,
+    flax/linen/normalization.py `_compute_stats`, `_normalize`): the
+    batch variance as E[x^2] - E[x]^2 clipped at 0, in at least float32;
+    the output (x - mean) * (rsqrt(var + eps) * weight) + bias; and the
+    running statistics move by flax's momentum (1 - torch's) towards the
+    batch mean and the *biased* variance (torch's own rule takes the
+    unbiased one, n/(n-1) larger)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float())
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        if self.track_running_stats:
+            keep = 1.0 - self.momentum           # flax's momentum
+            with torch.no_grad():
+                self.running_mean.copy_(keep * self.running_mean
+                                        + (1.0 - keep) * mean)
+                self.running_var.copy_(keep * self.running_var
+                                       + (1.0 - keep) * var)
+                self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
 
 
 def set_compute_dtype(module: nn.Module,

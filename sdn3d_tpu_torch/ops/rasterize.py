@@ -4,9 +4,12 @@ versions, and the differentiable silhouette built on the kernels.
 Counterpart of sdn3d_tpu/ops/rasterize.py: the forward half
 (`rasterize_face_maps(impl="xla")`, `_rasterize_sorted`'s non-TPU branch,
 `_gather_face_colors`), itself NR-2 "safe" per-pixel semantics of
-geometric/neural_renderer/rasterize.py:238-360; and the NR-4 silhouette
+geometric/neural_renderer/rasterize.py:238-360; the NR-4 silhouette
 VJP (`_edge_invariants`, `_silhouette_grad_pixelwise`,
-`_reduce_pixel_grads`, `_make_silhouette_fn`, `rasterize_silhouettes`).
+`_reduce_pixel_grads`, `_make_silhouette_fn`, `rasterize_silhouettes`);
+and the depth and flat-colour renders of `render()` (`_depth_grad`,
+`_make_depth_fn`, `rasterize_depth`, `rasterize_face_colors`), whose
+per-face sums are order-fixed (`segment_sum_sorted`).
 
 Conventions (identical to the reference):
   faces [B, F, 3, 3] with screen x, y in [-1, 1] and z in camera units;
@@ -173,13 +176,54 @@ def rasterize_face_maps(
 rasterize_face_maps.calls = 0
 
 
+def segment_sum_sorted(values: torch.Tensor, seg: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """Per-segment sums of the rows of values [N, C] (segment ids seg [N],
+    in [0, num_segments)) -> [num_segments, C], each segment's rows added
+    one after another in their order in `values`: a stable sort by
+    segment, then one sequential reduction per segment.  XLA's
+    segment_sum adds in that order on the CPU; on the card index_add_ and
+    scatter_add_ add with float atomics, whose order (and last bits)
+    change from run to run."""
+    order = torch.sort(seg, stable=True).indices
+    lengths = torch.bincount(seg, minlength=num_segments)
+    return torch.segment_reduce(values[order], "sum", lengths=lengths,
+                                axis=0, unsafe=True)
+
+
+class _FaceRowGather(torch.autograd.Function):
+    """rows[b, n] = table[b, index[b, n]] for table [B, F, C] and index
+    [B, N] (torch.gather along the face axis); the backward sums each
+    face's rows with `segment_sum_sorted`, so it gives the same bits on
+    every run on the card (torch.gather's backward is a scatter_add)."""
+
+    @staticmethod
+    def forward(ctx, table, index):
+        ctx.save_for_backward(index)
+        ctx.num_faces = table.shape[1]
+        B, N = index.shape
+        C = table.shape[2]
+        return torch.gather(table, 1, index[..., None].expand(B, N, C))
+
+    @staticmethod
+    def backward(ctx, g):
+        (index,) = ctx.saved_tensors
+        B, N, C = g.shape
+        F = ctx.num_faces
+        seg = index + torch.arange(B, device=index.device)[:, None] * F
+        sums = segment_sum_sorted(g.reshape(B * N, C), seg.reshape(-1),
+                                  B * F)
+        return sums.reshape(B, F, C), None
+
+
 def _gather_face_colors(fi: torch.Tensor, colors: torch.Tensor) -> torch.Tensor:
-    """Portable colors[face_index] gather -> [B, H, W, 3]; background 0."""
+    """Portable colors[face_index] gather -> [B, H, W, 3]; background 0.
+    Differentiable in `colors` (order-fixed backward, `_FaceRowGather`)."""
     B, H, W = fi.shape
     hit = fi >= 0
     fi_c = torch.where(hit, fi, torch.zeros_like(fi)).long()
-    idx = fi_c.reshape(B, H * W, 1).expand(B, H * W, 3)
-    rgb = torch.gather(colors, 1, idx).reshape(B, H, W, 3)
+    rgb = _FaceRowGather.apply(colors, fi_c.reshape(B, H * W))
+    rgb = rgb.reshape(B, H, W, colors.shape[2])
     return torch.where(hit[..., None], rgb, torch.zeros_like(rgb))
 
 
@@ -562,3 +606,136 @@ def rasterize_silhouettes(
     if anti_aliasing:
         alpha = _avg_pool2(alpha)
     return alpha
+
+
+# ---------------------------------------------------------------------------
+# NR-6: analytic depth gradient, and the depth and flat-colour renders
+# ---------------------------------------------------------------------------
+
+def pixel_attributes(faces: torch.Tensor, face_index: torch.Tensor,
+                     pixels: torch.Tensor, image_size: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Barycentric weights and inverse matrices of the given hit pixels,
+    recomputed from the face index as JAX's recompute_pixel_attributes
+    (rasterize_pallas.py:766-797) does, with the forward's operations.
+
+    faces [B, F, 3, 3]; face_index [B, S, S]; pixels [N] flat indices
+    b * S * S + y * S + x of hit pixels.  Returns (face verts [N, 3, 3],
+    weight [N, 3], face_inv [N, 3, 3])."""
+    B, F = faces.shape[:2]
+    S = image_size
+    P = S * S
+    b, p = pixels // P, pixels % P
+    fv = faces.reshape(B * F, 3, 3)[b * F + face_index.reshape(-1)[pixels]]
+    inv, _ = _face_inv(fv, S)
+    xi, yi = (p % S).to(fv.dtype), (p // S).to(fv.dtype)
+    w = inv[..., 0] * xi[:, None] + inv[..., 1] * yi[:, None] + inv[..., 2]
+    w = torch.clamp(w, 0.0, 1.0)
+    w_sum = torch.clamp_min(w[:, 0] + w[:, 1] + w[:, 2], 1e-12)
+    return fv, w / w_sum[:, None], inv
+
+
+def _depth_grad(faces: torch.Tensor, face_index: torch.Tensor,
+                depth: torch.Tensor, grad_depth: torch.Tensor,
+                image_size: int) -> torch.Tensor:
+    """Analytic depth gradient (reference rasterize.py:791-844; JAX
+    `_depth_grad`, rasterize.py:722-766) over the hit pixels, summed per
+    face with `segment_sum_sorted` (JAX: segment_sum).
+
+    faces [B, F, 3, 3]; face_index, depth, grad_depth [B, S, S].
+    Returns grad_faces [B, F, 3, 3]."""
+    B, F = faces.shape[:2]
+    pix = torch.nonzero((face_index >= 0).reshape(-1)).squeeze(1)
+    fv, w, inv = pixel_attributes(faces, face_index, pix, image_size)
+    d = depth.reshape(-1)[pix]
+    gd = grad_depth.reshape(-1)[pix]
+    z = fv[..., 2]                                           # [N, 3]
+    d2 = d * d
+    # dz/dz_k = w_k * depth^2 / z_k^2
+    gz = gd[:, None] * w * d2[:, None] / (z * z)
+    # dz/d(x,y)_k = -grad * tmp_l * w_k * depth^2 * is/2,
+    # tmp_l = -sum_m inv[m, l] / z_m
+    rz = 1.0 / z
+    tmp = -(inv[:, 0] * rz[:, 0:1] + inv[:, 1] * rz[:, 1:2]
+            + inv[:, 2] * rz[:, 2:3])                        # [N, 3]
+    gxy = (-gd[:, None, None] * tmp[:, None, :2] * w[..., None]
+           * d2[:, None, None] * (image_size / 2.0))         # [N, 3, 2]
+    g = torch.cat([gxy, gz[..., None]], dim=-1)              # [N, 3, 3]
+    seg = (pix // (image_size * image_size)) * F \
+        + face_index.reshape(-1)[pix].long()
+    return segment_sum_sorted(g.reshape(-1, 9), seg, B * F
+                              ).reshape(B, F, 3, 3)
+
+
+class DepthFn(torch.autograd.Function):
+    """Differentiable depth map (JAX `_make_depth_fn`, rasterize.py:
+    870-889): the forward is the rasterizer (kernel on the card), the
+    backward `_depth_grad` on the saved face index and depth."""
+
+    @staticmethod
+    def forward(ctx, faces, face_valid, image_size, near, far):
+        from sdn3d_tpu_torch.ops.rasterize_cuda import rasterize_face_index
+        fi, depth = rasterize_face_index(faces.detach(), face_valid,
+                                         image_size, near, far)
+        ctx.save_for_backward(faces, fi, depth)
+        ctx.image_size = image_size
+        return depth
+
+    @staticmethod
+    def backward(ctx, g):
+        faces, fi, depth = ctx.saved_tensors
+        gf = _depth_grad(faces.detach().float(), fi, depth.detach(),
+                         g.float(), ctx.image_size)
+        return gf.to(faces.dtype), None, None, None, None
+
+
+def rasterize_depth(
+    faces: torch.Tensor,
+    face_valid: Optional[torch.Tensor] = None,
+    image_size: int = DEFAULT_IMAGE_SIZE,
+    anti_aliasing: bool = DEFAULT_ANTI_ALIASING,
+    near: float = DEFAULT_NEAR,
+    far: float = DEFAULT_FAR,
+) -> torch.Tensor:
+    """Depth maps [B, H, W]; background = far (reference
+    rasterize.py:1034-1057); differentiable in `faces`."""
+    size = image_size * 2 if anti_aliasing else image_size
+    if face_valid is None:
+        face_valid = torch.ones(faces.shape[:2], dtype=torch.bool,
+                                device=faces.device)
+    d = DepthFn.apply(faces, face_valid, size, near, far)
+    d = _flip_rows(d, 1)
+    if anti_aliasing:
+        d = _avg_pool2(d)
+    return d
+
+
+def rasterize_face_colors(
+    faces: torch.Tensor,
+    colors: torch.Tensor,
+    face_valid: Optional[torch.Tensor] = None,
+    image_size: int = DEFAULT_IMAGE_SIZE,
+    anti_aliasing: bool = DEFAULT_ANTI_ALIASING,
+    near: float = DEFAULT_NEAR,
+    far: float = DEFAULT_FAR,
+    background: Tuple[float, float, float] = (0.0, 0.0, 0.0),
+) -> torch.Tensor:
+    """Flat-shaded RGB render [B, 3, H, W] from per-face colors [B, F, 3]
+    (JAX rasterize.py:1006-1043, the reference's constant texture-cube
+    path for normal maps).  Differentiable in `colors` (the gather's
+    backward is order-fixed); the geometry is not differentiated."""
+    from sdn3d_tpu_torch.ops.rasterize_cuda import rasterize_face_index
+
+    size = image_size * 2 if anti_aliasing else image_size
+    if face_valid is None:
+        face_valid = torch.ones(faces.shape[:2], dtype=torch.bool,
+                                device=faces.device)
+    fi, _ = rasterize_face_index(faces.detach(), face_valid, size, near, far)
+    bg = torch.tensor(background, dtype=colors.dtype, device=colors.device)
+    rgb = torch.where((fi >= 0)[..., None], _gather_face_colors(fi, colors),
+                      bg)
+    rgb = rgb.permute(0, 3, 1, 2)                            # [B, 3, H, W]
+    rgb = _flip_rows(rgb, 2)
+    if anti_aliasing:
+        rgb = _avg_pool2(rgb)
+    return rgb

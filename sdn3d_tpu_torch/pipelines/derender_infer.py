@@ -25,7 +25,7 @@ import torch
 
 from sdn3d_tpu_torch.data import vkitti as VK
 from sdn3d_tpu_torch.models.derenderer import (
-    Derenderer, DeviceMeshBank, TargetType, render_blob)
+    Derenderer, DeviceMeshBank, TargetType, render_blob, roi_features)
 from sdn3d_tpu_torch.ops import pil_resize
 from sdn3d_tpu_torch.pipelines import edit as edit_mod
 from sdn3d_tpu_torch.utils import phases
@@ -129,10 +129,7 @@ def encode_objects(model: Derenderer, objs: Dict[str, np.ndarray],
     images = _norm_table(dev)[rgbs_dev.long()]             # [M, H, W, 3]
     roi_norms = to_device(objs["roi_norms"], dev)
     focals = to_device(objs["focals"], dev)
-    mroi = torch.stack([roi_norms[:, 2] + roi_norms[:, 0],
-                        roi_norms[:, 3] + roi_norms[:, 1]], dim=1) / 2.0
-    droi = torch.stack([roi_norms[:, 2] - roi_norms[:, 0],
-                        roi_norms[:, 3] - roi_norms[:, 1]], dim=1)
+    mroi, droi = roi_features(roi_norms)
     blob = {"_roi_norms": roi_norms, "_mroi_norms": mroi,
             "_droi_norms": droi, "_focals": focals}
     with torch.no_grad():
@@ -198,11 +195,15 @@ _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8    # optax.adam defaults
 
 
 def adam_step(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
-              nu: torch.Tensor, count: int, lr: float):
+              nu: torch.Tensor, count: int, lr: float,
+              weight_decay: float = 0.0):
     """One step of optax.adam(lr) (scale_by_adam, then scale by -lr, then
-    apply_updates), in optax's arithmetic order.  count is the step
-    number, from 1.  Returns (p, mu, nu)."""
+    apply_updates), in optax's arithmetic order; with `weight_decay`,
+    optax.add_decayed_weights first (g + weight_decay * p).  count is the
+    step number, from 1.  Returns (p, mu, nu)."""
     b1, b2 = _ADAM_B1, _ADAM_B2
+    if weight_decay:
+        g = g + weight_decay * p
     mu = (1 - b1) * g + b1 * mu
     nu = (1 - b2) * (g * g) + b2 * nu
     mu_hat = mu / torch.full((), _bias_correction(b1, count), device=mu.device)

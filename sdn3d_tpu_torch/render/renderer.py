@@ -2,8 +2,9 @@
 
 PyTorch counterpart of sdn3d_tpu/render/renderer.py: `render_targets`
 (the inference path, one rasterization for silhouette, normal and depth)
-and the differentiable `render()` for the Silhouette type.  `render()` of
-the Depth, Normal and RGB types waits for a later slice.
+and the differentiable `render()` for the Silhouette, Depth and Normal
+types.  `render()` of the RGB type (texture sampling and lighting,
+ops/textures.py) waits for ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -41,43 +42,63 @@ def render(
     grad_walk: int = 0,
     vertex_adjacency: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Render [B, V, 3] vertices + [B, F, 3] int faces to silhouettes
-    [B, 1, H, W], differentiable in `vertices` (JAX renderer.py:39-144).
+    """Render [B, V, 3] vertices + [B, F, 3] int faces to 2.5D maps,
+    differentiable in `vertices` (JAX renderer.py:39-144): [B, 1, H, W]
+    for Silhouette and Depth, [B, 3, H, W] for Normal.
 
     The camera is the fixed derender3d camera (eye at the origin, looking
     along -z, up +y, renderer.py:226-229) after the reference's x-flip fix
     (renderer.py:241-243); `viewing_angle` may be per-batch [B].  fill_back
     is the winding fold: a face that is back-facing is rasterized with
-    its winding reversed.  `vertex_adjacency` [B, V, D] routes the face
-    gather's backward through the mesh's adjacency (deterministic)."""
-    if render_type != RenderType.Silhouette:
+    its winding reversed (and, for Normal, its normal negated).  Normal
+    colours each face by its normal from the pre-camera vertices (NMR
+    texture-cube convention, renderer.py:60-77) and negates x at the end
+    (renderer.py:268-271).  `vertex_adjacency` [B, V, D] routes the face
+    gathers' backward through the mesh's adjacency (deterministic)."""
+    if render_type not in (RenderType.Silhouette, RenderType.Depth,
+                           RenderType.Normal):
         raise NotImplementedError(
             f"render() of type {RenderType(render_type).name} is not ported "
-            "yet (the port's render() covers Silhouette; Depth, Normal and "
-            "RGB come with the training slice)")
+            "yet: texture sampling and lighting (ops/textures.py) are "
+            "ROADMAP A9")
     dt = vertices.dtype
     dev = vertices.device
+
+    def gather(v):
+        if vertex_adjacency is not None:
+            return camera.vertices_to_faces_adj(v, faces, vertex_adjacency)
+        return camera.vertices_to_faces(v, faces)
+
     # x-flip fix (renderer.py:241-243)
     vertices = vertices * constant((-1.0, 1.0, 1.0), dt, dev)
+    if render_type == RenderType.Normal:
+        colors = camera.face_normals(gather(vertices))           # [B, F, 3]
     B = vertices.shape[0]
     eye = torch.zeros((B, 3), dtype=dt, device=dev)
     direction = constant((0.0, 0.0, -1.0), dt, dev).expand(B, 3)
     up = constant((0.0, 1.0, 0.0), dt, dev).expand(B, 3)
     vertices = camera.look(vertices, eye, direction, up)
     vertices = camera.perspective_divide(vertices, viewing_angle)
-    if vertex_adjacency is not None:
-        face_verts = camera.vertices_to_faces_adj(vertices, faces,
-                                                  vertex_adjacency)
-    else:
-        face_verts = camera.vertices_to_faces(vertices, faces)
+    face_verts = gather(vertices)
     if fill_back:
         ccw = R._frontface(face_verts)                          # [B, F]
         face_verts = torch.where(ccw[..., None, None], face_verts,
                                  face_verts.flip(2))
-    a = R.rasterize_silhouettes(face_verts, face_valid, image_size,
-                                anti_aliasing, near, far, eps,
-                                grad_walk=grad_walk)
-    return a[:, None]
+        if render_type == RenderType.Normal:
+            colors = torch.where(ccw[..., None], colors, -colors)
+    if render_type == RenderType.Silhouette:
+        a = R.rasterize_silhouettes(face_verts, face_valid, image_size,
+                                    anti_aliasing, near, far, eps,
+                                    grad_walk=grad_walk)
+        return a[:, None]
+    if render_type == RenderType.Depth:
+        d = R.rasterize_depth(face_verts, face_valid, image_size,
+                              anti_aliasing, near, far)
+        return d[:, None]
+    rgb = R.rasterize_face_colors(face_verts, colors, face_valid, image_size,
+                                  anti_aliasing, near, far)
+    return rgb * constant((-1.0, 1.0, 1.0), rgb.dtype,
+                          dev)[None, :, None, None]
 
 
 def project_faces(vertices: torch.Tensor, faces: torch.Tensor,

@@ -4,7 +4,8 @@ The exact inverses of sdn3d_tpu/utils/port.py's port_derenderer,
 port_semantic, port_global_generator, port_encoder, port_lpips and
 port_maskrcnn, so
 weights trained or ported on the JAX side load one to one into the port's
-models:
+models, and a derenderer train state (weights, running statistics, Adam's
+moments and count) carries across to the port's trainer:
 
   conv        [kh, kw, I, O] -> [O, I, kh, kw]
   conv_transpose [kh, kw, O, I] (transpose_kernel) -> [I, O, kh, kw]
@@ -87,6 +88,35 @@ def derenderer_state_dict_from_jax(variables: Mapping,
     _linear(sd, "fc2", P["fc2"])
     _linear(sd, "_fc3", P["fc3"])
     return sd
+
+
+def derender_train_state_from_jax(state, stage_sizes=(2, 2, 2, 2)
+                                  ) -> Dict[str, object]:
+    """A JAX pipelines/derender.TrainState (its arrays as numpy) -> the
+    fields of the port trainer's state (pipelines/derender.TrainState.
+    from_fields, a core/checkpoint train-state step): "derenderer" (the
+    state_dict, running statistics included, through
+    derenderer_state_dict_from_jax), "opt_state" {"count", "mu", "nu"}
+    (Adam's count and moments, the moments by parameter name through the
+    same key map) and "step".  The JAX optimizer state is optax's chain
+    (add_decayed_weights, scale_by_adam, scale_by_learning_rate); the
+    schedule's count equals Adam's in a trainer's state."""
+    sd = derenderer_state_dict_from_jax(
+        {"params": state.params, "batch_stats": state.batch_stats},
+        stage_sizes)
+    adam = next(s for s in state.opt_state if hasattr(s, "mu"))
+    moments = {}
+    for k in ("mu", "nu"):
+        full = derenderer_state_dict_from_jax(
+            {"params": getattr(adam, k), "batch_stats": state.batch_stats},
+            stage_sizes)
+        moments[k] = {n: full[n] for n in sd
+                      if not n.endswith(("running_mean", "running_var",
+                                         "num_batches_tracked"))}
+    return {"derenderer": sd,
+            "opt_state": {"count": torch.tensor(int(np.asarray(adam.count))),
+                          **moments},
+            "step": torch.tensor(int(np.asarray(state.step)))}
 
 
 def semantic_state_dicts_from_jax(variables: Mapping,

@@ -574,3 +574,112 @@ def test_geometric_main_dataset_mode_launches_the_forward_once_an_item(
         for suffix in (".png", "-normal.png", "-depth.png", ".json", ".pkl"):
             assert os.path.exists(os.path.join(out, name + suffix))
     assert not os.path.exists(os.path.join(out, "0002_fog_00010.png"))
+
+
+def _train_setup(dev, mode="full"):
+    """The derenderer trainer on the card at small shapes (batch 4,
+    image = render = 64, eight make_sphere_mesh(8, 16) classes), its
+    initial state_dict and a synthetic batch with the CLI's masks."""
+    from sdn3d_tpu_torch.data.synthetic import (centred_square_masks,
+                                                make_derender_batch,
+                                                make_sphere_mesh)
+    from sdn3d_tpu_torch.geometry.assets import build_mesh_bank
+    from sdn3d_tpu_torch.models.derenderer import (Derenderer,
+                                                   DeviceMeshBank, TargetType)
+    from sdn3d_tpu_torch.pipelines.derender import DerenderTrainer
+
+    torch.manual_seed(0)
+    model = Derenderer(num_classes=8).to(dev)
+    bank = DeviceMeshBank.from_host(
+        build_mesh_bank([make_sphere_mesh(8, 16)] * 8), device=dev)
+    trainer = DerenderTrainer(model=model, bank=bank,
+                              mode=TargetType.BY_NAME[mode], image_size=64,
+                              render_size=64)
+    b = make_derender_batch(4, 64, seed=1)
+    b.update(centred_square_masks(4, 64))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    return trainer, {k: v.clone() for k, v in model.state_dict().items()}, \
+        batch
+
+
+def _one_step(trainer, sd0, batch, dev, seed=1):
+    trainer.model.load_state_dict(sd0)
+    state = trainer.init()
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    state, losses = trainer.train_step(state, batch, g)
+    torch.cuda.synchronize()
+    return ({k: v.clone() for k, v in state.model.state_dict().items()},
+            state.mu.clone(), state.nu.clone(), losses)
+
+
+@pytest.mark.cuda
+def test_train_step_same_bits_every_run(cuda):
+    """One full-mode train step (cuDNN's deterministic algorithms, TF32
+    off) from the same state, batch and draws, twice: the losses, the new
+    weights and running statistics and Adam's moments are the same bits
+    (the convolution backward's atomics would move them otherwise).  The
+    step runs with the deterministic algorithms and restores the cuDNN
+    flags it found."""
+    trainer, sd0, batch = _train_setup(cuda)
+    found = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    inside = []
+    hook = trainer.model.register_forward_hook(
+        lambda *_: inside.append((torch.backends.cudnn.deterministic,
+                                  torch.backends.cudnn.benchmark,
+                                  torch.backends.cudnn.allow_tf32)))
+    a, b = (_one_step(trainer, sd0, batch, cuda) for _ in range(2))
+    hook.remove()
+    assert inside == [(True, False, False)] * 2
+    assert (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark) == found
+    for k in a[0]:
+        assert torch.equal(a[0][k], b[0][k]), k
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+    for k in a[3]:
+        assert torch.isfinite(a[3][k]) and torch.equal(a[3][k], b[3][k]), k
+
+
+@pytest.mark.cuda
+def test_train_step_launches_each_kernel_once(cuda):
+    """A full-mode train step on the card launches the forward (B1), the
+    walk (B3) and the reduction (B2) once each, and runs no plain version
+    and builds no invariant stack; a pretrain step launches none."""
+    plain = (TR.rasterize_face_maps, TR.walk_grads_plain,
+             TR.segment_face_grads_plain, TR.edge_invariant_stack,
+             TR.face_pixel_coords)
+    kernels = (TC.rasterize_face_index_cuda, TC.walk_grads_cuda,
+               TC.segment_face_grads_cuda)
+    for mode, want in (("full", 1), ("pretrain", 0)):
+        trainer, sd0, batch = _train_setup(cuda, mode)
+        before = ([k.launches for k in kernels], [p.calls for p in plain])
+        _one_step(trainer, sd0, batch, cuda)
+        assert [k.launches - n for k, n in zip(kernels, before[0])] == \
+            [want] * 3, mode
+        assert [p.calls for p in plain] == before[1], mode
+
+
+@pytest.mark.cuda
+def test_depth_vjp_same_bits_every_run(cuda):
+    """The depth VJP on the card (ops/rasterize.DepthFn: the forward
+    kernel, then `_depth_grad` summed per face by segment_sum_sorted, no
+    atomics): two backward runs give the same bits, and the CPU's within
+    1e-5 of the largest face gradient."""
+    rng = np.random.RandomState(4)
+    faces = np.concatenate([rng.uniform(-1.2, 1.2, (2, 300, 3, 2)),
+                            rng.uniform(1.5, 6.0, (2, 300, 3, 1))],
+                           -1).astype(np.float32)
+    valid = np.ones((2, 300), bool)
+    cot = rng.randn(2, 128, 128).astype(np.float32)
+    grads = []
+    for dev in (cuda, cuda, torch.device("cpu")):
+        f = torch.from_numpy(faces).to(dev).requires_grad_(True)
+        d = TR.DepthFn.apply(f, torch.from_numpy(valid).to(dev), 128, 0.1,
+                             100.0)
+        (g,) = torch.autograd.grad(d, f, torch.from_numpy(cot).to(dev))
+        grads.append(g.cpu())
+    assert torch.equal(grads[0], grads[1])
+    assert grads[2].abs().max() > 0
+    torch.testing.assert_close(grads[0], grads[2], rtol=0,
+                               atol=1e-5 * float(grads[2].abs().max()))

@@ -128,7 +128,9 @@ def test_render_blob_training_gradients_match_jax(setup):
     away can move a walk gate, whose term reaches diff/eps: measured, one
     slot's theta gradient moves by 1.4% of the largest entry, every other
     entry by <= 0.1%.  From equal vertices the walk agrees bit for bit
-    (tests/test_torch_silhouette_grad.py)."""
+    (tests/test_torch_silhouette_grad.py).  Sampled training renders
+    (REINFORCE draws, and the normal and depth maps of the extend mode)
+    run from the same blob."""
     blob, masks, _ = _jax_start(setup)
     (_, _, jb, _), (_, tb, _) = setup
     blob = {k: v[:2] for k, v in blob.items()}
@@ -162,9 +164,16 @@ def test_render_blob_training_gradients_match_jax(setup):
         cos = (g.numpy() * want).sum() / np.linalg.norm(g.numpy()) \
             / np.linalg.norm(want)
         assert cos >= 0.999, (k, cos)
-    with pytest.raises(NotImplementedError):
-        TD.render_blob(bt, tb, TD.TargetType.reproject, 64, 64,
-                       training=True)
+    # sampled training renders (REINFORCE draws; normal and depth under
+    # the extend mode) run from the same blob
+    out = TD.render_blob(bt, tb, TD.TargetType.extend, 64, 64,
+                         training=True,
+                         generator=torch.Generator().manual_seed(0))
+    assert out["_masks"].shape == (2, 1, 64, 64)
+    assert out["_normals"].shape == (2, 3, 64, 64)
+    assert out["_depth_maps"].shape == (2, 1, 64, 64)
+    assert ((out["_class_samples"] >= 0) & (out["_class_samples"] < 2)).all()
+    assert torch.isfinite(out["_class_log_probs"]).all()
 
 
 def test_refine_one_step_matches_jax(setup):

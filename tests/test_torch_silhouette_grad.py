@@ -1,6 +1,7 @@
 """The port's silhouette gradient (sdn3d_tpu_torch/ops/rasterize.py
-backward, geometry/camera.vertices_to_faces_adj, render/renderer.render)
-against the JAX package's on the same seeded inputs, on the CPU.  The
+backward, geometry/camera.vertices_to_faces_adj, render/renderer.render),
+and render()'s depth and normal maps with their gradients, against the
+JAX package's on the same seeded inputs, on the CPU.  The
 CUDA kernels' plain versions are what runs here; tests/test_torch_cuda.py
 holds the kernels against them on the card."""
 
@@ -346,10 +347,116 @@ def test_render_silhouette_and_grad_match_jax(grad_walk, aa):
 
 
 def test_render_other_types_not_ported():
+    """render() of the RGB type (texture sampling and lighting) is ROADMAP
+    A9's and raises naming it."""
     verts, faces, _, _ = _mesh_batch()
-    for t in (RenderType.Depth, RenderType.Normal, RenderType.RGB):
-        with pytest.raises(NotImplementedError):
-            render(torch.from_numpy(verts), torch.from_numpy(faces), t)
+    with pytest.raises(NotImplementedError, match="A9"):
+        render(torch.from_numpy(verts), torch.from_numpy(faces),
+               RenderType.RGB)
+
+
+@pytest.mark.parametrize("render_type,aa", [
+    (RenderType.Depth, True), (RenderType.Depth, False),
+    (RenderType.Normal, True), (RenderType.Normal, False)])
+def test_render_depth_normal_and_grad_match_jax(render_type, aa):
+    """render(..., Depth / Normal) and its gradient in the vertices against
+    JAX's render at 32^2 with per-image viewing angles, with and without
+    the adjacency gather.  Normal maps equal (the face index is equal and
+    the colours are the normals of the same vertices); depth within 4e-6
+    (measured 3.8e-6 with a background of 100: XLA's CPU code contracts
+    the barycentric sums into FMAs and inverts by reciprocal, one ulp of
+    the depth); vertex gradients within 2e-6 of their largest value
+    (measured 1.6e-6)."""
+    verts, faces, valid, adj = _mesh_batch(seed=1)
+    ang = np.asarray([27.0, 31.0], np.float32)
+    ch = 3 if render_type == RenderType.Normal else 1
+    cot = np.random.RandomState(2).randn(2, ch, 32, 32).astype(np.float32)
+    kw = dict(image_size=32, anti_aliasing=aa)
+
+    def j_fn(v):
+        return j_render(v, jnp.asarray(faces), JRenderType(int(render_type)),
+                        jnp.asarray(valid), viewing_angle=jnp.asarray(ang),
+                        **kw)
+
+    m_j, vjp = jax.vjp(j_fn, jnp.asarray(verts))
+    (g_j,) = vjp(jnp.asarray(cot))
+    m_j, g_j = np.asarray(m_j), np.asarray(g_j)
+    assert np.abs(g_j).max() > 0
+    for a in (None, torch.from_numpy(adj)):
+        vt = torch.from_numpy(verts).requires_grad_(True)
+        m_t = render(vt, torch.from_numpy(faces), render_type,
+                     torch.from_numpy(valid),
+                     viewing_angle=torch.from_numpy(ang),
+                     vertex_adjacency=a, **kw)
+        (g_t,) = torch.autograd.grad(m_t, vt, torch.from_numpy(cot))
+        assert m_t.shape == (2, ch, 32, 32)
+        if render_type == RenderType.Normal:
+            np.testing.assert_array_equal(m_t.detach().numpy(), m_j)
+            assert np.abs(m_j).max() > 0.5
+        else:
+            np.testing.assert_allclose(m_t.detach().numpy(), m_j, rtol=0,
+                                       atol=4e-6)
+            assert (m_j < 100).mean() > 0.05
+        np.testing.assert_allclose(g_t.numpy(), g_j, rtol=0,
+                                   atol=2e-6 * np.abs(g_j).max())
+
+
+def test_depth_vjp_face_grads_match_jax():
+    """The depth VJP's face gradients (ops/rasterize.DepthFn:
+    `_depth_grad` over the recomputed pixel attributes, summed per face in
+    pixel order) against JAX's `_make_depth_fn` on 2 x 23 random faces at
+    40^2: the depth within 1e-6, face gradients within 2e-7 of their
+    largest value (measured 1.5e-7)."""
+    rng = np.random.RandomState(0)
+    faces = np.concatenate([rng.uniform(-1.2, 1.2, (2, 23, 3, 2)),
+                            rng.uniform(1.5, 6.0, (2, 23, 3, 1))],
+                           -1).astype(np.float32)
+    valid = np.ones((2, 23), bool)
+    valid[1, 4] = False
+    cot = rng.randn(2, 40, 40).astype(np.float32)
+    d_j, vjp = jax.vjp(lambda f: JR._make_depth_fn(40, 0.1, 100.0)(
+        f, jnp.asarray(valid)), jnp.asarray(faces))
+    (g_j,) = vjp(jnp.asarray(cot))
+    g_j = np.asarray(g_j)
+    ft = torch.from_numpy(faces).requires_grad_(True)
+    d_t = TR.DepthFn.apply(ft, torch.from_numpy(valid), 40, 0.1, 100.0)
+    (g_t,) = torch.autograd.grad(d_t, ft, torch.from_numpy(cot))
+    np.testing.assert_allclose(d_t.detach().numpy(), np.asarray(d_j),
+                               rtol=0, atol=1e-6)
+    assert np.abs(g_j).max() > 1 and not g_t[1, 4].any()
+    np.testing.assert_allclose(g_t.numpy(), g_j, rtol=0,
+                               atol=2e-7 * np.abs(g_j).max())
+
+
+def test_segment_sum_sorted_adds_in_row_order():
+    """segment_sum_sorted: each segment's rows added one after another in
+    their order (the same bits as a sequential float32 loop), empty
+    segments zero; and the colour gather's backward (_FaceRowGather) is
+    the per-face sum of the pixels' cotangents."""
+    rng = np.random.RandomState(1)
+    vals = (rng.randn(500, 3) * 10.0 ** rng.randint(-3, 4, (500, 1))
+            ).astype(np.float32)
+    seg = rng.randint(0, 40, 500)
+    seg[seg == 7] = 8
+    got = TR.segment_sum_sorted(torch.from_numpy(vals),
+                                torch.from_numpy(seg), 41).numpy()
+    want = np.zeros((41, 3), np.float32)
+    for v, s in zip(vals, seg):
+        want[s] += v
+    np.testing.assert_array_equal(got, want)
+    colors = torch.from_numpy(rng.randn(2, 6, 3).astype(np.float32)
+                              ).requires_grad_(True)
+    fi = torch.from_numpy(rng.randint(-1, 6, (2, 5, 5)).astype(np.int32))
+    rgb = TR._gather_face_colors(fi, colors)
+    cot = torch.from_numpy(rng.randn(2, 5, 5, 3).astype(np.float32))
+    (g,) = torch.autograd.grad(rgb, colors, cot)
+    want = np.zeros((2, 6, 3), np.float32)
+    for b in range(2):
+        for y in range(5):
+            for x in range(5):
+                if fi[b, y, x] >= 0:
+                    want[b, fi[b, y, x]] += cot[b, y, x].numpy()
+    np.testing.assert_allclose(g.numpy(), want, rtol=1e-6, atol=1e-6)
 
 
 def test_backward_wrappers_dispatch_cpu_to_plain():
