@@ -137,7 +137,22 @@ Phases, each of which must pass (any failure exits non-zero):
      top kernels in a step; --dataset vkitti through the prefetch loader
      on a root of LOADER_TOPICS x 5 topics (450 objects, one loader
      epoch): the fill, then steps/s and the wait for a batch over steps
-     after LOADER_WARM, and one item's decode against its whole cost.
+     after LOADER_WARM, and one item's decode against its whole cost;
+ 12. textural (pix2pixHD) training at TexturalConfig()'s full width (G ngf
+     64 with 9 residual blocks, the two-scale D, E, VGG19 to relu5_1) at
+     192x624, batch 1, random weights from --seed, no repo kernel on the
+     path: 12a. cli/textural_train.main --synthetic (the step written),
+     then TEX_DESCENT iterations on one batch (every loss finite, G_L1
+     falls); 12b. the iteration's gradients, card float32 against a
+     float64 CPU run (small configuration); 12c. two runs of an iteration
+     give the same bits; 12d. ms an iteration in float32 and bfloat16
+     (CUDA events), device busy, idle share, launches, top kernels, the
+     FLOPs (FlopCounterMode), float32 with cuDNN's deterministic
+     algorithms on and off in turns, then --use_global_encoder
+     --pool_size 4;
+     12e. (inside phase 10) the dataset mode (--split test) on 10b's
+     files, one item's host cost, and the trained step served by
+     textural_test and edit_benchmark.
 The line before last is the card's name and power limit, the line before
 that the kernels' JSON (launches: phase 11a's training run); the last line is {"ok": true, "device": {...}}.
 """
@@ -153,6 +168,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -1844,7 +1860,8 @@ def crop_times(image: np.ndarray, rois: np.ndarray, masks: np.ndarray,
         f"{int((diff > 0).sum())} of {diff.size} ({card})")
 
 
-def file_contract_phase(args, card: str, mark=lambda what: None) -> None:
+def file_contract_phase(args, card: str, mark=lambda what: None,
+                        textural: bool = False) -> None:
     """Phase 10: the reference's per-stage file contract at the chain's
     full widths (ChainConfig defaults), the weights from --seed written
     once as step directories (step_directories).  10a: semantic_test
@@ -1858,7 +1875,8 @@ def file_contract_phase(args, card: str, mark=lambda what: None) -> None:
     motgt tables: every frame written, a finite avg.  10c: geometric_main
     --input_image --edit_json --input_masks -> edit_vkitti (--edit_num 2):
     one launch an item, finite fakes, the gallery.  Also the native crops
-    against the numpy + PIL path in geo.prep."""
+    against the numpy + PIL path in geo.prep.  With `textural`, then 12e
+    (textural_files) on 10b's files and 10a's pairs."""
     import torch
     from PIL import Image
 
@@ -2043,6 +2061,13 @@ def file_contract_phase(args, card: str, mark=lambda what: None) -> None:
             f"-> edit_vkitti --edit_num 2: finite {shape} fakes, gallery "
             f"written, {ev_s:.3f} s ({card})")
         mark("10c. single frame, edit_vkitti")
+        if textural:
+            textural_files(args, card, tmp, root_b, out["segm_b"],
+                           out["geo_b"], names, [
+                               "--edit_json", edit_json, "--data_root", root,
+                               "--segm_dir", out["segm"], "--geo_dir",
+                               out["geo"]])
+            mark("12e. textural dataset mode, the trained step served")
 
 
 # 11a: the CLI's iterations at full width; 11b: descent steps on one batch;
@@ -2705,6 +2730,430 @@ def training_phase(args, card: str, frames, shapenet: str, tmp: str,
     return counts
 
 
+# phase 12: textural (pix2pixHD) training at TexturalConfig()'s full width,
+# 192 x 624, batch 1.  12a: TEX_DESCENT iterations on one fixed synthetic
+# batch, G_L1 over the last TEX_WINDOW against the first; 12d: ms an
+# iteration (CUDA events after TEX_WARM iterations, median of TEX_TIME),
+# TEX_GE_ITERS iterations with the global encoder and a pool of 4;
+# 12e: TEX_DATA_ITERS dataset-mode iterations
+TEX_SHAPES = {"fine_height": 192, "fine_width": 624}
+TEX_DESCENT = 30
+TEX_WINDOW = 6
+TEX_WARM = 3
+TEX_TIME = 10
+TEX_CLI_ITERS = 3
+TEX_GE_ITERS = 5
+TEX_DATA_ITERS = 4
+# 12b: the card against a float64 CPU run at the small configuration
+# (SMALL_NET_OVERRIDES, VGG on, TEX_SMALL_HW): the bounds of
+# tests/test_torch_textural_train.py (port against JAX on the CPU): the
+# losses relative; each parameter's gradient within TEX_GRAD_RTOL of the
+# larger of its own largest entry and TEX_GRAD_FLOOR times the largest
+# gradient of its optimizer (a bias an instance norm follows has a zero
+# gradient, rounding noise in both), cosine TEX_GRAD_COS above the floor
+TEX_SMALL_HW = (32, 48)
+# the card phase 12 trains on (a CPU rehearsal of the phase's control flow
+# sets "cpu", with the CLIs' defaults shrunk)
+TEX_DEVICE = "cuda"
+TEX_LOSS_RTOL = 1e-5
+TEX_GRAD_RTOL, TEX_GRAD_FLOOR, TEX_GRAD_COS = 1e-3, 1e-2, 0.99999
+
+
+def tex_args(ckpt_dir: str, seed: int, **kw):
+    """cli/textural_train's arguments at its defaults (full width)."""
+    from sdn3d_tpu_torch.cli.textural_train import build_argparser
+    argv = ["--ckpt_dir", ckpt_dir, "--seed", str(seed)]
+    for k, v in kw.items():
+        argv += [f"--{k}"] if v is True else [f"--{k}", str(v)]
+    return build_argparser().parse_args(argv)
+
+
+def tex_trainer(args):
+    """The CLI's trainer and state for `args` (cli/textural_train)."""
+    from sdn3d_tpu_torch.cli.textural_train import build_trainer, train_config
+    return build_trainer(args, train_config(args))
+
+
+def tex_batch(args, cfg, seed: int, dev):
+    """One synthetic batch of the CLI's, on the card once."""
+    from sdn3d_tpu_torch.cli.textural_train import synthetic_batch
+    from sdn3d_tpu_torch.utils.transfer import to_device
+    return {k: to_device(v, dev) for k, v in synthetic_batch(
+        args, np.random.RandomState(seed), cfg).items()}
+
+
+def clone_fields(x):
+    if isinstance(x, dict):
+        return {k: clone_fields(v) for k, v in x.items()}
+    return x.clone() if hasattr(x, "clone") else x
+
+
+def same_fields(a, b, path=""):
+    """The paths where two field trees differ in a bit."""
+    import torch
+    if isinstance(a, dict):
+        return [p for k in a for p in same_fields(a[k], b[k], f"{path}.{k}")]
+    return [] if torch.equal(a, b) else [path]
+
+
+def tex_iterations(trainer, state, batch, seed: int, n: int, pool=None,
+                   first: int = 0):
+    """n fused iterations, each with the CLI's generator; returns (state,
+    [losses as floats], pool, [ms a step by CUDA events])."""
+    import torch
+
+    from sdn3d_tpu_torch.cli.geometric_train import step_generator
+    step = trainer.make_train_iteration()
+    dev = trainer.device
+    out, events = [], []
+    for i in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, losses, pool = step(state, batch,
+                                   step_generator(seed, first + i, dev), pool)
+        b.record()
+        out.append(losses)
+        events.append((a, b))
+    torch.cuda.synchronize()
+    return (state, [{k: float(v) for k, v in l.items()} for l in out], pool,
+            [a.elapsed_time(b) for a, b in events])
+
+
+def tex_card_against_cpu(seed: int, card: str) -> None:
+    """12b: the fused iteration's two halves (the G objective's gradients,
+    then D's from the detached fake and the real pair's features) on the
+    card in float32 against a float64 CPU run of the same nets and batch,
+    at the small configuration; the CPU's own float32 printed beside."""
+    import copy
+
+    import torch
+
+    from sdn3d_tpu_torch.pipelines.textural import (
+        SMALL_NET_OVERRIDES, TexturalConfig, TexturalState, TexturalTrainer)
+    cfg = TexturalConfig(**SMALL_NET_OVERRIDES)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        trainer = TexturalTrainer(cfg)
+    base = trainer.to("cpu").init(torch.Generator().manual_seed(seed))
+    h, w = TEX_SMALL_HW
+    host = tex_batch(SimpleNamespace(fine_height=h, fine_width=w,
+                                     batch_size=1), cfg, seed + 7, "cpu")
+    runs = {}
+    for key, dev, dt in (("f64", "cpu", torch.float64),
+                         ("cpu", "cpu", torch.float32),
+                         ("card", TEX_DEVICE, torch.float32)):
+        nets = {k: copy.deepcopy(getattr(base, k)).to(dev, dt)
+                for k in ("netG", "netE", "netD", "vgg")}
+        st = TexturalState(step=0, opt_g=None, opt_d=None, **nets)
+        b = {k: v.to(dev, dt) if v.is_floating_point() else v.to(dev)
+             for k, v in host.items()}
+        grads, losses, fake, label, pred_real = trainer.g_gradients(
+            st, b, None, keep_real=True)
+        grads_d, d_losses = trainer.d_gradients(
+            st, torch.cat([label, fake], 1), pred_real=pred_real)
+        runs[key] = ({**losses, **d_losses}, grads, grads_d,
+                     [n for n, _ in st.g_named()],
+                     [n for n, _ in st.d_named()])
+    torch.cuda.synchronize()
+
+    def worst(key):
+        losses, gg, gd, ng, nd = runs[key]
+        ref = runs["f64"]
+        loss = max(abs(float(losses[k]) - float(ref[0][k]))
+                   / max(abs(float(ref[0][k])), 1e-30) for k in losses)
+        grad, low_cos = 0.0, 1.0
+        for got, want, names in ((gg, ref[1], ng), (gd, ref[2], nd)):
+            top = max(float(x.abs().max()) for x in want)
+            for n, g, r in zip(names, got, want):
+                g, r = g.double().cpu(), r.double().cpu()
+                scale = float(r.abs().max())
+                err = float((g - r).abs().max()) / max(
+                    scale, TEX_GRAD_FLOOR * top)
+                grad = max(grad, err)
+                if scale >= TEX_GRAD_FLOOR * top:
+                    low_cos = min(low_cos, float(
+                        (g * r).sum() / (g.norm() * r.norm())))
+        return loss, grad, low_cos
+    card_w, cpu_w = worst("card"), worst("cpu")
+    if not (card_w[0] <= TEX_LOSS_RTOL and card_w[1] <= TEX_GRAD_RTOL
+            and card_w[2] >= TEX_GRAD_COS):
+        raise AssertionError(f"12b card against float64: losses {card_w[0]}"
+                             f", gradients {card_w[1]}, cosine {card_w[2]}")
+    log(f"[tex-12b] card float32 against a float64 CPU run, the small "
+        f"configuration at {h}x{w} (VGG on): worst loss rel {card_w[0]:.3e} "
+        f"(bound {TEX_LOSS_RTOL}), worst gradient {card_w[1]:.3e} (bound "
+        f"{TEX_GRAD_RTOL}, floor {TEX_GRAD_FLOOR}), lowest cosine "
+        f"{card_w[2]:.7f} (bound {TEX_GRAD_COS}); the CPU's float32: "
+        f"{cpu_w[0]:.3e}, {cpu_w[1]:.3e}, {cpu_w[2]:.7f}")
+
+
+def tex_determinism_cost(trainer, state, batch, seed: int, card: str):
+    """12d: float32 iterations with cuDNN's deterministic algorithms (the
+    trainer's) and with cuDNN free to pick its algorithms (autotuning off),
+    TEX_WARM + TEX_TIME iterations a run, four runs in turns (on, off, off,
+    on); the CUDA-event medians of each side's timed iterations."""
+    import contextlib
+
+    import torch
+
+    from sdn3d_tpu_torch.pipelines import textural as TTX
+
+    @contextlib.contextmanager
+    def free_cudnn():
+        c = torch.backends.cudnn
+        found = c.deterministic, c.benchmark
+        c.deterministic, c.benchmark = False, False
+        try:
+            yield
+        finally:
+            c.deterministic, c.benchmark = found
+
+    runs = {True: [], False: []}
+    ctx = TTX.deterministic_cudnn
+    for on in (True, False, False, True):
+        TTX.deterministic_cudnn = ctx if on else free_cudnn
+        try:
+            state, _, _, ms = tex_iterations(trainer, state, batch, seed,
+                                             TEX_WARM + TEX_TIME)
+        finally:
+            TTX.deterministic_cudnn = ctx
+        runs[on] += ms[TEX_WARM:]
+    med = {k: sorted(v)[len(v) // 2] for k, v in runs.items()}
+    log(f"[tex-12d] float32 with cuDNN's deterministic algorithms on / off "
+        f"(4 runs in turns, {TEX_TIME} timed iterations each): CUDA-event "
+        f"medians {med[True]:.3f} / {med[False]:.3f} ms an iteration (on - "
+        f"off {med[True] - med[False]:.3f}) ({card})")
+    return state
+
+
+def textural_phase(args, card: str, mark=lambda what: None) -> None:
+    """Phase 12: textural training at TexturalConfig()'s full width (G ngf
+    64, 4 downsamplings, 9 blocks; D ndf 64, 2 scales, 3 layers; E nef 16;
+    VGG19 to relu5_1) at 192 x 624, batch 1, random weights from --seed.
+    12a: cli/textural_train.main --synthetic for TEX_CLI_ITERS iterations
+    (the step written), then TEX_DESCENT iterations of the CLI's trainer on
+    one fixed batch: every loss finite, G_L1 over the last TEX_WINDOW below
+    the first; 12b: the card against a float64 CPU run (small
+    configuration); 12c: two runs of an iteration give the same bits; 12d:
+    ms an iteration in float32 and bfloat16, device busy, idle share,
+    launches and the top kernels, the FLOPs an iteration, float32 with
+    cuDNN's deterministic algorithms on and off in turns, then
+    TEX_GE_ITERS iterations with the global encoder and a pool of 4.
+    12e runs inside the file-contract phase (textural_files)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from sdn3d_tpu_torch.cli import textural_train
+    from sdn3d_tpu_torch.core.checkpoint import latest_step
+
+    dev = torch.device(TEX_DEVICE)
+    shape = f"{TEX_SHAPES['fine_height']}x{TEX_SHAPES['fine_width']}"
+    with tempfile.TemporaryDirectory(prefix="sdn3d_tex_") as tmp:
+        # -- 12a. the CLI, then descent on one batch ------------------------
+        ck = os.path.join(tmp, "ck")
+        t0 = time.perf_counter()
+        _, state = textural_train.main([
+            "--synthetic", "--num_iters", str(TEX_CLI_ITERS), "--ckpt_dir",
+            ck, "--seed", str(args.seed)])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        files = sorted(os.listdir(os.path.join(ck, f"step-{TEX_CLI_ITERS}")))
+        if latest_step(ck) != TEX_CLI_ITERS or state.step != TEX_CLI_ITERS \
+                or files != ["netD.pt", "netE.pt", "netG.pt", "opt_d.pt",
+                             "opt_g.pt", "step.pt", "vgg.pt"]:
+            raise AssertionError(f"12a textural_train: step {latest_step(ck)}"
+                                 f", files {files}")
+        del state
+        log(f"[tex-12a] textural_train --synthetic at the CLI defaults "
+            f"({shape}, batch 1): {TEX_CLI_ITERS} iterations, step "
+            f"written ({', '.join(files)}) in {cli_s:.2f} s (models built "
+            f"and saved included) ({card})")
+        targs = tex_args(os.path.join(tmp, "none"), args.seed)
+        trainer, state = tex_trainer(targs)
+        cfg = trainer.cfg
+        batch = tex_batch(targs, cfg, args.seed, dev)
+        fields0 = clone_fields(state.fields())
+        state, losses, _, _ = tex_iterations(trainer, state, batch,
+                                             args.seed, TEX_DESCENT)
+        l1 = np.asarray([l["G_L1"] for l in losses])
+        finite = all(np.isfinite(v) for l in losses for v in l.values())
+        first, last = l1[:TEX_WINDOW].mean(), l1[-TEX_WINDOW:].mean()
+        if not finite or not last < first:
+            raise AssertionError(f"12a descent: finite {finite}, G_L1 "
+                                 f"{l1.tolist()}")
+        log(f"[tex-12a] {TEX_DESCENT} iterations on one batch: every loss "
+            f"finite; G_L1 first / last {TEX_WINDOW} {first:.6f} -> "
+            f"{last:.6f}; iteration 0 {losses[0]}; iteration "
+            f"{TEX_DESCENT - 1} {losses[-1]}")
+        mark("12a. textural CLI and descent")
+
+        # -- 12b. card against CPU float64 ------------------------------------
+        tex_card_against_cpu(args.seed, card)
+        mark("12b. textural card against CPU")
+
+        # -- 12c. the same bits, run to run -------------------------------------
+        runs = []
+        for _ in range(2):
+            state.load_fields(fields0)
+            state, losses, _, _ = tex_iterations(trainer, state, batch,
+                                                 args.seed, 1)
+            runs.append((clone_fields(state.fields()), losses[0]))
+        bad = same_fields(runs[0][0], runs[1][0])
+        if bad or runs[0][1] != runs[1][1]:
+            raise AssertionError(f"12c: two runs of an iteration differ: "
+                                 f"{bad[:8]}, {runs[0][1]} / {runs[1][1]}")
+        log(f"[tex-12c] two runs of a full-width iteration from the same "
+            f"state, batch and draws: every net, Adam's moments and counts "
+            f"and the losses bit-equal")
+        del runs
+        mark("12c. textural same bits")
+
+        # -- 12d. times -----------------------------------------------------------
+        state.load_fields(fields0)
+        with FlopCounterMode(display=False) as counter:
+            state, _, _, _ = tex_iterations(trainer, state, batch,
+                                            args.seed, 1)
+        flops = counter.get_total_flops()
+        top_ops = sorted(((str(k), v) for k, v in
+                          counter.get_flop_counts().get("Global", {}).items()),
+                         key=lambda kv: -kv[1])[:6]
+        for dtype in ("float32", "bfloat16"):
+            if dtype == "bfloat16":
+                del trainer, state
+                torch.cuda.empty_cache()
+                trainer, state = tex_trainer(tex_args(
+                    os.path.join(tmp, "none"), args.seed,
+                    compute_dtype="bfloat16"))
+            state, _, _, _ = tex_iterations(trainer, state, batch, args.seed,
+                                            TEX_WARM)
+            t0 = time.perf_counter()
+            state, losses, _, ms = tex_iterations(
+                trainer, state, batch, args.seed, TEX_TIME, first=TEX_WARM)
+            wall = (time.perf_counter() - t0) * 1e3 / TEX_TIME
+            ms = sorted(ms)
+            busy, kernels = device_time(lambda: tex_iterations(
+                trainer, state, batch, args.seed, 2), 2)
+            launches = sum(v[1] for _, v in kernels) / 2
+            conv = sum(v[0] for k, v in kernels if any(
+                w in k.lower() for w in ("conv", "cudnn", "xmma", "gemm",
+                                         "gemv", "fft")))
+            bound = flops / (H100_FP32_FLOPS if dtype == "float32"
+                             else H100_BF16_FLOPS) * 1e3
+            log(f"[tex-12d] {dtype} iteration at {shape}, batch 1: "
+                f"{ms[len(ms) // 2]:.3f} ms (median of {TEX_TIME} after "
+                f"{TEX_WARM}, CUDA events; min {ms[0]:.3f}, max "
+                f"{ms[-1]:.3f}), host wall {wall:.3f} ms an iteration "
+                f"(synchronised at the end); device busy {busy:.3f} ms, idle "
+                f"share {1 - busy / wall:.4f}; {launches:.0f} launches an "
+                f"iteration; convolution kernels (cuDNN, FFT, GEMM / GEMV) "
+                f"{conv:.3f} ms; "
+                f"{flops:.4e} FLOP an iteration (FlopCounterMode, float32 "
+                f"run), floor {bound:.3f} ms at the card's peak for "
+                f"{dtype}; finite losses "
+                f"{all(np.isfinite(v) for v in losses[-1].values())} "
+                f"({card})")
+            log(f"[tex-12d] {dtype} top kernels (ms an iteration, launches "
+                f"over 2): " + "; ".join(
+                    f"{k[:70]} {v[0]:.3f} ({v[1]})" for k, v in kernels[:8]))
+            if dtype == "float32":
+                state = tex_determinism_cost(trainer, state, batch,
+                                             args.seed, card)
+        log(f"[tex-12d] FLOPs by op (one float32 iteration): "
+            + "; ".join(f"{k} {v:.3e}" for k, v in top_ops))
+        del trainer, state
+        torch.cuda.empty_cache()
+        trainer, state = tex_trainer(tex_args(
+            os.path.join(tmp, "none"), args.seed, use_global_encoder=True,
+            pool_size=4))
+        pool = trainer.device_pool(TEX_SHAPES["fine_height"],
+                                   TEX_SHAPES["fine_width"])
+        state, losses, pool, ms = tex_iterations(trainer, state, batch,
+                                                 args.seed, TEX_GE_ITERS,
+                                                 pool=pool)
+        if pool.n != 4 or not all("E_VAE" in l and np.isfinite(
+                list(l.values())).all() for l in losses):
+            raise AssertionError(f"12d global encoder + pool: pool "
+                                 f"{pool.n}, losses {losses}")
+        log(f"[tex-12d] --use_global_encoder --pool_size 4: {TEX_GE_ITERS} "
+            f"iterations, every loss finite (E_VAE {losses[-1]['E_VAE']:.4g}"
+            f"), pool filled to {pool.n}; last {TEX_GE_ITERS - 2} "
+            f"iterations {sorted(ms[2:])} ms ({card})")
+        del trainer, state, pool
+        torch.cuda.empty_cache()
+        mark("12d. textural times")
+
+
+def textural_files(args, card: str, tmp: str, root: str, segm: str,
+                   geo: str, names, bench_argv) -> None:
+    """12e: cli/textural_train in dataset mode (--split test) on the files
+    of phase 10b (semantic_test's labels, geometric_main's instance maps,
+    JSON, normals and depths, linked into the dataset's world/topic/frame
+    layout) for TEX_DATA_ITERS iterations; one item's host cost; the step
+    then served by cli/textural_test over the same frames and by
+    cli/edit_benchmark --ckpt_dir over phase 10a's pairs."""
+    import torch
+
+    from sdn3d_tpu_torch.cli import edit_benchmark, textural_test, \
+        textural_train
+    from sdn3d_tpu_torch.data.textural_data import TexturalVKittiDataset
+
+    nested = {k: os.path.join(tmp, f"tex_{k}") for k in ("segm", "geo")}
+    for name in names:
+        world, topic, frame = name.split("_")
+        for key, src, suffixes in (
+                ("segm", segm, (".png",)),
+                ("geo", geo, (".png", ".json", "-normal.png",
+                              "-depth.png"))):
+            d = os.path.join(nested[key], world, topic)
+            os.makedirs(d, exist_ok=True)
+            for suf in suffixes:
+                if os.path.exists(os.path.join(src, name + suf)):
+                    os.symlink(os.path.join(src, name + suf),
+                               os.path.join(d, frame + suf))
+    ck = os.path.join(tmp, "ck_tex_trained")
+    t0 = time.perf_counter()
+    _, state = textural_train.main([
+        "--data_root", root, "--segm_dir", nested["segm"], "--geo_dir",
+        nested["geo"], "--split", "test", "--num_iters", str(TEX_DATA_ITERS),
+        "--ckpt_dir", ck, "--seed", str(args.seed)])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    if state.step != TEX_DATA_ITERS:
+        raise AssertionError(f"12e: dataset-mode step {state.step}")
+    del state
+    torch.cuda.empty_cache()
+    ds = TexturalVKittiDataset(root, nested["segm"], nested["geo"],
+                               split="test", max_instances=64)
+    item_ms = []
+    for i in range(6):
+        t1 = time.perf_counter()
+        item = ds.__getitem__(i % len(ds), np.random.RandomState(i))
+        item_ms.append((time.perf_counter() - t1) * 1e3)
+    log(f"[tex-12e] textural_train --split test over {len(ds)} frames of "
+        f"phase 10b (with depth: {ds.with_depth}): {TEX_DATA_ITERS} "
+        f"iterations in {train_s:.2f} s (models built and saved included); "
+        f"one item {np.median(item_ms):.3f} ms on the host (median of 6; "
+        f"image {item['image'].shape}) ({card})")
+    l1s = textural_test.main(["--data_root", root, "--segm_dir", segm,
+                              "--geo_dir", geo, "--ckpt_dir", ck,
+                              "--results_dir", os.path.join(tmp, "tt_tex")])
+    avg = float(np.mean(list(l1s.values())))
+    if sorted(l1s) != sorted(names) or not np.isfinite(avg):
+        raise AssertionError(f"12e textural_test of the trained step: {l1s}")
+    bench = edit_benchmark.main(bench_argv + ["--ckpt_dir", ck,
+                                              "--results_dir",
+                                              os.path.join(tmp, "bench_tex")])
+    if not np.isfinite([bench["mean_L1"], bench["mean_SSIM"],
+                        bench["mean_PSNR"]]).all():
+        raise AssertionError(f"12e edit_benchmark of the trained step: "
+                             f"{bench}")
+    log(f"[tex-12e] the trained step served: textural_test avg L1 "
+        f"{avg:.6f} over {len(l1s)} frames; edit_benchmark --ckpt_dir "
+        f"{bench['pairs']} pairs, mean L1 {bench['mean_L1']:.6f}, SSIM "
+        f"{bench['mean_SSIM']:.6f}, PSNR {bench['mean_PSNR']:.4f} ({card})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3177,8 +3626,10 @@ def main(argv=None) -> int:
     mark("7. reference")
     # -- 8. chain: the fused edit chain at full width ------------------------
     chain_phase(args, card, mark)
+    # -- 12. textural training (12e inside phase 10) -------------------------
+    textural_phase(args, card, mark)
     # -- 10. the per-stage file contract --------------------------------------
-    file_contract_phase(args, card, mark)
+    file_contract_phase(args, card, mark, textural=True)
 
     kernels = [{
         "name": "rasterize_forward",

@@ -10,10 +10,11 @@ The functions below are also the textural stage of the fused edit chain
 (pipelines/chain.py) and of cli/edit_benchmark.
 
 `load_trainer` reads `args.ckpt_dir`: a checkpoint directory
-(core/checkpoint: the newest step's "netG" and "netE" state_dicts, the
-nets rebuilt from the manifest's training meta as the JAX package does)
-or a torch file {"netG": state_dict, "netE": state_dict} written from JAX
-parameters by sdn3d_tpu_torch.utils.port
+(core/checkpoint: the newest step's "netG" and "netE" state_dicts, and
+"netGlobalE" when the manifest's training meta says use_global_encoder;
+the nets rebuilt from that meta as the JAX package does, a step of
+cli/textural_train included) or a torch file {"netG": state_dict, "netE":
+state_dict} written from JAX parameters by sdn3d_tpu_torch.utils.port
 (global_generator_state_dict_from_jax, encoder_state_dict_from_jax);
 without it the weights are random, drawn from `args.seed`.
 """
@@ -86,8 +87,10 @@ def load_trainer(args, cfg=None):
         torch.manual_seed(args.seed)
         trainer = TexturalTrainer(cfg)
     if args.ckpt_dir:
-        sd = load_state_dicts(args.ckpt_dir, ["netG", "netE"])
-        trainer.load_state_dicts(sd["netG"], sd["netE"])
+        names = ["netG", "netE"] + (["netGlobalE"]
+                                    if cfg.use_global_encoder else [])
+        sd = load_state_dicts(args.ckpt_dir, names)
+        trainer.load_state_dicts(sd["netG"], sd["netE"], sd.get("netGlobalE"))
     else:
         print("WARNING: no --ckpt_dir; random generator weights")
     return trainer.to(device)
@@ -239,6 +242,10 @@ def generate_edit_batch(trainer, items, wh, args):
             "normal_valid": np.asarray([a[3] is not None for a in assembled],
                                        np.float32),
         }
+        if trainer.cfg.use_global_encoder:
+            # the global encoder reads the source image (JAX
+            # cli/edit_vkitti.py:280-282); the codes come from the table
+            host["image"] = np.stack([it["base_img_t"] for it in items])
         feat_tables = np.stack([a[2] for a in assembled])
         batch = {k: to_device(v, dev) for k, v in host.items()}
         feat_dev = to_device(feat_tables, dev)

@@ -4,7 +4,9 @@ its own conditioning, the labels of --segm_dir and the geometric outputs of
 --geo_dir (what geometric_main --vkitti_root --split test writes, named
 {world}_{topic}_{frame}), and print the average L1 against the real image
 ('avg:', test.py:67,75-77).  Frames whose label or instance PNG is missing
-are skipped.  Runs on `--device` (default cuda).
+are skipped.  The nets are rebuilt from the checkpoint's training meta
+(cli/edit_vkitti.load_trainer), the global encoder's included, which reads
+the real image (its posterior mean).  Runs on `--device` (default cuda).
 """
 
 from __future__ import annotations
@@ -95,6 +97,9 @@ def main(argv=None):
             ("label", maps["label"]), ("inst", maps["inst"]),
             ("inst_slots", slots), ("pose", maps["pose"]),
             ("normal", maps["normal"].astype(np.float32)))}
+        if trainer.cfg.use_global_encoder:
+            # the global encoder reads the real image, as in JAX
+            batch["image"] = to_device(image[None], dev)
         # the codes of the frame's own instances (netE on the real image,
         # averaged per instance), expanded through inst_slots
         feats = trainer.encode_feat_means(to_device(image[None], dev),

@@ -6,9 +6,20 @@ training meta a test or edit program rebuilds its nets from); resume and
 restore pick the newest step.  A step directory holds one torch file per
 top-level field, `{field}.pt`: the nets' state_dicts under the keys the
 CLIs read ("encoder" / "decoder" for the semantic model, "derenderer",
-"netG" / "netE" for the textural nets, "maskrcnn") and, in a train-state
-step, the trainer's own fields (its step count, optimizer state), which
-`restore_variables` leaves on disk.  The JAX package's orbax step
+"netG" / "netE" (and "netGlobalE" with the global encoder) for the
+textural nets, "maskrcnn") and, in a train-state step, the trainer's own
+fields, which `restore_variables` leaves on disk:
+  - derenderer training (cli/geometric_train): derenderer.pt,
+    opt_state.pt ({"count", "mu", "nu"}, the moments by parameter name),
+    step.pt;
+  - textural training (cli/textural_train): netG.pt, netE.pt, netD.pt
+    (the reference's `scale{i}_layer{j}.0.*` keys), vgg.pt (torchvision's
+    `features.N.*`), netGlobalE.pt (only with the global encoder), opt_g.pt
+    (over netG, netE, netGlobalE: moments named "netG.*", "netE.*",
+    "netGlobalE.*") and opt_d.pt ({"count", "mu", "nu"} each), step.pt;
+    the manifest's meta is the CLI's vars(args), as in JAX, from which
+    pipelines/textural.config_from_train_meta rebuilds the nets, and
+    restore_variables(dir, ["netG", "netE"]) serves the step.  The JAX package's orbax step
 directories are not readable here; their variables convert with
 utils/port into a step of this layout.
 """

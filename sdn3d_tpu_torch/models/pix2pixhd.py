@@ -1,28 +1,36 @@
-"""Textural branch networks: the pix2pixHD global generator G and the
-instance feature encoder E, NCHW.
+"""Textural branch networks: pix2pixHD's global generator G, multiscale
+discriminator D, instance feature encoder E, the global VAE encoder and
+LocalEnhancer, NCHW.
 
-PyTorch counterpart of the inference networks of
-sdn3d_tpu/models/pix2pixhd.py (textural/models/networks.py).  Norm layers
-are instance norm without affine parameters (pix2pixHD default), computed
-as the JAX package computes it.  Each network is one `model` Sequential
-with the reference's module order, so the reference state_dict keys
-(`model.N.*`, `model.N.conv_block.{1,5}.*`) map one to one.  The
-per-instance average pooling is a one-hot product over dense instance
-slots.  Both networks give the same bits for the same input on every
-run on the card (the transposed convolutions are computed as forward
-convolutions, `ConvTranspose`).
+PyTorch counterpart of sdn3d_tpu/models/pix2pixhd.py
+(textural/models/networks.py).  Norm layers are instance norm without
+affine parameters (pix2pixHD default), computed as the JAX package
+computes it.  G and E are each one `model` Sequential with the
+reference's module order, so the reference state_dict keys (`model.N.*`,
+`model.N.conv_block.{1,5}.*`) map one to one; D keeps the reference's
+intermediate-feature layout (`scale{i}_layer{j}.0.*`).  The per-instance
+average pooling is a one-hot product over dense instance slots, both ways.
+
+Every network gives the same bits for the same input on every run on the
+card, and so does its backward under cuDNN's deterministic algorithms:
+the transposed convolutions are forward convolutions of the dilated input
+(`ConvTranspose`), the reflection padding is a concatenation of flipped
+slices (`reflect_pad`), and nothing adds with float atomics.  Each takes a
+compute dtype for its convolutions; parameters, norms, the last
+discriminator layer and the losses stay float32.
 
 3D-SDN settings (textural/options/base_options.py): ngf=64,
-n_downsample_global=4, n_blocks_global=9, nef=16, n_downsample_E=4,
-feat_num=5.  LocalEnhancer, the discriminators and the global encoder wait
-for the textural trainer (ROADMAP.md A).
+n_downsample_global=4, n_blocks_global=9, n_local_enhancers=0
+(LocalEnhancer unused), ndf=64, num_D=2, n_layers_D=3, getIntermFeat=True,
+nef=16, n_downsample_E=4, feat_num=5.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from sdn3d_tpu_torch.models.derenderer import strict_fp32
@@ -33,15 +41,32 @@ from sdn3d_tpu_torch.models.layers import (Conv2d, ConvTranspose,
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """InstanceNorm2d(affine=False) on NCHW: (x - mean) * rsqrt(var + eps)
     over each image's spatial dims, biased variance; computed in float32
-    and cast back to the input's dtype (JAX models/pix2pixhd.py:26-29)."""
-    xf = x.float()
+    and cast back to the input's dtype (JAX models/pix2pixhd.py:26-29); a
+    float64 input stays float64."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     mean = xf.mean(dim=(2, 3), keepdim=True)
     var = xf.var(dim=(2, 3), keepdim=True, unbiased=False)
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
-    return nn.functional.pad(x, (p, p, p, p), mode="reflect")
+    """Reflection padding of the last two dims by p (F.pad's "reflect"),
+    as a concatenation of flipped slices: the same copy forward, and a
+    backward of slices and adds.  F.pad's CUDA backward adds with float
+    atomics, so two runs of a training step would differ in the last
+    bits."""
+    if p == 0:
+        return x
+    x = torch.cat([x[..., 1:p + 1].flip(-1), x, x[..., -p - 1:-1].flip(-1)],
+                  dim=-1)
+    return torch.cat([x[..., 1:p + 1, :].flip(-2), x,
+                      x[..., -p - 1:-1, :].flip(-2)], dim=-2)
+
+
+def avg_pool_3s2_nopad_count(x: torch.Tensor) -> torch.Tensor:
+    """AvgPool2d(3, stride=2, padding=1, count_include_pad=False)
+    (networks.py:383) for the multiscale pyramids, NCHW."""
+    return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=False)
 
 
 class InstanceNorm(nn.Module):
@@ -50,11 +75,11 @@ class InstanceNorm(nn.Module):
 
 
 class Tanh(nn.Module):
-    """tanh in float32 whatever the input's dtype (JAX
+    """tanh in at least float32 whatever the input's dtype (JAX
     models/pix2pixhd.py:103)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.tanh(x.float())
+        return torch.tanh(x.to(torch.promote_types(x.dtype, torch.float32)))
 
 
 class ReflectPad(nn.Module):
@@ -151,6 +176,26 @@ class Encoder(nn.Module):
         return self.model(x)
 
 
+def _slot_onehot(inst_slots: torch.Tensor, max_instances: int,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """[B, H, W] dense slots -> the one-hot slot matrix [B, max_instances,
+    H*W] in `dtype`."""
+    B = inst_slots.shape[0]
+    slot_ids = torch.arange(max_instances, device=inst_slots.device)
+    return (inst_slots.reshape(B, 1, -1).long()
+            == slot_ids[None, :, None]).to(dtype)
+
+
+def _slot_means(onehot: torch.Tensor, features: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(means [B, M, F], pixel counts [B, M]) of features [B, H, W, F]
+    under the one-hot slot matrix, the sums one batched product."""
+    B, H, W, F_ = features.shape
+    sums = torch.bmm(onehot, features.reshape(B, H * W, F_))
+    counts = onehot.sum(dim=2)
+    return sums / torch.clamp(counts[..., None], min=1.0), counts
+
+
 def instance_feature_means(features: torch.Tensor, inst_slots: torch.Tensor,
                            max_instances: int
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -162,16 +207,10 @@ def instance_feature_means(features: torch.Tensor, inst_slots: torch.Tensor,
     slot matrix [B, max_instances, H*W] with the features, so the table
     has no atomic float adds and the card gives the same bits on every
     run (the per-source caches of the edit chain rely on that)."""
-    B, H, W, F = features.shape
     if features.is_cuda:
         strict_fp32()
-    slot_ids = torch.arange(max_instances, device=features.device)
-    onehot = (inst_slots.reshape(B, 1, H * W).long()
-              == slot_ids[None, :, None]).to(features.dtype)
-    sums = torch.bmm(onehot, features.reshape(B, H * W, F))
-    counts = onehot.sum(dim=2)
-    means = sums / torch.clamp(counts[..., None], min=1.0)
-    return means, counts
+    return _slot_means(_slot_onehot(inst_slots, max_instances,
+                                    features.dtype), features)
 
 
 def get_edges(inst: torch.Tensor) -> torch.Tensor:
@@ -185,3 +224,258 @@ def get_edges(inst: torch.Tensor) -> torch.Tensor:
     e[:, 1:, :] |= dy
     e[:, :-1, :] |= dy
     return e[:, None].to(torch.float32)
+
+
+def instance_average(features: torch.Tensor, inst_slots: torch.Tensor,
+                     max_instances: int) -> torch.Tensor:
+    """Instance-wise average pooling (networks.py:310-326; JAX
+    models/pix2pixhd.py:312): every pixel's features replaced by the mean
+    over its instance's pixels, per batch item.  features [B, H, W, F]
+    (channels last, as the JAX package's); inst_slots [B, H, W] int in
+    [0, max_instances).  One-hot products both ways: the table of
+    instance_feature_means, then the per-pixel means onehot^T . table, so
+    neither the forward nor the backward adds with atomics (a gather's
+    backward would scatter-add)."""
+    if features.is_cuda:
+        strict_fp32()
+    onehot = _slot_onehot(inst_slots, max_instances, features.dtype)
+    means, _ = _slot_means(onehot, features)
+    return torch.bmm(onehot.transpose(1, 2), means).reshape(features.shape)
+
+
+class LocalEnhancer(nn.Module):
+    """Coarse-to-fine generator (networks.py:156-208; JAX
+    models/pix2pixhd.py:106): the GlobalGenerator trunk (its `model` less
+    the last three modules) on the n-times-downsampled input, plus per
+    level a downsampling branch `model{n}_1` whose output is summed with
+    the coarser level's and an upsampling branch `model{n}_2`; the
+    reference's module layout and keys.  Unused by the 3D-SDN default
+    configuration (n_local_enhancers=0)."""
+
+    def __init__(self, input_nc: int, output_nc: int = 3, ngf: int = 32,
+                 n_downsample_global: int = 3, n_blocks_global: int = 9,
+                 n_local_enhancers: int = 1, n_blocks_local: int = 3,
+                 dtype="float32"):
+        super().__init__()
+        self.n_local_enhancers = n_local_enhancers
+        trunk = GlobalGenerator(input_nc, output_nc,
+                                ngf * 2 ** n_local_enhancers,
+                                n_downsample_global, n_blocks_global).model
+        self.model = nn.Sequential(*list(trunk)[:-3])
+        for n in range(1, n_local_enhancers + 1):
+            ngf_g = ngf * 2 ** (n_local_enhancers - n)
+            down = [ReflectPad(3), Conv2d(input_nc, ngf_g, 7), InstanceNorm(),
+                    nn.ReLU(), Conv2d(ngf_g, ngf_g * 2, 3, stride=2,
+                                      padding=1), InstanceNorm(), nn.ReLU()]
+            up = [ResnetBlockG(ngf_g * 2) for _ in range(n_blocks_local)]
+            up += [_conv_transpose(ngf_g * 2, ngf_g), InstanceNorm(),
+                   nn.ReLU()]
+            if n == n_local_enhancers:
+                # tanh in the convolution's dtype, as the JAX module's
+                up += [ReflectPad(3), Conv2d(ngf, output_nc, 7), nn.Tanh()]
+            setattr(self, f"model{n}_1", nn.Sequential(*down))
+            setattr(self, f"model{n}_2", nn.Sequential(*up))
+        set_compute_dtype(self, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.is_cuda:
+            strict_fp32()
+        pyramid = [x]
+        for _ in range(self.n_local_enhancers):
+            pyramid.append(avg_pool_3s2_nopad_count(pyramid[-1]))
+        out = self.model(pyramid[-1])
+        for n in range(1, self.n_local_enhancers + 1):
+            xi = pyramid[self.n_local_enhancers - n]
+            out = getattr(self, f"model{n}_2")(
+                getattr(self, f"model{n}_1")(xi) + out)
+        return out
+
+
+class Float32(nn.Module):
+    """The cast to at least float32 of the discriminator's last layer."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+class NLayerDiscriminator(nn.Module):
+    """PatchGAN returning every intermediate feature (networks.py:412-464,
+    getIntermFeat): layers `model0` .. `model{n_layers + 1}`, 4x4
+    convolutions padded 2, LeakyReLU 0.2, instance norm from the second
+    layer, the last layer one channel in float32."""
+
+    def __init__(self, input_nc: int, ndf: int = 64, n_layers: int = 3,
+                 dtype="float32"):
+        super().__init__()
+        layers = [[Conv2d(input_nc, ndf, 4, stride=2, padding=2),
+                   nn.LeakyReLU(0.2)]]
+        nf = ndf
+        for _ in range(1, n_layers):
+            prev, nf = nf, min(nf * 2, 512)
+            layers.append([Conv2d(prev, nf, 4, stride=2, padding=2),
+                           InstanceNorm(), nn.LeakyReLU(0.2)])
+        prev, nf = nf, min(nf * 2, 512)
+        layers.append([Conv2d(prev, nf, 4, padding=2), InstanceNorm(),
+                       nn.LeakyReLU(0.2)])
+        layers.append([Conv2d(nf, 1, 4, padding=2), Float32()])
+        self.n_layers = n_layers
+        for j, seq in enumerate(layers):
+            setattr(self, f"model{j}", nn.Sequential(*seq))
+        set_compute_dtype(self, dtype)
+
+    def layers(self) -> List[nn.Module]:
+        return [getattr(self, f"model{j}") for j in range(self.n_layers + 2)]
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        if x.is_cuda:
+            strict_fp32()
+        return _features(self.layers(), x)
+
+
+def _features(layers, x: torch.Tensor) -> List[torch.Tensor]:
+    feats = []
+    for layer in layers:
+        x = layer(x)
+        feats.append(x)
+    return feats
+
+
+class MultiscaleDiscriminator(nn.Module):
+    """num_D patch discriminators on an average-pool pyramid
+    (networks.py:368-409): the i-th pyramid level goes through the layers
+    `scale{num_D - 1 - i}_layer{j}`, the reference's keys (the JAX
+    module's scale names).  Returns, per level, the list of features."""
+
+    def __init__(self, input_nc: int, ndf: int = 64, n_layers: int = 3,
+                 num_D: int = 2, dtype="float32"):
+        super().__init__()
+        self.num_D, self.n_layers = num_D, n_layers
+        for i in range(num_D):
+            d = NLayerDiscriminator(input_nc, ndf, n_layers, dtype)
+            for j, layer in enumerate(d.layers()):
+                setattr(self, f"scale{i}_layer{j}", layer)
+
+    def forward(self, x: torch.Tensor) -> List[List[torch.Tensor]]:
+        if x.is_cuda:
+            strict_fp32()
+        results = []
+        for i in range(self.num_D):
+            k = self.num_D - 1 - i
+            results.append(_features(
+                [getattr(self, f"scale{k}_layer{j}")
+                 for j in range(self.n_layers + 2)], x))
+            if i != self.num_D - 1:
+                x = avg_pool_3s2_nopad_count(x)
+        return results
+
+
+def _avg_pool_2s2_end_pad(y: torch.Tensor) -> torch.Tensor:
+    """2x2 average pooling, stride 2, an odd dim padded by one at its end,
+    count_include_pad=False (flax nn.avg_pool with padding ((0, ph),
+    (0, pw))): the window sums over the zero-padded input divided by the
+    count of real pixels in each window.  F.avg_pool2d pads only
+    symmetrically."""
+    ph, pw = y.shape[2] % 2, y.shape[3] % 2
+    yp = F.pad(y, (0, pw, 0, ph))
+    ones = F.pad(torch.ones_like(y[:1, :1]), (0, pw, 0, ph))
+
+    def window_sum(t):
+        return (t[:, :, 0::2, 0::2] + t[:, :, 0::2, 1::2]
+                + t[:, :, 1::2, 0::2] + t[:, :, 1::2, 1::2])
+    return window_sum(yp) / window_sum(ones)
+
+
+class GlobalEncoder(nn.Module):
+    """Global VAE encoder netGlobalE (JAX models/pix2pixhd.py:246):
+    image [B, 3, H, W] -> (mu, logvar) [B, nz].  A stride-2 4x4 stem, then
+    n_blocks pre-activation residual blocks, each halving the size (a
+    stride-2 3x3 convolution beside a 2x2 average-pool shortcut, whose odd
+    dims are padded at their end so the pool's size matches the
+    convolution's, e.g. 624 -> 39 -> 20 at block 3; a 1x1 convolution on
+    the shortcut where the width changes), a ReLU in float32, the global
+    mean, and two float32 dense heads.  The reference names this
+    convention (global_encoder_which_model='resnet_128', nef 64, nz 3) but
+    never builds the module, so its parameter names are the JAX module's
+    (conv_in, block{i}_conv1 / _conv2 / _skip, fc_mu, fc_logvar)."""
+
+    def __init__(self, input_nc: int = 3, nz: int = 3, nef: int = 64,
+                 n_blocks: int = 4, dtype="float32"):
+        super().__init__()
+        self.n_blocks = n_blocks
+        self.conv_in = Conv2d(input_nc, nef, 4, stride=2, padding=1)
+        ch = nef
+        for i in range(n_blocks):
+            out_ch = nef * min(2 ** (i + 1), 4)
+            setattr(self, f"block{i}_conv1",
+                    Conv2d(ch, out_ch, 3, stride=2, padding=1))
+            setattr(self, f"block{i}_conv2", Conv2d(out_ch, out_ch, 3,
+                                                    padding=1))
+            if ch != out_ch:
+                setattr(self, f"block{i}_skip",
+                        Conv2d(ch, out_ch, 1, bias=False))
+            ch = out_ch
+        set_compute_dtype(self, dtype)
+        # the dense heads stay float32 (flax Dense without a dtype)
+        self.fc_mu = nn.Linear(ch, nz)
+        self.fc_logvar = nn.Linear(ch, nz)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if x.is_cuda:
+            strict_fp32()
+        y = self.conv_in(x)
+        for i in range(self.n_blocks):
+            h = torch.relu(instance_norm(y))
+            h = getattr(self, f"block{i}_conv1")(h)
+            h = torch.relu(instance_norm(h))
+            h = getattr(self, f"block{i}_conv2")(h)
+            s = _avg_pool_2s2_end_pad(y)
+            skip = getattr(self, f"block{i}_skip", None)
+            if skip is not None:
+                s = skip(s)
+            y = h + s
+        y = torch.relu(y.to(torch.promote_types(y.dtype, torch.float32)))
+        y = y.mean(dim=(2, 3))
+        return self.fc_mu(y), self.fc_logvar(y)
+
+
+def reparameterize(mu: torch.Tensor, logvar: torch.Tensor,
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+    """z = mu + exp(logvar / 2) * eps (pix2pixHD_model.py:194-196), eps a
+    standard normal draw from `generator` (on mu's device)."""
+    eps = torch.randn(mu.shape, generator=generator, device=mu.device,
+                      dtype=mu.dtype)
+    return mu + torch.exp(0.5 * logvar) * eps
+
+
+def kl_loss(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+    """Summed KL(q(z|x) || N(0, 1)) (pix2pixHD_model.py:235-237):
+    -0.5 * sum(1 + logvar - mu^2 - exp(logvar))."""
+    return -0.5 * torch.sum(1.0 + logvar - mu ** 2 - torch.exp(logvar))
+
+
+def gan_loss_lsgan(preds: List[List[torch.Tensor]],
+                   target_is_real: bool) -> torch.Tensor:
+    """LSGAN loss over the multiscale outputs (networks.py:92-134): the
+    sum over scales of the MSE of each scale's last feature map."""
+    target = 1.0 if target_is_real else 0.0
+    loss = 0.0
+    for scale in preds:
+        loss = loss + torch.mean((scale[-1].float() - target) ** 2)
+    return loss
+
+
+def feature_matching_loss(pred_fake: List[List[torch.Tensor]],
+                          pred_real: List[List[torch.Tensor]],
+                          num_D: int, n_layers: int,
+                          lambda_feat: float = 10.0) -> torch.Tensor:
+    """D feature matching (pix2pixHD_model.py:219-226): the mean absolute
+    difference of every intermediate feature but the last, the real
+    features detached, weighted 4 / (n_layers + 1) / num_D, in float32."""
+    feat_weights = 4.0 / (n_layers + 1)
+    D_weights = 1.0 / num_D
+    loss = 0.0
+    for i in range(num_D):
+        for j in range(len(pred_fake[i]) - 1):
+            loss = loss + D_weights * feat_weights * torch.mean(torch.abs(
+                pred_fake[i][j].float() - pred_real[i][j].detach().float()))
+    return loss * lambda_feat

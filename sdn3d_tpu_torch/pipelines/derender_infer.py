@@ -196,12 +196,12 @@ _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8    # optax.adam defaults
 
 def adam_step(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
               nu: torch.Tensor, count: int, lr: float,
-              weight_decay: float = 0.0):
-    """One step of optax.adam(lr) (scale_by_adam, then scale by -lr, then
-    apply_updates), in optax's arithmetic order; with `weight_decay`,
+              weight_decay: float = 0.0, b1: float = _ADAM_B1):
+    """One step of optax.adam(lr, b1) (scale_by_adam, then scale by -lr,
+    then apply_updates), in optax's arithmetic order; with `weight_decay`,
     optax.add_decayed_weights first (g + weight_decay * p).  count is the
     step number, from 1.  Returns (p, mu, nu)."""
-    b1, b2 = _ADAM_B1, _ADAM_B2
+    b2 = _ADAM_B2
     if weight_decay:
         g = g + weight_decay * p
     mu = (1 - b1) * g + b1 * mu

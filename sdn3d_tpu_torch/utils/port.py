@@ -1,11 +1,13 @@
 """flax variables -> PyTorch state_dicts (the reference's key layouts).
 
 The exact inverses of sdn3d_tpu/utils/port.py's port_derenderer,
-port_semantic, port_global_generator, port_encoder, port_lpips and
-port_maskrcnn, so
-weights trained or ported on the JAX side load one to one into the port's
-models, and a derenderer train state (weights, running statistics, Adam's
-moments and count) carries across to the port's trainer:
+port_semantic, port_global_generator, port_encoder,
+port_multiscale_discriminator, port_vgg19, port_lpips and port_maskrcnn
+(and the same layout rules for the global encoder, which the reference
+never builds), so weights trained or ported on the JAX side load one to
+one into the port's models, and a derenderer or textural train state
+(weights, running statistics, Adam's moments and count) carries across to
+the port's trainer:
 
   conv        [kh, kw, I, O] -> [O, I, kh, kw]
   conv_transpose [kh, kw, O, I] (transpose_kernel) -> [I, O, kh, kw]
@@ -186,6 +188,98 @@ def encoder_state_dict_from_jax(params: Mapping, n_downsampling: int = 4
     sd: Dict[str, torch.Tensor] = {}
     _down_up_state_dict(sd, params, n_downsampling, 0)
     return sd
+
+
+def discriminator_state_dict_from_jax(params: Mapping
+                                      ) -> Dict[str, torch.Tensor]:
+    """flax MultiscaleDiscriminator params ({"scale{i}": {"conv{j}"}}) ->
+    the reference's getIntermFeat keys `scale{i}_layer{j}.0.*`
+    (networks.py:375-380; inverse of JAX utils/port.py:
+    port_multiscale_discriminator).  The scale and layer counts are read
+    off the params."""
+    sd: Dict[str, torch.Tensor] = {}
+    for scale, P in params.items():
+        j = 0
+        while f"conv{j}" in P:
+            _conv(sd, f"{scale}_layer{j}.0", P[f"conv{j}"])
+            j += 1
+    return sd
+
+
+# torchvision vgg19.features index of each conv (JAX utils/port.py
+# port_vgg19)
+_VGG19_CONV_FEATURES = (0, 2, 5, 7, 10, 12, 14, 16, 19, 21, 23, 25, 28, 30,
+                        32, 34)
+
+
+def vgg19_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax Vgg19Features variables ({"params": {"conv{k}"}}) ->
+    torchvision's `features.N.*` keys, which models/vgg.Vgg19Features
+    loads (inverse of JAX utils/port.py:port_vgg19)."""
+    P = variables.get("params", variables)
+    sd: Dict[str, torch.Tensor] = {}
+    for k, idx in enumerate(_VGG19_CONV_FEATURES):
+        if f"conv{k}" not in P:
+            break
+        _conv(sd, f"features.{idx}", P[f"conv{k}"])
+    return sd
+
+
+def global_encoder_state_dict_from_jax(params: Mapping
+                                       ) -> Dict[str, torch.Tensor]:
+    """flax GlobalEncoder params -> the port's GlobalEncoder state_dict
+    (the same names: conv_in, block{i}_conv1 / _conv2 / _skip, fc_mu,
+    fc_logvar).  The block count is read off the params."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "conv_in", params["conv_in"])
+    i = 0
+    while f"block{i}_conv1" in params:
+        for part in ("conv1", "conv2", "skip"):
+            if f"block{i}_{part}" in params:
+                _conv(sd, f"block{i}_{part}", params[f"block{i}_{part}"])
+        i += 1
+    _linear(sd, "fc_mu", params["fc_mu"])
+    _linear(sd, "fc_logvar", params["fc_logvar"])
+    return sd
+
+
+def _count(params: Mapping, prefix: str) -> int:
+    return sum(1 for k in params if k.startswith(prefix))
+
+
+def textural_train_state_from_jax(state) -> Dict[str, object]:
+    """A JAX pipelines/textural.TexturalState -> the fields of the port
+    trainer's state (pipelines/textural.TexturalState.load_fields, a
+    core/checkpoint train-state step): "netG", "netE", "netD", "vgg" and,
+    with the global encoder, "netGlobalE" state_dicts; "opt_g" and
+    "opt_d" ({"count", "mu", "nu"}, Adam's count and moments by the port's
+    parameter names, "netG.*" / "netE.*" / "netGlobalE.*" for the G
+    optimizer, which netGlobalE rides); "step".  The net sizes are read
+    off the params."""
+    def g_side(t):
+        out = {"netG": global_generator_state_dict_from_jax(
+            t["g"], _count(t["g"], "down"), _count(t["g"], "res")),
+            "netE": encoder_state_dict_from_jax(t["e"], _count(t["e"],
+                                                               "down"))}
+        if t["ge"]:
+            out["netGlobalE"] = global_encoder_state_dict_from_jax(t["ge"])
+        return out
+
+    nets = g_side({"g": state.params_g, "e": state.params_e,
+                   "ge": state.params_ge})
+    fields: Dict[str, object] = dict(nets)
+    fields["netD"] = discriminator_state_dict_from_jax(state.params_d)
+    fields["vgg"] = vgg19_state_dict_from_jax(state.vgg)
+    for key, opt, convert in (
+            ("opt_g", state.opt_g, lambda m: {
+                f"{net}.{n}": v for net, sd in g_side(m).items()
+                for n, v in sd.items()}),
+            ("opt_d", state.opt_d, discriminator_state_dict_from_jax)):
+        adam = next(s for s in opt if hasattr(s, "mu"))
+        fields[key] = {"count": torch.tensor(int(adam.count)),
+                       "mu": convert(adam.mu), "nu": convert(adam.nu)}
+    fields["step"] = torch.tensor(int(state.step))
+    return fields
 
 
 # torchvision vgg16.features index of each LPIPS conv (JAX utils/port.py

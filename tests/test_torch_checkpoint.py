@@ -126,10 +126,22 @@ def test_config_from_train_meta_matches_jax(meta):
         assert got.netG_input_nc == want.netG_input_nc
 
 
-def test_global_encoder_checkpoints_raise():
-    from sdn3d_tpu_torch.pipelines.textural import config_from_train_meta
-    with pytest.raises(NotImplementedError, match="A8"):
-        config_from_train_meta({"small": True, "use_global_encoder": True})
+def test_global_encoder_checkpoints_raise(tmp_path):
+    """A use_global_encoder checkpoint's meta builds the global encoder's
+    config, as JAX's config_from_train_meta does; serving a step of it
+    that lacks the netGlobalE field raises, naming the field."""
+    from sdn3d_tpu_torch.cli.edit_vkitti import load_trainer
+    from sdn3d_tpu_torch.pipelines.textural import (TexturalTrainer,
+                                                    config_from_train_meta)
+    meta = {"small": True, "use_global_encoder": True}
+    cfg = config_from_train_meta(meta)
+    assert cfg.use_global_encoder
+    tex = TexturalTrainer(cfg)
+    d = str(tmp_path / "tex")
+    TC.save_checkpoint(d, 1, {"netG": tex.netG.state_dict(),
+                              "netE": tex.netE.state_dict()}, meta=meta)
+    with pytest.raises(ValueError, match="netGlobalE"):
+        load_trainer(NS(device="cpu", seed=0, ckpt_dir=d))
 
 
 def test_load_trainer_rebuilds_small_nets_from_meta(tmp_path):

@@ -683,3 +683,104 @@ def test_depth_vjp_same_bits_every_run(cuda):
     assert grads[2].abs().max() > 0
     torch.testing.assert_close(grads[0], grads[2], rtol=0,
                                atol=1e-5 * float(grads[2].abs().max()))
+
+
+def _clone(x):
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def _textural_setup(dev, **kw):
+    """The textural trainer at full width (TexturalConfig(), VGG loss on)
+    on the card at 64 x 192, batch 1, its initial fields and a synthetic
+    batch of the CLI's."""
+    from types import SimpleNamespace
+
+    from sdn3d_tpu_torch.cli.textural_train import synthetic_batch
+    from sdn3d_tpu_torch.pipelines.textural import (TexturalConfig,
+                                                    TexturalTrainer)
+
+    cfg = TexturalConfig(**kw)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        trainer = TexturalTrainer(cfg)
+    trainer.to(dev)
+    state = trainer.init(torch.Generator().manual_seed(0), 64, 192)
+    batch = synthetic_batch(SimpleNamespace(fine_height=64, fine_width=192,
+                                            batch_size=1),
+                            np.random.RandomState(0), cfg)
+    return trainer, state, _clone(state.fields()), batch
+
+
+def _textural_run(trainer, state, fields0, batch, dev):
+    from sdn3d_tpu_torch.cli.geometric_train import step_generator
+
+    state.load_fields(fields0)
+    pool = (trainer.device_pool(64, 192) if trainer.cfg.pool_size else None)
+    for it in range(2 if pool is not None else 1):
+        state, losses, pool = trainer.make_train_iteration()(
+            state, batch, step_generator(0, it, dev), pool)
+    torch.cuda.synchronize()
+    return _clone(state.fields()), _clone(losses)
+
+
+def _same(a, b, path=""):
+    if isinstance(a, dict):
+        assert sorted(a) == sorted(b), path
+        for k in a:
+            _same(a[k], b[k], f"{path}.{k}")
+    else:
+        assert torch.equal(a, b), path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"use_global_encoder": True,
+                                     "pool_size": 4}])
+def test_textural_iteration_same_bits_every_run(cuda, kw):
+    """A full-width textural iteration (with the global encoder and a
+    history pool: two iterations, the second through the pool) from the
+    same state, batch and draws, twice: every net, Adam's moments and
+    counts and the losses are the same bits (the reflection padding's,
+    the instance average's and the convolutions' backwards add without
+    atomics)."""
+    trainer, state, fields0, batch = _textural_setup(cuda, **kw)
+    a = _textural_run(trainer, state, fields0, batch, cuda)
+    b = _textural_run(trainer, state, fields0, batch, cuda)
+    for k, v in a[1].items():
+        assert torch.isfinite(v), k
+    _same(a[0], b[0])
+    _same(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_textural_iteration_flags_and_no_nondeterministic_op(cuda):
+    """The iteration's forward and backward run with cuDNN's deterministic
+    algorithms on, autotuning off and TF32 off, and the cuDNN flags found
+    are restored after; under torch.use_deterministic_algorithms (warn
+    only, as a probe) no op of the iteration reports a nondeterministic
+    CUDA implementation (cuBLAS's workspace note aside)."""
+    import warnings
+
+    trainer, state, fields0, batch = _textural_setup(cuda)
+    c = torch.backends.cudnn
+    found = (c.deterministic, c.benchmark)
+    inside = []
+    hook = trainer.netG.register_forward_hook(
+        lambda *_: inside.append((c.deterministic, c.benchmark, c.allow_tf32,
+                                  torch.backends.cuda.matmul.allow_tf32)))
+    _textural_run(trainer, state, fields0, batch, cuda)
+    hook.remove()
+    assert inside == [(True, False, False, False)]
+    assert (c.deterministic, c.benchmark) == found
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _textural_run(trainer, state, fields0, batch, cuda)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    bad = [str(w.message) for w in caught
+           if "deterministic" in str(w.message)
+           and "CUBLAS_WORKSPACE_CONFIG" not in str(w.message)]
+    assert not bad, bad
