@@ -153,6 +153,23 @@ Phases, each of which must pass (any failure exits non-zero):
      12e. (inside phase 10) the dataset mode (--split test) on 10b's
      files, one item's host cost, and the trained step served by
      textural_test and edit_benchmark.
+ 13. the semantic trainer and evaluator at the CLI defaults (batch 8,
+     crop 256, 14 classes, the full-width dilated ResNet-50 + PPM, random
+     weights from --seed; no repo kernel on the path), and geometric_train
+     over the KITTI / Cityscapes derender datasets: 13a.
+     cli/semantic_train.main --synthetic (the step written), descent on
+     one batch, two runs of a step give the same bits, ms a step in
+     float32 and bfloat16 (CUDA events), device busy, idle share,
+     launches, FLOPs (FlopCounterMode) and peak memory, float32 also
+     with the decoder's convolutions on cuDNN; 13b. one step's two
+     gradient halves, card float32 within 3x the CPU float32's distance
+     to a float64 CPU run, bfloat16 outside it; 13c.
+     the dataset mode on a write_vkitti_root root, the step served by
+     semantic_test and scored by semantic_eval, ms a frame; 13d.
+     cli/geometric_train --dataset kitti in its four modes and
+     --dataset cityscapes in full and extend on data/synthetic's roots: B1
+     once a rendering step, B3 and B2 once a step with a mask loss, the
+     step written.
 The line before last is the card's name and power limit, the line before
 that the kernels' JSON (launches: phase 11a's training run); the last line is {"ok": true, "device": {...}}.
 """
@@ -160,6 +177,7 @@ that the kernels' JSON (launches: phase 11a's training run); the last line is {"
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -3154,6 +3172,621 @@ def textural_files(args, card: str, tmp: str, root: str, segm: str,
         f"{bench['mean_SSIM']:.6f}, PSNR {bench['mean_PSNR']:.4f} ({card})")
 
 
+# phase 13: the semantic trainer and evaluator at the CLI defaults (batch 8,
+# crop 256, 14 classes, the full-width dilated ResNet-50 + PPM), random
+# weights from --seed, no repo kernel on the path; and geometric_train over
+# the KITTI / Cityscapes derender datasets, which runs B1, B3 and B2.
+# 13a: SEM_CLI_ITERS steps through cli/semantic_train.main, SEM_DESCENT
+# steps on one batch (the loss over the last SEM_WINDOW below
+# SEM_DESCENT_FACTOR times the first's), two runs of a step, ms a step
+# (CUDA events, median of SEM_TIME after SEM_WARM) in float32 (also with
+# the decoder's convolutions on cuDNN) and bfloat16; 13c: SEM_DATA_ITERS
+# steps in the dataset mode, then semantic_test and semantic_eval
+# (SEM_EVAL_FRAMES test frames); 13d: GEO_DATA_ITERS steps of each
+# (dataset, mode) row
+SEM_CLI_ITERS = 2
+SEM_DESCENT = 30
+SEM_WINDOW = 3
+SEM_DESCENT_FACTOR = 0.9
+SEM_WARM = 3
+SEM_TIME = 10
+SEM_DATA_ITERS = 3
+SEM_EVAL_FRAMES = 2
+GEO_DATA_ITERS = 4
+GEO_BATCH = 1            # the writer roots hold 1-4 objects a dataset
+GEO_RUNS = (("kitti", "pretrain"), ("kitti", "extend"), ("kitti", "finetune"),
+            ("kitti", "full"), ("cityscapes", "full"),
+            ("cityscapes", "extend"))
+# 13b: one step at SEM_SMALL, card float32 against a float64 CPU run from
+# identical inputs and dropout masks: the loss within SEM_LOSS_RTOL; each
+# half's gradients (decoder from the float64 run's features, encoder as
+# the VJP of its cotangent) as one vector, its largest error relative to
+# its largest entry and 1 - its cosine each within SEM_CPU_FACTOR times the
+# CPU float32 run's.  The random-init ResNet-50's train-mode BatchNorm
+# magnifies float32 rounding: the CPU's float32 sits 2.3e-2 / cosine
+# 0.99968 off float64 in the encoder half, 5.0e-4 / 0.999999997 in the
+# decoder half.  The same halves with the convolutions in bfloat16 must
+# fall outside these bounds (the bound's own check).  The lowest cosine of
+# a parameter whose largest entry reaches SEM_GRAD_FLOOR of its half's,
+# the card with cuDNN off throughout and the card with the decoder's
+# convolutions on cuDNN (3.4e-2 off in the decoder half) are printed, not
+# bounded
+SEM_SMALL = {"batch_size": 2, "crop_size": 64}
+SEM_LOSS_RTOL = 1e-4
+SEM_CPU_FACTOR = 3.0
+SEM_GRAD_FLOOR = 1e-2
+# the card phase 13 trains on (a CPU rehearsal of the phase's control flow
+# sets "cpu", with the CLIs' defaults shrunk)
+SEM_DEVICE = "cuda"
+
+
+def sem_args(ckpt_dir: str, seed: int, **kw):
+    """cli/semantic_train's arguments at its defaults (full width)."""
+    from sdn3d_tpu_torch.cli.semantic_train import build_argparser
+    argv = ["--ckpt_dir", ckpt_dir, "--seed", str(seed), "--device",
+            SEM_DEVICE]
+    for k, v in kw.items():
+        argv += [f"--{k}"] if v is True else [f"--{k}", str(v)]
+    return build_argparser().parse_args(argv)
+
+
+def sem_batch(args, seed: int, dev):
+    """One synthetic batch of the CLI's, on the device once."""
+    from sdn3d_tpu_torch.cli.semantic_train import synthetic_batches, to_batch
+    return to_batch(*next(synthetic_batches(args, np.random.RandomState(
+        seed))), dev)
+
+
+def sem_steps(trainer, state, batch, seed: int, n: int, first: int = 0):
+    """n train steps on one batch, each with the CLI's dropout generator;
+    returns (state, [losses], [ms a step by CUDA events])."""
+    import torch
+
+    from sdn3d_tpu_torch.cli.geometric_train import step_generator
+    dev = batch[0].device
+    out, events = [], []
+    for i in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, metrics = trainer.train_step(
+            state, *batch, step_generator(seed, first + i, dev))
+        b.record()
+        out.append(metrics["loss"])
+        events.append((a, b))
+    torch.cuda.synchronize()
+    return (state, [float(l) for l in out],
+            [a.elapsed_time(b) for a, b in events])
+
+
+@contextlib.contextmanager
+def decoder_on_cudnn():
+    """The semantic decoders' convolutions on cuDNN, as Conv2d computes
+    them, in place of their float32 training route on the card
+    (models/semantic.DecoderConv2d): 13a's and 13b's comparison."""
+    from sdn3d_tpu_torch.models.layers import Conv2d
+    from sdn3d_tpu_torch.models.semantic import DecoderConv2d
+    route = DecoderConv2d.forward
+    DecoderConv2d.forward = Conv2d.forward
+    try:
+        yield
+    finally:
+        DecoderConv2d.forward = route
+
+
+def sem_halves(model, images, labels, masks, dev, dtype, feats=None,
+               cot=None, compute="float32"):
+    """One training forward of `model` (a copy, on dev in dtype, its
+    convolutions computing in `compute`) in two halves: the decoder's loss
+    and gradients from `feats` (or the encoder's own features), then the
+    encoder's VJP of `cot` (or of the decoder's cotangent).  Returns
+    (loss, decoder grads, encoder grads, features, cotangent), the last
+    two in float64 on the CPU."""
+    import torch
+
+    from sdn3d_tpu_torch.models.layers import set_compute_dtype
+    from sdn3d_tpu_torch.pipelines.derender import deterministic_cudnn
+    from sdn3d_tpu_torch.pipelines.semantic import SemanticTrainer
+    m = copy.deepcopy(model).to(dev, dtype).train()
+    set_compute_dtype(m, compute)
+    with deterministic_cudnn():
+        out = m.encoder.stages(images.to(dev, dtype))[1:]
+        src = out if feats is None else [f.to(dev, dtype) for f in feats]
+        conv = [f.detach().requires_grad_(True) for f in src]
+        loss, _ = SemanticTrainer(m).objective(
+            m.decoder(conv, dropout=[k.to(dev) for k in masks]),
+            labels.to(dev))
+        g = torch.autograd.grad(loss, list(m.decoder.parameters()) + conv,
+                                allow_unused=True)
+        n = len(list(m.decoder.parameters()))
+        g_dec = g[:n]
+        g_conv = [torch.zeros_like(c) if x is None else x
+                  for c, x in zip(conv, g[n:])]
+        cot = g_conv if cot is None else [c.to(dev, dtype) for c in cot]
+        g_enc = torch.autograd.grad(out, list(m.encoder.parameters()),
+                                    grad_outputs=cot)
+    return (float(loss.detach()), g_dec, g_enc,
+            [f.detach().double().cpu() for f in src],
+            [c.detach().double().cpu() for c in g_conv])
+
+
+def half_errors(got, want):
+    """(largest error relative to the largest entry, cosine) of a half's
+    gradients, all parameters as one vector, against a float64 list; and
+    the lowest cosine of a parameter whose largest entry reaches
+    SEM_GRAD_FLOOR of the half's."""
+    import torch
+    g = torch.cat([x.double().cpu().reshape(-1) for x in got])
+    w = torch.cat([x.reshape(-1) for x in want])
+    top = float(w.abs().max())
+    low = 1.0
+    for a, b in zip(got, want):
+        a = a.double().cpu()
+        if float(b.abs().max()) >= SEM_GRAD_FLOOR * top:
+            low = min(low, float((a * b).sum() / (a.norm() * b.norm())))
+    return (float((g - w).abs().max()) / top,
+            float((g * w).sum() / (g.norm() * w.norm())), low)
+
+
+def conv_last_routes(model, feats, seed: int, card: str) -> None:
+    """The PPM's conv_last.0 (4096 -> 512, 3x3) on the card in float32 by
+    route, cuDNN (Conv2d) and the decoders' training route
+    (models/semantic._GemmConv): the forward and the weight gradient (of
+    a random cotangent) against float64 on the CPU at 13b's input (the
+    float64 run's features through the PPM's branches), largest error
+    relative to the largest entry; and ms of each route's forward and
+    weight gradient at 13a's shapes (batch 8, 32 x 32; CUDA events)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sdn3d_tpu_torch.models.semantic import _GemmConv, resize_bilinear
+    from sdn3d_tpu_torch.pipelines.derender import deterministic_cudnn
+    dec = copy.deepcopy(model.decoder).double().train()
+    c5 = feats[-1]
+    with torch.no_grad():
+        x = torch.cat([c5] + [resize_bilinear(b(c5), c5.shape[2:])
+                              for b in dec.ppm], 1)
+    w = dec.conv_last[0].weight.detach()
+    g = torch.randn(x.shape[0], w.shape[0], *x.shape[2:], dtype=x.dtype,
+                    generator=torch.Generator().manual_seed(seed))
+    w64 = w.clone().requires_grad_(True)
+    want = F.conv2d(x, w64, padding=1)
+    want_gw = torch.autograd.grad(want, w64, g)[0]
+    want = want.detach()
+    dev = torch.device(SEM_DEVICE)
+
+    def routes(x, w):
+        return {"cuDNN": lambda: F.conv2d(x, w, padding=1),
+                "GEMM": lambda: _GemmConv.apply(
+                    x, w, ((1, 1), (1, 1), (1, 1), 1))}
+    errs = {}
+    xc = x.to(dev, torch.float32)
+    wc = w.to(dev, torch.float32).requires_grad_(True)
+    with deterministic_cudnn():
+        for key, fn in routes(xc, wc).items():
+            y = fn()
+            gw = torch.autograd.grad(y, wc, g.to(dev, torch.float32))[0]
+            errs[key] = [float((a.double().cpu() - b).abs().max()
+                               / b.abs().max())
+                         for a, b in ((y, want), (gw, want_gw))]
+        xb = torch.randn(8, x.shape[1], 32, 32, device=dev)
+        wb = torch.randn(w.shape, device=dev, requires_grad=True) * 1e-2
+        ms = {}
+        for key, fn in routes(xb, wb).items():
+            y = fn()
+            gb = torch.randn_like(y)
+            ms[key] = (cuda_ms(fn, 5, 2), cuda_ms(lambda: torch.autograd.grad(
+                y, wb, gb, retain_graph=True), 5, 2))
+    log("[sem-13b] conv_last.0 (4096 -> 512, 3x3) float32 by route: "
+        + "; ".join(f"{k}: forward {errs[k][0]:.3e}, weight gradient "
+                    f"{errs[k][1]:.3e} off float64 at {tuple(x.shape)}; "
+                    f"{ms[k][0]:.3f} / {ms[k][1]:.3f} ms forward / weight "
+                    f"gradient at batch 8, 32x32" for k in errs)
+        + f" ({card})")
+
+
+def sem_card_against_cpu(seed: int, card: str) -> None:
+    """13b: one training forward and backward at SEM_SMALL, in two halves
+    from identical inputs and dropout masks, on the card in float32 and on
+    the CPU in float64 (and float32, the bound's measure); the card in
+    bfloat16 must fall outside the bound; the card with cuDNN off, and
+    with the decoder's convolutions on cuDNN, printed beside."""
+    import torch
+
+    from sdn3d_tpu_torch.models.semantic import SemanticModel
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = SemanticModel(num_class=14)
+    B, S = SEM_SMALL["batch_size"], SEM_SMALL["crop_size"]
+    rs = np.random.RandomState(seed + 11)
+    images = torch.from_numpy(rs.rand(B, 3, S, S).astype(np.float32))
+    labels = torch.from_numpy(rs.randint(-1, 14, (B, S // 8, S // 8)))
+    g = torch.Generator().manual_seed(seed)
+    masks = [torch.rand(B, 512, S // 8, S // 8, generator=g) < 0.9
+             for _ in range(2)]
+    ref = sem_halves(model, images, labels, masks, "cpu", torch.float64)
+    conv_last_routes(model, ref[3], seed, card)
+    given = dict(feats=ref[3], cot=ref[4])
+    runs = {key: sem_halves(model, images, labels, masks, dev, torch.float32,
+                            compute=compute, **given)
+            for key, dev, compute in (("card", SEM_DEVICE, "float32"),
+                                      ("cpu", "cpu", "float32"),
+                                      ("bfloat16", SEM_DEVICE, "bfloat16"))}
+    with torch.backends.cudnn.flags(enabled=False):
+        runs["native"] = sem_halves(model, images, labels, masks, SEM_DEVICE,
+                                    torch.float32, **given)
+    with decoder_on_cudnn():
+        runs["cudnn"] = sem_halves(model, images, labels, masks, SEM_DEVICE,
+                                   torch.float32, **given)
+    res = {}
+    for key, (loss, g_dec, g_enc, _, _) in runs.items():
+        res[key] = (abs(loss - ref[0]) / abs(ref[0]),
+                    half_errors(g_dec, ref[1]), half_errors(g_enc, ref[2]))
+    cpu = res["cpu"]
+
+    def within(r, h):
+        # half h of reading r within SEM_CPU_FACTOR x the CPU float32's
+        return (r[h][0] <= SEM_CPU_FACTOR * cpu[h][0]
+                and 1 - r[h][1] <= SEM_CPU_FACTOR * (1 - cpu[h][1]))
+    c = res["card"]
+    if not (c[0] <= SEM_LOSS_RTOL and within(c, 1) and within(c, 2)):
+        raise AssertionError(f"13b card against float64: {c}; the CPU's "
+                             f"float32: {cpu}")
+    if within(res["bfloat16"], 1) or within(res["bfloat16"], 2):
+        raise AssertionError(f"13b: a bfloat16 half passes the bound: "
+                             f"{res['bfloat16']}; the CPU's float32: {cpu}")
+
+    def fmt(r):
+        return (f"loss rel {r[0]:.3e}; decoder half {r[1][0]:.3e} / cosine "
+                f"{r[1][1]:.9f} (lowest parameter {r[1][2]:.7f}); encoder "
+                f"half {r[2][0]:.3e} / {r[2][1]:.9f} (lowest parameter "
+                f"{r[2][2]:.7f})")
+    log(f"[sem-13b] card float32 against a float64 CPU run at {B}x{S}x{S} "
+        f"(full width, identical inputs and masks; each half's gradients as "
+        f"one vector, error relative to its largest entry): {fmt(c)} "
+        f"(bounds: loss {SEM_LOSS_RTOL}; each half within {SEM_CPU_FACTOR}x "
+        f"the CPU float32's error and 1 - cosine); the CPU's float32: "
+        f"{fmt(cpu)}; the card in bfloat16 (outside the bound in both "
+        f"halves): {fmt(res['bfloat16'])}; not bounded: the card with "
+        f"cuDNN off {fmt(res['native'])}; the card with the decoder's "
+        f"convolutions on cuDNN {fmt(res['cudnn'])} ({card})")
+
+
+def sem_times(args, seed: int, card: str, tmp: str) -> None:
+    """13a's times: a float32 step's FLOPs, then per dtype ms a step
+    (CUDA events), host wall, device busy and idle share, launches a
+    step, the top kernels and peak memory; float32 also with the
+    decoder's convolutions on cuDNN (decoder_on_cudnn)."""
+    flops = top_ops = None
+    for dtype, route in (("float32", contextlib.nullcontext),
+                         ("float32", decoder_on_cudnn),
+                         ("bfloat16", contextlib.nullcontext)):
+        with route():
+            flops, top_ops = sem_time(seed, card, tmp, dtype, flops,
+                                      top_ops, route is decoder_on_cudnn)
+    log("[sem-13a] FLOPs by op (one float32 step): "
+        + "; ".join(f"{k} {v:.3e}" for k, v in top_ops))
+
+
+def sem_time(seed: int, card: str, tmp: str, dtype: str, flops, top_ops,
+             on_cudnn: bool):
+    """One of 13a's timed variants; counts a step's FLOPs when `flops` is
+    None.  Returns (flops, top_ops)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from sdn3d_tpu_torch.cli.semantic_train import build_trainer
+    targs = sem_args(os.path.join(tmp, "none"), seed,
+                     compute_dtype=dtype)
+    trainer = build_trainer(targs)
+    state = trainer.init()
+    batch = sem_batch(targs, seed, targs.device)
+    if flops is None:
+        with FlopCounterMode(display=False) as counter:
+            state, _, _ = sem_steps(trainer, state, batch, seed, 1)
+        flops = counter.get_total_flops()
+        top_ops = sorted(((str(k), v) for k, v in counter.get_flop_counts(
+            ).get("Global", {}).items()), key=lambda kv: -kv[1])[:5]
+    state, _, _ = sem_steps(trainer, state, batch, seed, SEM_WARM)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, losses, ms = sem_steps(trainer, state, batch, seed, SEM_TIME,
+                                  first=SEM_WARM)
+    wall = (time.perf_counter() - t0) * 1e3 / SEM_TIME
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = sorted(ms)
+    busy, kernels = device_time(lambda: sem_steps(
+        trainer, state, batch, seed, 2), 2)
+    launches = sum(v[1] for _, v in kernels) / 2
+    conv = sum(v[0] for k, v in kernels if any(
+        w in k.lower() for w in ("conv", "cudnn", "xmma", "gemm",
+                                 "gemv", "fft")))
+    bound = flops / (H100_FP32_FLOPS if dtype == "float32"
+                     else H100_BF16_FLOPS) * 1e3
+    med = ms[len(ms) // 2]
+    what = dtype + (", the decoder's convolutions on cuDNN"
+                    if on_cudnn else "")
+    log(f"[sem-13a] {what} step at the CLI defaults (batch 8, crop "
+        f"256): {med:.3f} ms (median of {SEM_TIME} after "
+        f"{SEM_WARM}, CUDA events; min {ms[0]:.3f}, max {ms[-1]:.3f}), "
+        f"host wall {wall:.3f} ms a step; device busy {busy:.3f} ms, "
+        f"idle share {1 - busy / wall:.4f}; {launches:.0f} launches a "
+        f"step; convolution kernels {conv:.3f} ms; {flops:.4e} FLOP a "
+        f"step (FlopCounterMode, float32 run), floor {bound:.3f} ms at "
+        f"the card's {dtype} peak ({bound / med * 100:.1f}% of it); peak "
+        f"memory {peak:.2f} GiB; finite loss {np.isfinite(losses).all()} "
+        f"({card})")
+    log(f"[sem-13a] {what} top kernels (ms a step, launches over 2): "
+        + "; ".join(f"{k[:70]} {v[0]:.3f} ({v[1]})"
+                    for k, v in kernels[:8]))
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    return flops, top_ops
+
+
+def sem_dataset_root(root: str, seed: int):
+    """13c's VKITTI root (data/synthetic.write_vkitti_root): four train
+    frames of 0001/clone with one or two cars (also 13d's VKITTI rows)
+    and the first SEM_EVAL_FRAMES frames of the test split with one car.
+    Returns the train frames' list entries."""
+    from sdn3d_tpu_torch.data.synthetic import write_vkitti_root
+    from sdn3d_tpu_torch.data.vkitti import get_lists
+    frames = {("0001", "clone", f"{i:05d}"): [(150, 200 + 90 * i, 260,
+                                              380 + 90 * i)]
+              + ([(170, 800, 250, 930)] if i % 2 else [])
+              for i in range(4)}
+    for f in get_lists("test")[:SEM_EVAL_FRAMES]:
+        w, t, name = f.split("/")
+        frames[(w, t, name[:-4])] = [(160, 500, 270, 700)]
+    write_vkitti_root(root, frames, seed)
+    return sorted(f"{w}/{t}/{n}.png" for (w, t, n) in frames
+                  if w == "0001" and t == "clone")
+
+
+def semantic_phase(args, card: str, shapenet: str, tmp: str,
+                   mark=lambda what: None) -> None:
+    """Phase 13: the semantic trainer and evaluator, and geometric_train
+    over the KITTI / Cityscapes derender datasets.  13a:
+    cli/semantic_train.main --synthetic at the CLI defaults (batch 8, crop
+    256; the step written), descent on one batch, two runs of a step give
+    the same bits, ms a step in float32 and bfloat16 with device busy,
+    idle share, launches, FLOPs and peak memory; 13b: the card against a
+    float64 CPU run; 13c: the dataset mode on a write_vkitti_root root
+    (the CLI's get_lists patched to the root's train frames), the step
+    served by semantic_test and scored by semantic_eval, ms a frame; 13d:
+    cli/geometric_train --dataset kitti in its four modes and cityscapes
+    in full and extend on the data/synthetic writers' roots, shapenet's
+    eight meshes, full-width shapes (batch GEO_BATCH): B1 launched once a
+    rendering step, B3 and B2 once a step with a mask loss, the step
+    written."""
+    import contextlib
+    import io
+
+    import torch
+
+    from sdn3d_tpu_torch.cli import (geometric_train, semantic_eval,
+                                     semantic_test, semantic_train)
+    from sdn3d_tpu_torch.cli.semantic_train import build_trainer
+    from sdn3d_tpu_torch.core.checkpoint import latest_step
+    from sdn3d_tpu_torch.data import synthetic, vkitti
+    from sdn3d_tpu_torch.ops import rasterize as TR
+    from sdn3d_tpu_torch.ops import rasterize_cuda as TC
+    from sdn3d_tpu_torch.pipelines import derender as TPD
+    from sdn3d_tpu_torch.pipelines.semantic import SemanticTrainState
+
+    t_phase = time.perf_counter()
+    # -- 13a. the CLI, descent, the same bits, times ------------------------
+    ck = os.path.join(tmp, "sem_ck")
+    t0 = time.perf_counter()
+    state = semantic_train.main(["--synthetic", "--num_iters",
+                                 str(SEM_CLI_ITERS), "--ckpt_dir", ck,
+                                 "--seed", str(args.seed), "--device",
+                                 SEM_DEVICE])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    files = sorted(os.listdir(os.path.join(ck, f"step-{SEM_CLI_ITERS}")))
+    if latest_step(ck) != SEM_CLI_ITERS or state.step != SEM_CLI_ITERS \
+            or files != ["decoder.pt", "encoder.pt", "opt_dec.pt",
+                         "opt_enc.pt", "step.pt"]:
+        raise AssertionError(f"13a semantic_train: step {latest_step(ck)}, "
+                             f"files {files}")
+    del state
+    log(f"[sem-13a] semantic_train --synthetic at the CLI defaults (batch "
+        f"8, crop 256, 14 classes, 51.4M parameters): {SEM_CLI_ITERS} "
+        f"steps, step written ({', '.join(files)}) in {cli_s:.2f} s (model "
+        f"built and saved included) ({card})")
+    targs = sem_args(os.path.join(tmp, "none"), args.seed)
+    trainer = build_trainer(targs)
+    state = trainer.init()
+    batch = sem_batch(targs, args.seed, targs.device)
+    fields0 = clone_fields(state.fields())
+    state, losses, _ = sem_steps(trainer, state, batch, args.seed,
+                                 SEM_DESCENT)
+    first = float(np.mean(losses[:SEM_WINDOW]))
+    last = float(np.mean(losses[-SEM_WINDOW:]))
+    if not np.isfinite(losses).all() or not last < SEM_DESCENT_FACTOR * first:
+        raise AssertionError(f"13a descent: {losses}")
+    log(f"[sem-13a] {SEM_DESCENT} steps on one batch: loss first / last "
+        f"{SEM_WINDOW} {first:.6f} -> {last:.6f} (factor {last / first:.4f}"
+        f", bound {SEM_DESCENT_FACTOR}); step 0 {losses[0]:.6f}, step "
+        f"{SEM_DESCENT - 1} {losses[-1]:.6f}")
+    runs = []
+    for _ in range(2):
+        state = SemanticTrainState.from_fields(clone_fields(fields0),
+                                               trainer.model)
+        state, losses, _ = sem_steps(trainer, state, batch, args.seed, 1)
+        runs.append((clone_fields(state.fields()), losses[0]))
+    bad = same_fields(runs[0][0], runs[1][0])
+    if bad or runs[0][1] != runs[1][1]:
+        raise AssertionError(f"13a: two runs of a step differ: {bad[:8]}, "
+                             f"{runs[0][1]} / {runs[1][1]}")
+    log("[sem-13a] two runs of a full-width step from the same state, batch "
+        "and dropout draws: the encoder, the decoder (running statistics "
+        "included), both momentum traces and counts and the loss bit-equal")
+    del runs, trainer, state, batch, fields0
+    torch.cuda.empty_cache()
+    mark("13a. semantic CLI, descent, same bits")
+    sem_times(targs, args.seed, card, tmp)
+    mark("13a. semantic times")
+
+    # -- 13b. card against CPU float64 ----------------------------------------
+    sem_card_against_cpu(args.seed, card)
+    mark("13b. semantic card against CPU")
+
+    # -- 13c. the dataset mode, semantic_test, semantic_eval -------------------
+    root = os.path.join(tmp, "sem_vk")
+    train_files = sem_dataset_root(root, args.seed)
+    ck2 = os.path.join(tmp, "sem_ck_data")
+    lists = vkitti.get_lists
+    vkitti.get_lists = lambda opt: train_files if opt == "train" \
+        else lists(opt)
+    try:
+        t0 = time.perf_counter()
+        state = semantic_train.main([
+            "--data_root", root, "--num_iters", str(SEM_DATA_ITERS),
+            "--save_every", str(SEM_DATA_ITERS), "--ckpt_dir", ck2, "--seed",
+            str(args.seed), "--device", SEM_DEVICE])
+        torch.cuda.synchronize()
+        data_s = time.perf_counter() - t0
+    finally:
+        vkitti.get_lists = lists
+    if state.step != SEM_DATA_ITERS or latest_step(ck2) != SEM_DATA_ITERS:
+        raise AssertionError(f"13c dataset mode: step {state.step}")
+    del state
+    torch.cuda.empty_cache()
+    test_files = lists("test")[:SEM_EVAL_FRAMES]
+    out = os.path.join(tmp, "sem_out")
+    frame = os.path.join(root, "vkitti_1.3.1_rgb", test_files[0])
+    semantic_test.main(["--test_img", frame, "--ckpt_dir", ck2, "--result",
+                        out, "--device", SEM_DEVICE])
+    from PIL import Image
+    stem = os.path.splitext(os.path.basename(frame))[0]
+    labels = np.asarray(Image.open(os.path.join(out, f"{stem}.png")))
+    if labels.shape != (375, 1242) or labels.max() >= 14:
+        raise AssertionError(f"13c semantic_test: {labels.shape}")
+    t0 = time.perf_counter()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        res = semantic_eval.main(["--data_root", root, "--ckpt_dir", ck2,
+                                  "--limit", str(SEM_EVAL_FRAMES),
+                                  "--device", SEM_DEVICE])
+    eval_s = time.perf_counter() - t0
+    if not (np.isfinite(res["iou"]).all() and 0 <= res["mean_iou"] <= 1
+            and "Mean IoU" in text.getvalue()):
+        raise AssertionError(f"13c semantic_eval: {res}")
+    # steady ms a frame: the evaluator's multi-scale pass on a loaded model
+    from sdn3d_tpu_torch.pipelines.semantic import multiscale_labels_fused
+    model = semantic_test.load_model(SimpleNamespace(
+        device=SEM_DEVICE, num_class=14, ckpt_dir=ck2, seed=args.seed))
+    rgb = np.asarray(Image.open(frame).convert("RGB"))
+    multiscale_labels_fused(model, rgb, device=SEM_DEVICE)
+    frame_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        multiscale_labels_fused(model, rgb, device=SEM_DEVICE)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    del model
+    torch.cuda.empty_cache()
+    log(f"[sem-13c] dataset mode (get_lists patched to the root's "
+        f"{len(train_files)} train frames, 375x1242, batch 8, crop 256): "
+        f"{SEM_DATA_ITERS} steps in {data_s:.2f} s (model built and step "
+        f"saved included, {data_s / SEM_DATA_ITERS * 1e3:.1f} ms a step "
+        f"all in); semantic_test --ckpt_dir served the step (labels "
+        f"{labels.shape}); semantic_eval --limit {SEM_EVAL_FRAMES} (5 "
+        f"scales): mean IoU {res['mean_iou']:.4f}, accuracy "
+        f"{res['accuracy']:.2f}% in {eval_s:.2f} s (model load included, "
+        f"{eval_s / SEM_EVAL_FRAMES * 1e3:.1f} ms a frame all in); a "
+        f"frame's multi-scale pass {sorted(frame_ms)[1]:.3f} ms (median of "
+        f"3, host wall, fetch included) ({card})")
+    mark("13c. semantic dataset mode, semantic_test, semantic_eval")
+
+    # -- 13d. geometric_train over the KITTI / Cityscapes datasets ------------
+    roots = {"kitti": os.path.join(tmp, "geo_kitti"),
+             "ksem": os.path.join(tmp, "geo_ksem"),
+             "cs": os.path.join(tmp, "geo_cs")}
+    synthetic.write_kitti_object_root(roots["kitti"])
+    synthetic.write_kitti_semantics_root(roots["ksem"])
+    synthetic.write_cityscapes_derender_root(roots["cs"])
+    kernels = (TC.rasterize_face_index_cuda, TC.walk_grads_cuda,
+               TC.segment_face_grads_cuda)
+    plain = (TR.rasterize_face_maps, TR.walk_grads_plain,
+             TR.segment_face_grads_plain)
+    losses_fn, step_fn = TPD.DerenderTrainer.losses, \
+        TPD.DerenderTrainer.train_step
+    masked, events = [], []
+
+    def losses(self, blob, batch):
+        out = losses_fn(self, blob, batch)
+        masked.append("mask_loss" in out)
+        return out
+
+    def train_step(self, state, batch, generator=None):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = step_fn(self, state, batch, generator)
+        b.record()
+        events.append((a, b))
+        return out
+    TPD.DerenderTrainer.losses = losses
+    TPD.DerenderTrainer.train_step = train_step
+    rows = []
+    try:
+        for dataset, mode in GEO_RUNS:
+            ckd = os.path.join(tmp, f"geo_ck_{dataset}_{mode}")
+            argv = ["--mode", mode, "--dataset", dataset, "--num_iters",
+                    str(GEO_DATA_ITERS), "--save_every", str(GEO_DATA_ITERS),
+                    "--batch_size", str(GEO_BATCH), "--num_workers", "2",
+                    "--ckpt_dir", ckd, "--shapenet_root", shapenet,
+                    "--seed", str(args.seed), "--device", SEM_DEVICE]
+            if dataset == "kitti":
+                argv += ["--kitti_object_root", roots["kitti"],
+                         "--kitti_semantics_root", roots["ksem"]]
+            else:
+                argv += ["--cityscapes_root", roots["cs"], "--vkitti_root",
+                         root]
+            for fn in kernels:
+                fn.launches = 0
+            for fn in plain:
+                fn.calls = 0
+            masked.clear()
+            events.clear()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                state = geometric_train.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = [fn.launches for fn in kernels]
+            step_ms = sorted(a.elapsed_time(b) for a, b in events[1:])
+            renders = GEO_DATA_ITERS if TPD.TargetType.BY_NAME[mode] \
+                & TPD.TargetType.reproject else 0
+            n_mask = sum(masked)
+            if counts != [renders, n_mask, n_mask] \
+                    or any(fn.calls for fn in plain) \
+                    or state.step != GEO_DATA_ITERS \
+                    or latest_step(ckd) != GEO_DATA_ITERS:
+                raise AssertionError(
+                    f"13d {dataset} {mode}: launches {counts} for {renders} "
+                    f"rendering steps, {n_mask} with a mask loss; plain "
+                    f"{[fn.calls for fn in plain]}; step {state.step}")
+            rows.append(f"{dataset} {mode}: B1/B3/B2 {counts} over "
+                        f"{GEO_DATA_ITERS} steps ({renders} rendering, "
+                        f"{n_mask} with a mask loss), steps after the "
+                        f"first {', '.join(f'{m:.3f}' for m in step_ms)} ms "
+                        f"(CUDA events), {wall:.2f} s all in")
+            del state
+    finally:
+        TPD.DerenderTrainer.losses = losses_fn
+        TPD.DerenderTrainer.train_step = step_fn
+    torch.cuda.empty_cache()
+    log(f"[sem-13d] geometric_train on the writer roots (batch "
+        f"{GEO_BATCH}, image 256, render 384, shapenet's eight meshes; model "
+        f"built, bank loaded and step saved included): " + "; ".join(rows)
+        + f" ({card})")
+    mark("13d. geometric_train on kitti and cityscapes")
+    log(f"[sem] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3458,6 +4091,8 @@ def main(argv=None) -> int:
         detection_phase(args, card, frames, shapenet, tmp, mark)
         # -- 11. derenderer training at full width ---------------------------
         t_launches = training_phase(args, card, frames, shapenet, tmp, mark)
+        # -- 13. semantic training and the kitti / cityscapes datasets ------
+        semantic_phase(args, card, shapenet, tmp, mark)
 
     # -- 5. kernels vs plain at the main paths' shapes ------------------------
     cf, cv, cs, cc = (captured["faces"], captured["valid"], captured["size"],

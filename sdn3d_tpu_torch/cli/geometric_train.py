@@ -4,9 +4,11 @@ geometric/scripts/main.py --do train; JAX cli/geometric_train.py).
 Modes map to TargetType bitmasks (derender3d/__init__.py): pretrain
 (geometry-only losses), full (geometry + reprojection), finetune and
 extend.  Batches are synthetic (`--synthetic`, or no real dataset root)
-or per-object VKITTI items (`--dataset vkitti --vkitti_root`) through the
-threaded prefetch loader; the kitti and cityscapes datasets are ROADMAP
-A9.  The mesh bank is 8 spheres with `--synthetic` or without
+or per-object items through the threaded prefetch loader, the dataset
+picked by (--dataset, --mode) as the reference's data_loader does
+(data/select.py): VKITTI, KITTI object / semantics (with the kitti-full
+weighted hybrid) or Cityscapes (with the 0.75 / 0.25 VKITTI hybrid in
+full mode).  The mesh bank is 8 spheres with `--synthetic` or without
 `--shapenet_root`.  Each step draws its REINFORCE classes from a
 torch.Generator seeded from (--seed, iteration).  The state is saved as a
 core/checkpoint step (fields "derenderer", "opt_state", "step"; the
@@ -48,8 +50,9 @@ def build_argparser():
                    choices=["vkitti", "kitti", "cityscapes"],
                    default="vkitti",
                    help="training corpus; selection by (dataset, mode) "
-                        "mirrors derender3d/data_loader.py:43-82 (kitti "
-                        "and cityscapes are not ported yet, ROADMAP A9)")
+                        "mirrors derender3d/data_loader.py:43-82 incl. "
+                        "the kitti-full weighted hybrid and the "
+                        "cityscapes 0.75/0.25 vkitti mix")
     p.add_argument("--vkitti_root",
                    default=os.environ.get("VKITTI_ROOT_DIR"),
                    help="train on real VKITTI per-object items (threaded "
@@ -153,6 +156,12 @@ def main(argv=None):
                 cityscapes_root=args.cityscapes_root,
                 is_train=True, image_size=args.image_size,
                 render_size=args.render_size)
+            if sampler is None and len(ds) < args.batch_size:
+                # an epoch would yield no whole batch, and the loop below
+                # would ask for epochs forever
+                raise ValueError(f"the {args.dataset} dataset for --mode "
+                                 f"{args.mode} holds {len(ds)} items, fewer "
+                                 f"than --batch_size {args.batch_size}")
             print(f"{args.dataset} derender dataset: {len(ds)} objects"
                   + (" (weighted hybrid sampler)" if sampler else ""))
             it = 0

@@ -19,7 +19,12 @@ fields, which `restore_variables` leaves on disk:
     "netGlobalE.*") and opt_d.pt ({"count", "mu", "nu"} each), step.pt;
     the manifest's meta is the CLI's vars(args), as in JAX, from which
     pipelines/textural.config_from_train_meta rebuilds the nets, and
-    restore_variables(dir, ["netG", "netE"]) serves the step.  The JAX package's orbax step
+    restore_variables(dir, ["netG", "netE"]) serves the step;
+  - semantic training (cli/semantic_train): encoder.pt, decoder.pt,
+    opt_enc.pt and opt_dec.pt ({"count", "trace"}: each SGD optimizer's
+    schedule count and momentum traces by parameter name), step.pt; the
+    manifest's meta is vars(args); semantic_test and semantic_eval
+    --ckpt_dir read encoder.pt and decoder.pt.  The JAX package's orbax step
 directories are not readable here; their variables convert with
 utils/port into a step of this layout.
 """

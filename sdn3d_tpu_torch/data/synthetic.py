@@ -1,5 +1,6 @@
-"""Synthetic meshes, derenderer training batches and a synthetic Virtual
-KITTI root for tests, smoke runs and benchmarks."""
+"""Synthetic meshes, derenderer training batches and synthetic dataset
+roots (Virtual KITTI; KITTI object and semantics; Cityscapes for the
+derenderer) for tests, smoke runs and benchmarks."""
 
 from __future__ import annotations
 
@@ -160,3 +161,93 @@ def write_vkitti_root(root: str, frames, seed: int = 0,
     for (world, topic), rows in motgt.items():
         with open(os.path.join(mot_dir, f"{world}_{topic}.txt"), "w") as f:
             f.write("\n".join([MOTGT_HEADER] + rows) + "\n")
+
+
+# the derender dataset roots' frame size (tests/test_geometric_datasets.py)
+DERENDER_ROOT_HW = (128, 256)
+
+
+def write_cityscapes_derender_root(root: str, seed: int = 0,
+                                   hw: Tuple[int, int] = DERENDER_ROOT_HW
+                                   ) -> None:
+    """A Cityscapes layout for data/cityscapes_derender (gtFine
+    instanceIds, disparity, leftImg8bit) with 2 train frames of darmstadt,
+    each one car (instance 26000 + k) with a nearer blob in the disparity
+    and a person that is not a car; RGB noise from RandomState(seed)."""
+    import os
+
+    from PIL import Image
+
+    H, W = hw
+    rng = np.random.RandomState(seed)
+    for k, (seq, frame) in enumerate([("000035", "000019"),
+                                      ("000036", "000019")]):
+        gt = os.path.join(root, "gtFine", "train", "darmstadt")
+        im = os.path.join(root, "images", "leftImg8bit", "train",
+                          "darmstadt")
+        dp = os.path.join(root, "disparity", "train", "darmstadt")
+        for d in (gt, im, dp):
+            os.makedirs(d, exist_ok=True)
+        stem = f"darmstadt_{seq}_{frame}"
+        scene = np.zeros((H, W), np.uint16)
+        scene[30:90, 40:110] = 26000 + k          # car instance
+        scene[95:120, 150:220] = 24000            # person -> not a car
+        Image.fromarray(scene).save(
+            os.path.join(gt, f"{stem}_gtFine_instanceIds.png"))
+        disp = np.zeros((H, W), np.uint16)
+        disp[30:90, 40:110] = 100                 # object plane
+        disp[0:20, 0:30] = 200                    # something nearer
+        Image.fromarray(disp).save(
+            os.path.join(dp, f"{stem}_disparity.png"))
+        Image.fromarray(rng.randint(0, 255, (H, W, 3), np.uint8)).save(
+            os.path.join(im, f"{stem}_leftImg8bit.png"))
+
+
+def write_kitti_object_root(root: str, seed: int = 1,
+                            hw: Tuple[int, int] = DERENDER_ROOT_HW) -> None:
+    """A KITTI object layout for data/kitti.KittiObjectDataset (label_2,
+    calib, image_2) with 2 frames of one Car each; RGB noise from
+    RandomState(seed)."""
+    import os
+
+    from PIL import Image
+
+    H, W = hw
+    rng = np.random.RandomState(seed)
+    lab = os.path.join(root, "training", "label_2")
+    cal = os.path.join(root, "training", "calib")
+    img = os.path.join(root, "training", "image_2")
+    for d in (lab, cal, img):
+        os.makedirs(d, exist_ok=True)
+    for frame in (0, 1):
+        with open(os.path.join(lab, f"{frame:06d}.txt"), "w") as f:
+            f.write("Car 0.00 0 -1.58 87.01 33.33 174.12 100.12 "
+                    "1.65 1.67 3.64 -0.65 1.71 46.70 -1.59\n")
+        with open(os.path.join(cal, f"{frame:06d}.txt"), "w") as f:
+            f.write("P2: 721.5377 0.0 128.0 44.857 0.0 721.5377 "
+                    "64.0 0.216 0.0 0.0 1.0 0.0027\n")
+        Image.fromarray(rng.randint(0, 255, (H, W, 3), np.uint8)).save(
+            os.path.join(img, f"{frame:06d}.png"))
+
+
+def write_kitti_semantics_root(root: str, seed: int = 2,
+                               hw: Tuple[int, int] = DERENDER_ROOT_HW
+                               ) -> None:
+    """A KITTI semantics layout for data/kitti.KittiSemanticsDataset
+    (training/instance, image_2) with one frame holding one car (instance
+    6601); RGB noise from RandomState(seed)."""
+    import os
+
+    from PIL import Image
+
+    H, W = hw
+    rng = np.random.RandomState(seed)
+    inst_dir = os.path.join(root, "training", "instance")
+    img_dir = os.path.join(root, "training", "image_2")
+    os.makedirs(inst_dir, exist_ok=True)
+    os.makedirs(img_dir, exist_ok=True)
+    scene = np.zeros((H, W), np.uint16)
+    scene[30:90, 40:110] = 6601                  # car (66xx)
+    Image.fromarray(scene).save(os.path.join(inst_dir, "000000_10.png"))
+    Image.fromarray(rng.randint(0, 255, (H, W, 3), np.uint8)).save(
+        os.path.join(img_dir, "000000_10.png"))

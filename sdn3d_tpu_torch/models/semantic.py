@@ -4,12 +4,14 @@ NCHW.
 PyTorch counterpart of sdn3d_tpu/models/semantic.py (encoder
 resnet50_dilated8 with the deep 3-conv stem, decoder ppm_bilinear_deepsup,
 semantic/models.py:359-415 — the 3D-SDN default).  Module names follow the
-reference state_dicts: the encoder as models/resnet.py, the decoder
+reference state_dicts: the encoder as models/resnet.py, the PPM decoders
 `ppm.K.{1,2}` (1x1 conv, BN), `conv_last.{0,1,4}` (3x3 conv, BN, 1x1
-classifier), `cbr_deepsup.{0,1}` and `conv_last_deepsup`.  Only the
-inference branch runs here; the deep-supervision head keeps its
-parameters so converted weights load, and training waits for the
-semantic trainer.
+classifier) and, with deep supervision, `cbr_deepsup.{0,1}` and
+`conv_last_deepsup`; the C1 decoders `cbr.{0,1}`, `conv_last` and the
+same deep-supervision keys.  Both branches are here: inference (softmax
+at seg_size) and training (log-probabilities at stride 8, with flax's
+element-wise dropout and the deep-supervision head), with the loss and
+pixel accuracy of the semantic trainer.
 
 Resizes are computed as the JAX package computes them
 (jax.image.resize(method="bilinear")): per-axis weight matrices of the
@@ -22,11 +24,13 @@ with torch AdaptiveAvgPool2d windows.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from sdn3d_tpu_torch.models.derenderer import strict_fp32
@@ -124,72 +128,271 @@ class AdaptivePool(nn.Module):
         return adaptive_avg_pool2d(x, (self.size, self.size))
 
 
-class PPMDeepsup(nn.Module):
-    """PPMBilinearDeepsup (semantic/models.py:359-415).  The inference
-    branch (JAX models/semantic.py:110-113): conv5 and its four pooled
-    branches (pool, 1x1 conv, BN, ReLU, resized back) concatenated, 3x3
-    conv, BN, ReLU, dropout (identity in eval), 1x1 classifier, resized to
-    seg_size, softmax over classes."""
+class Dropout(nn.Module):
+    """flax's element-wise nn.Dropout(rate) (JAX models/semantic.py:101,
+    :113): in training each element is kept with probability 1 - rate and
+    the kept ones are divided by 1 - rate, `select(mask, x / keep, 0)`; in
+    eval mode, or at rate 0, the identity.  `draw` is the keep mask (bool,
+    x's shape; the CPU tests hand over JAX's) or a torch.Generator on x's
+    device to draw it from (uniform < keep, as jax.random.bernoulli
+    draws); None draws from torch's default generator."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, draw=None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        if draw is None or isinstance(draw, torch.Generator):
+            draw = torch.rand(x.shape, generator=draw, device=x.device) < keep
+        return torch.where(draw, x / keep, x.new_zeros(()))
+
+
+@contextlib.contextmanager
+def _cudnn_off():
+    """torch's own convolution for the span (cuDNN's other flags kept)."""
+    found = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = found
+
+
+class _GemmConv(torch.autograd.Function):
+    """A convolution without bias whose forward and both gradients run
+    torch's own convolution (cuDNN off): an unfold and a float32 product a
+    sample, col2im for the input's gradient, no atomics.  `conf` is
+    (stride, padding, dilation, groups)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, conf):
+        ctx.save_for_backward(x, weight)
+        ctx.conf = conf
+        with _cudnn_off():
+            return F.conv2d(x, weight, None, *conf)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        stride, padding, dilation, groups = ctx.conf
+        with _cudnn_off():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x, weight, None, list(stride), list(padding),
+                list(dilation), False, [0, 0], groups,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None
+
+
+class DecoderConv2d(Conv2d):
+    """The decoders' convolutions.  Training in float32 on the card they
+    run torch's own convolution (_GemmConv), the bias added after, as
+    flax adds it.  Most feed a train-mode BatchNorm that, over the few
+    values a channel holds at a small batch (2 at the PPM's 1x1 pool),
+    magnifies the rounding of its input by thousands.  cuDNN's float32
+    convolutions round ~10x coarser than a float32 product (conv_last.0's
+    forward sits ~9e-6 of its scale off float64 against ~1e-6), and put
+    the decoder's gradients 70x further from float64 than the CPU's
+    float32 at 2 x 64 x 64 (chip_smoke.py 13b prints both).  Otherwise
+    (eval mode, bfloat16, the CPU) it is Conv2d."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and x.is_cuda
+                and self.compute_dtype == torch.float32):
+            return super().forward(x)
+        y = _GemmConv.apply(x, self.weight, (self.stride, self.padding,
+                                             self.dilation, self.groups))
+        return y if self.bias is None else y + self.bias[:, None, None]
+
+
+def _draws(dropout, n: int) -> list:
+    """The draws of a decoder's n dropouts: None or one torch.Generator
+    for all of them, or one keep mask each, in the order they apply."""
+    if dropout is None or isinstance(dropout, torch.Generator):
+        return [dropout] * n
+    draws = list(dropout)
+    if len(draws) != n:
+        raise ValueError(f"{len(draws)} dropout masks for {n} dropouts")
+    return draws
+
+
+def _conv_bn_relu(c_in: int, c_out: int) -> nn.Sequential:
+    """conv3x3_bn_relu (semantic/models.py; JAX ConvBNReLU): 3x3 conv
+    without bias, BatchNorm, ReLU, under the reference keys `.0`, `.1`."""
+    return nn.Sequential(DecoderConv2d(c_in, c_out, 3, padding=1,
+                                       bias=False),
+                         BatchNorm2d(c_out, eps=BN_EPS), nn.ReLU())
+
+
+def _outputs(x: torch.Tensor, seg_size, d: Optional[torch.Tensor] = None):
+    """A decoder's outputs from its float32 logits: at inference
+    (seg_size given) the softmax over classes of the logits resized to
+    seg_size; else the log-softmax, with the deep-supervision head's
+    beside it when the decoder has one (JAX models/semantic.py:110-117)."""
+    if seg_size is not None:
+        return torch.softmax(resize_bilinear(x, seg_size), dim=1)
+    if d is None:
+        return torch.log_softmax(x, dim=1)
+    return torch.log_softmax(x, dim=1), torch.log_softmax(d, dim=1)
+
+
+class PPMBilinear(nn.Module):
+    """Pyramid pooling decoder without deep supervision
+    (semantic/models.py:311-355; JAX models/semantic.py:152-189): conv5
+    and its four pooled branches (pool, 1x1 conv, BN, ReLU, resized back)
+    concatenated, 3x3 conv, BN, ReLU, element-wise dropout, 1x1
+    classifier.  The classifier's logits, resize and softmax are float32.
+    The reference's `conv_last` Sequential keeps its keys (`.0`, `.1`, the
+    classifier `.4`); its entry 3 is the dropout, which takes a draw and
+    so is called apart."""
 
     def __init__(self, num_class: int = 14, fc_dim: int = 2048,
                  pool_scales: Sequence[int] = (1, 2, 3, 6),
                  dropout_rate: float = 0.1):
         super().__init__()
         self.ppm = nn.ModuleList([nn.Sequential(
-            AdaptivePool(s), Conv2d(fc_dim, 512, 1, bias=False),
+            AdaptivePool(s), DecoderConv2d(fc_dim, 512, 1, bias=False),
             BatchNorm2d(512, eps=BN_EPS), nn.ReLU())
             for s in pool_scales])
         self.conv_last = nn.Sequential(
-            Conv2d(fc_dim + len(pool_scales) * 512, 512, 3, padding=1,
-                   bias=False),
+            DecoderConv2d(fc_dim + len(pool_scales) * 512, 512, 3,
+                          padding=1, bias=False),
             BatchNorm2d(512, eps=BN_EPS), nn.ReLU(),
-            nn.Dropout2d(dropout_rate),
-            Conv2d(512, num_class, 1))
-        # deep supervision head (models.py:404-408): training only
-        self.cbr_deepsup = nn.Sequential(
-            Conv2d(fc_dim // 2, fc_dim // 4, 3, padding=1, bias=False),
-            BatchNorm2d(fc_dim // 4, eps=BN_EPS), nn.ReLU())
-        self.conv_last_deepsup = Conv2d(fc_dim // 4, num_class, 1)
+            Dropout(dropout_rate),
+            DecoderConv2d(512, num_class, 1))
 
-    def forward(self, conv_out: Sequence[torch.Tensor],
-                seg_size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
-        if seg_size is None:
-            raise NotImplementedError(
-                "the deep-supervision training branch waits for the semantic "
-                "trainer (ROADMAP.md A, the other trainers)")
-        conv5 = conv_out[-1]
+    def logits(self, conv5: torch.Tensor, draw) -> torch.Tensor:
+        """The classifier's float32 logits at conv5's size."""
         hw = (conv5.shape[2], conv5.shape[3])
         ppm_out = [conv5]
         for branch in self.ppm:
             ppm_out.append(resize_bilinear(branch(conv5), hw))
-        # the classifier's logits, resize and softmax in float32
-        x = self.conv_last(torch.cat(ppm_out, dim=1)).float()
-        return torch.softmax(resize_bilinear(x, seg_size), dim=1)
+        c = self.conv_last
+        x = c[2](c[1](c[0](torch.cat(ppm_out, dim=1))))
+        return c[4](c[3](x, draw)).float()
+
+    def forward(self, conv_out: Sequence[torch.Tensor],
+                seg_size: Optional[Tuple[int, int]] = None, dropout=None):
+        return _outputs(self.logits(conv_out[-1], _draws(dropout, 1)[0]),
+                        seg_size)
+
+
+class PPMDeepsup(PPMBilinear):
+    """PPMBilinearDeepsup (semantic/models.py:359-415; JAX
+    models/semantic.py:69-117): PPMBilinear and, in the training branch
+    (seg_size None), the deep-supervision head on conv4: 3x3 conv, BN,
+    ReLU (`cbr_deepsup.{0,1}`), element-wise dropout (parameter-free),
+    1x1 classifier (`conv_last_deepsup`).  Two dropouts, in this order:
+    the classifier's, then the head's."""
+
+    def __init__(self, num_class: int = 14, fc_dim: int = 2048,
+                 pool_scales: Sequence[int] = (1, 2, 3, 6),
+                 dropout_rate: float = 0.1):
+        super().__init__(num_class, fc_dim, pool_scales, dropout_rate)
+        self.cbr_deepsup = _conv_bn_relu(fc_dim // 2, fc_dim // 4)
+        self.dropout_deepsup = Dropout(dropout_rate)
+        self.conv_last_deepsup = DecoderConv2d(fc_dim // 4, num_class, 1)
+
+    def forward(self, conv_out: Sequence[torch.Tensor],
+                seg_size: Optional[Tuple[int, int]] = None, dropout=None):
+        d_last, d_sup = _draws(dropout, 2)
+        x = self.logits(conv_out[-1], d_last)
+        if seg_size is not None:
+            return _outputs(x, seg_size)
+        d = self.dropout_deepsup(self.cbr_deepsup(conv_out[-2]), d_sup)
+        return _outputs(x, None, self.conv_last_deepsup(d).float())
+
+
+class C1BilinearDeepSup(nn.Module):
+    """conv3x3-BN-ReLU and a 1x1 classifier (`cbr.{0,1}`, `conv_last`)
+    with, when deep_sup, the same head on conv4 (`cbr_deepsup.{0,1}`,
+    `conv_last_deepsup`) in the training branch
+    (semantic/models.py:251-283; JAX models/semantic.py:120-149).  No
+    dropout.  deep_sup False is C1Bilinear."""
+
+    def __init__(self, num_class: int = 14, fc_dim: int = 2048,
+                 deep_sup: bool = True):
+        super().__init__()
+        self.deep_sup = deep_sup
+        self.cbr = _conv_bn_relu(fc_dim, fc_dim // 4)
+        self.conv_last = DecoderConv2d(fc_dim // 4, num_class, 1)
+        if deep_sup:
+            self.cbr_deepsup = _conv_bn_relu(fc_dim // 2, fc_dim // 4)
+            self.conv_last_deepsup = DecoderConv2d(fc_dim // 4, num_class, 1)
+
+    def forward(self, conv_out: Sequence[torch.Tensor],
+                seg_size: Optional[Tuple[int, int]] = None, dropout=None):
+        x = self.conv_last(self.cbr(conv_out[-1])).float()
+        if seg_size is not None or not self.deep_sup:
+            return _outputs(x, seg_size)
+        d = self.conv_last_deepsup(self.cbr_deepsup(conv_out[-2])).float()
+        return _outputs(x, None, d)
+
+
+DECODERS = {
+    "ppm_bilinear_deepsup": PPMDeepsup,
+    "ppm_bilinear": PPMBilinear,
+    "c1_bilinear_deepsup": C1BilinearDeepSup,
+    "c1_bilinear": functools.partial(C1BilinearDeepSup, deep_sup=False),
+}
 
 
 class SemanticModel(nn.Module):
     """Encoder + decoder (SegmentationModule, semantic/models.py:24-48).
-    images [B, 3, H, W] -> class probabilities [B, num_class, *seg_size].
-    `dtype` "bfloat16" runs the convolutions in bfloat16 (JAX
-    models/semantic.py:211-213); parameters, BatchNorm, the logits and
-    the softmax stay float32."""
+    images [B, 3, H, W] -> class probabilities [B, num_class, *seg_size]
+    with seg_size; without it the decoder's log-probabilities at the
+    encoder's stride 8 (a pair with deep supervision), the training
+    branch.  The module's train / eval mode is JAX's `train`: BatchNorm on
+    the batch's statistics (moving the running ones) and dropout with
+    `dropout`'s draws (decoder.forward).  arch_decoder picks among the
+    reference's decoders (ModelBuilder.build_decoder, models.py:117-147);
+    the 3D-SDN default is ppm_bilinear_deepsup.  `dtype` "bfloat16" runs
+    the convolutions in bfloat16 (JAX models/semantic.py:211-213);
+    parameters, BatchNorm, the logits and the softmax stay float32."""
 
     def __init__(self, num_class: int = 14,
                  arch_decoder: str = "ppm_bilinear_deepsup",
                  dtype="float32"):
         super().__init__()
-        if arch_decoder != "ppm_bilinear_deepsup":
-            raise NotImplementedError(
-                f"decoder {arch_decoder}: only ppm_bilinear_deepsup is "
-                "ported (ROADMAP.md A, the rest of the surface)")
+        if arch_decoder not in DECODERS:
+            raise ValueError(f"decoder {arch_decoder!r}: one of "
+                             f"{tuple(DECODERS)}")
         self.num_class = num_class
+        self.arch_decoder = arch_decoder
         self.encoder = resnet50_dilated8()
-        self.decoder = PPMDeepsup(num_class=num_class)
+        self.decoder = DECODERS[arch_decoder](num_class=num_class)
         set_compute_dtype(self, dtype)
 
     def forward(self, images: torch.Tensor,
-                seg_size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                seg_size: Optional[Tuple[int, int]] = None, dropout=None):
         if images.is_cuda:
             strict_fp32()
         conv_out = self.encoder.stages(images)[1:]     # C2..C5
-        return self.decoder(conv_out, seg_size=seg_size)
+        return self.decoder(conv_out, seg_size=seg_size, dropout=dropout)
+
+
+def segmentation_loss(log_probs: torch.Tensor, labels: torch.Tensor,
+                      ignore_index: int = -1) -> torch.Tensor:
+    """NLL with ignored labels (semantic/vkitti_train.py crit; JAX
+    models/semantic.py:228-237): sum(nll * valid) / max(sum(valid), 1),
+    0 when every label is ignored.  log_probs [B, C, H, W] float32, labels
+    [B, H, W] int.  Each pixel's log-probability is picked by a one-hot
+    select, whose backward writes each element once (no atomics)."""
+    valid = labels != ignore_index
+    labels_c = torch.where(valid, labels, torch.zeros_like(labels))
+    classes = torch.arange(log_probs.shape[1], device=labels.device)
+    onehot = labels_c[:, None] == classes[None, :, None, None]
+    nll = -torch.where(onehot, log_probs, log_probs.new_zeros(())).sum(1)
+    return (nll * valid).sum() / valid.sum().clamp_min(1)
+
+
+def pixel_accuracy(log_probs: torch.Tensor, labels: torch.Tensor
+                   ) -> torch.Tensor:
+    """The share of labelled pixels whose argmax class is the label
+    (semantic/models.py:15-21; JAX models/semantic.py:240-244)."""
+    preds = torch.argmax(log_probs, dim=1)
+    valid = labels >= 0
+    right = (valid & (preds == labels)).sum().to(torch.float32)
+    return right / (valid.sum().to(torch.float32) + 1e-10)

@@ -4,7 +4,7 @@ PyTorch counterpart of sdn3d_tpu/render/renderer.py: `render_targets`
 (the inference path, one rasterization for silhouette, normal and depth)
 and the differentiable `render()` for the Silhouette, Depth and Normal
 types.  `render()` of the RGB type (texture sampling and lighting,
-ops/textures.py) waits for ROADMAP A9.
+ops/textures.py) waits for ROADMAP A5.
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ def render(
         raise NotImplementedError(
             f"render() of type {RenderType(render_type).name} is not ported "
             "yet: texture sampling and lighting (ops/textures.py) are "
-            "ROADMAP A9")
+            "ROADMAP A5")
     dt = vertices.dtype
     dev = vertices.device
 

@@ -5,9 +5,9 @@ port_semantic, port_global_generator, port_encoder,
 port_multiscale_discriminator, port_vgg19, port_lpips and port_maskrcnn
 (and the same layout rules for the global encoder, which the reference
 never builds), so weights trained or ported on the JAX side load one to
-one into the port's models, and a derenderer or textural train state
-(weights, running statistics, Adam's moments and count) carries across to
-the port's trainer:
+one into the port's models, and a derenderer, textural or semantic train state
+(weights, running statistics, Adam's moments and count or SGD's momentum
+traces and schedule count) carries across to the port's trainer:
 
   conv        [kh, kw, I, O] -> [O, I, kh, kw]
   conv_transpose [kh, kw, O, I] (transpose_kernel) -> [I, O, kh, kw]
@@ -22,6 +22,10 @@ from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+
+# a state_dict's BatchNorm statistics, which have no optimizer state
+_STATS = ("running_mean", "running_var", "num_batches_tracked")
 
 
 def _t(a) -> torch.Tensor:
@@ -112,40 +116,107 @@ def derender_train_state_from_jax(state, stage_sizes=(2, 2, 2, 2)
         full = derenderer_state_dict_from_jax(
             {"params": getattr(adam, k), "batch_stats": state.batch_stats},
             stage_sizes)
-        moments[k] = {n: full[n] for n in sd
-                      if not n.endswith(("running_mean", "running_var",
-                                         "num_batches_tracked"))}
+        moments[k] = {n: full[n] for n in sd if not n.endswith(_STATS)}
     return {"derenderer": sd,
             "opt_state": {"count": torch.tensor(int(np.asarray(adam.count))),
                           **moments},
             "step": torch.tensor(int(np.asarray(state.step)))}
 
 
+def semantic_decoder_state_dict_from_jax(
+        dp: Mapping, ds: Mapping, arch_decoder: str = "ppm_bilinear_deepsup",
+        pool_scales=(1, 2, 3, 6)) -> Dict[str, torch.Tensor]:
+    """A semantic decoder's flax params / batch_stats -> the state_dict of
+    the port's `arch_decoder` under the reference's keys
+    (ModelBuilder.build_decoder's decoders, semantic/models.py)."""
+    dec: Dict[str, torch.Tensor] = {}
+
+    def cbr(name):
+        _conv(dec, f"{name}.0", dp[name]["conv"])
+        _bn(dec, f"{name}.1", dp[name]["bn"], ds[name]["bn"])
+
+    if arch_decoder.startswith("ppm"):
+        for k in range(len(pool_scales)):
+            _conv(dec, f"ppm.{k}.1", dp[f"ppm{k}_conv"])
+            _bn(dec, f"ppm.{k}.2", dp[f"ppm{k}_bn"], ds[f"ppm{k}_bn"])
+        _conv(dec, "conv_last.0", dp["conv_last0"])
+        _bn(dec, "conv_last.1", dp["conv_last_bn"], ds["conv_last_bn"])
+        _conv(dec, "conv_last.4", dp["conv_last1"])
+    else:
+        cbr("cbr")
+        _conv(dec, "conv_last", dp["conv_last"])
+    if arch_decoder.endswith("deepsup"):
+        cbr("cbr_deepsup")
+        _conv(dec, "conv_last_deepsup", dp["conv_last_deepsup"])
+    return dec
+
+
 def semantic_state_dicts_from_jax(variables: Mapping,
-                                  pool_scales=(1, 2, 3, 6)
+                                  pool_scales=(1, 2, 3, 6),
+                                  arch_decoder: str = "ppm_bilinear_deepsup"
                                   ) -> Tuple[Dict[str, torch.Tensor],
                                              Dict[str, torch.Tensor]]:
     """flax {"params", "batch_stats"} of the JAX SemanticModel -> the
     reference's two state_dicts (encoder: ResnetDilated resnet50 deep
-    stem; decoder: PPMBilinearDeepsup), which SemanticModel.encoder and
-    .decoder load.  Inverse of JAX utils/port.py:port_semantic."""
+    stem; decoder: `arch_decoder`, PPMBilinearDeepsup by default), which
+    SemanticModel.encoder and .decoder load.  The default is the inverse
+    of JAX utils/port.py:port_semantic; the other decoders keep the
+    reference's keys (`ppm.K.{1,2}`, `conv_last.{0,1,4}`; `cbr.{0,1}`,
+    `conv_last`; `cbr_deepsup.{0,1}`, `conv_last_deepsup`)."""
     P, S = variables["params"], variables["batch_stats"]
     enc: Dict[str, torch.Tensor] = {}
     _resnet_trunk(enc, "", P["encoder"], S["encoder"], (3, 4, 6, 3),
                   n_convs=3, deep_stem=True)
-    dp, ds = P["decoder"], S["decoder"]
-    dec: Dict[str, torch.Tensor] = {}
-    for k in range(len(pool_scales)):
-        _conv(dec, f"ppm.{k}.1", dp[f"ppm{k}_conv"])
-        _bn(dec, f"ppm.{k}.2", dp[f"ppm{k}_bn"], ds[f"ppm{k}_bn"])
-    _conv(dec, "conv_last.0", dp["conv_last0"])
-    _bn(dec, "conv_last.1", dp["conv_last_bn"], ds["conv_last_bn"])
-    _conv(dec, "conv_last.4", dp["conv_last1"])
-    _conv(dec, "cbr_deepsup.0", dp["cbr_deepsup"]["conv"])
-    _bn(dec, "cbr_deepsup.1", dp["cbr_deepsup"]["bn"],
-        ds["cbr_deepsup"]["bn"])
-    _conv(dec, "conv_last_deepsup", dp["conv_last_deepsup"])
+    dec = semantic_decoder_state_dict_from_jax(P["decoder"], S["decoder"],
+                                               arch_decoder, pool_scales)
     return enc, dec
+
+
+def _opt_leaf(state, attr: str):
+    """The first optax state (a NamedTuple) in a nested chain state that
+    has the field `attr`."""
+    if attr in getattr(state, "_fields", ()):
+        return state
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            found = _opt_leaf(s, attr)
+            if found is not None:
+                return found
+    return None
+
+
+def semantic_train_state_from_jax(state, arch_decoder: str =
+                                  "ppm_bilinear_deepsup",
+                                  pool_scales=(1, 2, 3, 6)
+                                  ) -> Dict[str, object]:
+    """A JAX pipelines/semantic.SemanticTrainState (its arrays as numpy)
+    -> the fields of the port trainer's state (pipelines/semantic.
+    SemanticTrainState.from_fields, a core/checkpoint train-state step):
+    "encoder" and "decoder" (the state_dicts, running statistics
+    included), "opt_enc" and "opt_dec" ({"count", "trace"}: the schedule's
+    count and the momentum traces by parameter name, through the same key
+    maps) and "step".  Each JAX optimizer state is optax's chain
+    (add_decayed_weights, (trace, scale_by_schedule))."""
+    variables = {"params": state.params, "batch_stats": state.batch_stats}
+    enc, dec = semantic_state_dicts_from_jax(variables, pool_scales,
+                                             arch_decoder)
+    fields: Dict[str, object] = {"encoder": enc, "decoder": dec}
+    for key, opt, part in (("opt_enc", state.opt_state_enc, "encoder"),
+                           ("opt_dec", state.opt_state_dec, "decoder")):
+        trace = _opt_leaf(opt, "trace").trace
+        P = dict(state.params)
+        P[part] = trace
+        t_enc, t_dec = semantic_state_dicts_from_jax(
+            {"params": P, "batch_stats": state.batch_stats}, pool_scales,
+            arch_decoder)
+        full = t_enc if part == "encoder" else t_dec
+        fields[key] = {
+            "count": torch.tensor(int(np.asarray(
+                _opt_leaf(opt, "count").count))),
+            "trace": {n: v for n, v in full.items()
+                      if not n.endswith(_STATS)}}
+    fields["step"] = torch.tensor(int(np.asarray(state.step)))
+    return fields
 
 
 def _down_up_state_dict(sd: Dict[str, torch.Tensor], P: Mapping,

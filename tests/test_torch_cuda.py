@@ -784,3 +784,104 @@ def test_textural_iteration_flags_and_no_nondeterministic_op(cuda):
            if "deterministic" in str(w.message)
            and "CUBLAS_WORKSPACE_CONFIG" not in str(w.message)]
     assert not bad, bad
+
+
+@pytest.mark.cuda
+def test_semantic_train_step_same_bits_every_run(cuda):
+    """The semantic trainer's step at the CLI's widths (batch 2, crop 64
+    here to keep the test short) on the card, twice from the same state,
+    batch and dropout generator: every parameter, running statistic,
+    momentum trace and the loss bit-equal (cuDNN's deterministic
+    algorithms, a one-hot loss without atomics, TF32 off)."""
+    from sdn3d_tpu_torch.cli import semantic_train as ST
+    from sdn3d_tpu_torch.cli.geometric_train import step_generator
+    from sdn3d_tpu_torch.pipelines.semantic import SemanticTrainState
+
+    args = ST.build_argparser().parse_args(["--batch_size", "2",
+                                            "--crop_size", "64"])
+    trainer = ST.build_trainer(args)
+    batch = ST.to_batch(*next(ST.synthetic_batches(
+        args, np.random.RandomState(0))), cuda)
+    def clone(x):
+        return ({k: clone(v) for k, v in x.items()} if isinstance(x, dict)
+                else x.clone())
+    fields0 = clone(trainer.init().fields())
+    runs = []
+    for _ in range(2):
+        state = SemanticTrainState.from_fields(fields0, trainer.model)
+        state, metrics = trainer.train_step(state, *batch,
+                                            step_generator(0, 0, cuda))
+        runs.append((clone(state.fields()), float(metrics["loss"])))
+    assert runs[0][1] == runs[1][1] and np.isfinite(runs[0][1])
+    for key in ("encoder", "decoder"):
+        for n, t in runs[0][0][key].items():
+            assert torch.equal(t, runs[1][0][key][n]), (key, n)
+    for key in ("opt_enc", "opt_dec"):
+        for n, t in runs[0][0][key]["trace"].items():
+            assert torch.equal(t, runs[1][0][key]["trace"][n]), (key, n)
+
+
+@pytest.mark.cuda
+def test_decoder_convolutions_train_through_torchs_own(cuda):
+    """models/semantic.DecoderConv2d training in float32 on the card: its
+    output and its gradients in the input, weight and bias bit-equal to
+    F.conv2d's under cuDNN off, the bias added after; in eval mode it is
+    Conv2d (cuDNN)."""
+    import torch.nn.functional as F
+
+    from sdn3d_tpu_torch.models.semantic import DecoderConv2d
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 64, 8, 8, generator=g).to(cuda)
+    grad = torch.randn(2, 32, 8, 8, generator=g).to(cuda)
+    conv = DecoderConv2d(64, 32, 3, padding=1).to(cuda).train()
+    xa = x.clone().requires_grad_(True)
+    out = conv(xa)
+    got = torch.autograd.grad(out, [xa, conv.weight, conv.bias], grad)
+    xb = x.clone().requires_grad_(True)
+    with torch.backends.cudnn.flags(enabled=False):
+        want_out = F.conv2d(xb, conv.weight, None, padding=1) \
+            + conv.bias[:, None, None]
+        want = torch.autograd.grad(want_out, [xb, conv.weight, conv.bias],
+                                   grad)
+    assert torch.equal(out, want_out)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with torch.no_grad():
+        assert torch.equal(conv.eval()(x), F.conv2d(x, conv.weight,
+                                                    conv.bias, padding=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dataset,mode", [("kitti", "finetune"),
+                                          ("cityscapes", "extend")])
+def test_geometric_train_datasets_launch_each_kernel_once_a_step(
+        cuda, tmp_path, dataset, mode):
+    """geometric_train --dataset kitti|cityscapes on data/synthetic's roots
+    (batch 1, 64 / 64): each step with a mask loss launches the forward
+    (B1), the walk (B3) and the reduction (B2) once; no plain version
+    runs."""
+    from sdn3d_tpu_torch.cli.geometric_train import main
+    from sdn3d_tpu_torch.data import synthetic
+
+    root = str(tmp_path / "root")
+    if dataset == "kitti":
+        synthetic.write_kitti_semantics_root(root)
+        flags = ["--kitti_semantics_root", root]
+    else:
+        synthetic.write_cityscapes_derender_root(root)
+        flags = ["--cityscapes_root", root]
+    kernels = (TC.rasterize_face_index_cuda, TC.walk_grads_cuda,
+               TC.segment_face_grads_cuda)
+    plain = (TR.rasterize_face_maps, TR.walk_grads_plain,
+             TR.segment_face_grads_plain)
+    for fn in kernels:
+        fn.launches = 0
+    for fn in plain:
+        fn.calls = 0
+    state = main(["--mode", mode, "--dataset", dataset, "--batch_size", "1",
+                  "--image_size", "64", "--render_size", "64",
+                  "--num_iters", "3", "--num_workers", "1",
+                  "--ckpt_dir", str(tmp_path / "ck")] + flags)
+    assert state.step == 3
+    assert [fn.launches for fn in kernels] == [3, 3, 3]
+    assert [fn.calls for fn in plain] == [0, 0, 0]

@@ -150,14 +150,17 @@ def test_vkitti_branch_batches_match_jax(train_root):
 
 
 def test_other_datasets_name_their_roadmap_item():
-    """kitti and cityscapes (ROADMAP A9) raise NotImplementedError for
-    every mode the reference selects a dataset for; other combinations
-    raise ValueError as in JAX."""
-    for name, modes in (("kitti", ("pretrain", "full", "finetune",
-                                   "extend")),
-                        ("cityscapes", ("full", "extend"))):
+    """kitti and cityscapes (ported, ROADMAP A2): every mode the
+    reference selects a dataset for asks for its root by flag when none
+    is given; other combinations raise ValueError as in JAX."""
+    for name, modes, flag in (
+            ("kitti", ("pretrain", "extend"), "--kitti_object_root"),
+            ("kitti", ("finetune",), "--kitti_semantics_root"),
+            ("kitti", ("full",), "--kitti_object_root"),
+            ("cityscapes", ("extend",), "--cityscapes_root"),
+            ("cityscapes", ("full",), "--vkitti_root")):
         for m in modes:
-            with pytest.raises(NotImplementedError, match="A9"):
+            with pytest.raises(ValueError, match=flag):
                 TS.select_derender_dataset(name, TargetType.BY_NAME[m])
     with pytest.raises(ValueError):
         TS.select_derender_dataset("cityscapes", TargetType.pretrain)
@@ -171,7 +174,8 @@ def test_geometric_train_on_vkitti_items(train_root, tmp_path):
     """geometric_train --dataset vkitti --vkitti_root through the prefetch
     loader, 3 iterations of batch 2 over 5 items (a second loader epoch)
     in pretrain and full mode: finite losses, a step written; --dataset
-    kitti raises naming A9."""
+    kitti on a root without labels raises (an epoch of no whole batch)
+    instead of asking for epochs forever."""
     from sdn3d_tpu_torch.cli import geometric_train
 
     for mode in ("pretrain", "full"):
@@ -182,8 +186,9 @@ def test_geometric_train_on_vkitti_items(train_root, tmp_path):
             "cpu", "--ckpt_dir", str(tmp_path / mode)])
         assert state.step == 3
         assert torch.isfinite(state.mu).all() and state.nu.max() > 0
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="holds 0 items"):
         geometric_train.main(["--dataset", "kitti", "--kitti_object_root",
-                              str(tmp_path), "--num_iters", "1",
+                              str(tmp_path), "--mode", "extend",
+                              "--num_iters", "1",
                               "--device", "cpu",
                               "--ckpt_dir", str(tmp_path / "k")])

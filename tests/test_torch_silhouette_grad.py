@@ -348,9 +348,9 @@ def test_render_silhouette_and_grad_match_jax(grad_walk, aa):
 
 def test_render_other_types_not_ported():
     """render() of the RGB type (texture sampling and lighting) is ROADMAP
-    A9's and raises naming it."""
+    A5's and raises naming it."""
     verts, faces, _, _ = _mesh_batch()
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A5"):
         render(torch.from_numpy(verts), torch.from_numpy(faces),
                RenderType.RGB)
 
