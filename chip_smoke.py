@@ -147,7 +147,7 @@ Phases, each of which must pass (any failure exits non-zero):
      float64 CPU run (small configuration); 12c. two runs of an iteration
      give the same bits; 12d. ms an iteration in float32 and bfloat16
      (CUDA events), device busy, idle share, launches, top kernels, the
-     FLOPs (FlopCounterMode), float32 with cuDNN's deterministic
+     FLOPs (utils/flops), float32 with cuDNN's deterministic
      algorithms on and off in turns, then --use_global_encoder
      --pool_size 4;
      12e. (inside phase 10) the dataset mode (--split test) on 10b's
@@ -160,7 +160,7 @@ Phases, each of which must pass (any failure exits non-zero):
      cli/semantic_train.main --synthetic (the step written), descent on
      one batch, two runs of a step give the same bits, ms a step in
      float32 and bfloat16 (CUDA events), device busy, idle share,
-     launches, FLOPs (FlopCounterMode) and peak memory, float32 also
+     launches, FLOPs (utils/flops) and peak memory, float32 also
      with the decoder's convolutions on cuDNN; 13b. one step's two
      gradient halves, card float32 within 3x the CPU float32's distance
      to a float64 CPU run, bfloat16 outside it; 13c.
@@ -170,6 +170,23 @@ Phases, each of which must pass (any failure exits non-zero):
      --dataset cityscapes in full and extend on data/synthetic's roots: B1
      once a rendering step, B3 and B2 once a step with a mask loss, the
      step written.
+ 14. Mask R-CNN training at MaskRCNNConfig()'s full width (ResNet-101 FPN
+     at 1024^2, 6000 -> 2000 proposals, 200 sampled RoIs, 28^2 masks, 3
+     classes, batch 1; no repo kernel on the training path): 14a.
+     cli/detect_train.main --dataset synthetic with --stage heads, 4+ and
+     all and the schedule with --coco_ckpt (phase 9's checkpoint), in
+     float32 and bfloat16: every first-step loss finite, the step
+     written, the stage's frozen parameters and the running statistics
+     bit-unchanged; then geometric_main --maskrcnn_ckpt serving the
+     float32 schedule run's step over phase 4's frames (one B1 launch an
+     item, no plain forward); 14b. the total loss falls over DT_DESCENT
+     steps on one example (stage all, train_bn); 14c. one step's
+     gradients at a small configuration by label group, the card in
+     float32 within 3x the CPU float32's distance to a float64 CPU run,
+     bfloat16 printed; 14d. two runs of a full-width step give the same
+     bits; 14e. ms a step of each stage in float32 and bfloat16 (CUDA
+     events), device busy, idle share, launches, FLOPs against the card's
+     peak (utils/flops), peak memory, and one VKITTI item's host cost.
 The line before last is the card's name and power limit, the line before
 that the kernels' JSON (launches: phase 11a's training run); the last line is {"ok": true, "device": {...}}.
 """
@@ -179,6 +196,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import pickle
@@ -191,9 +209,11 @@ from types import SimpleNamespace
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-H100_HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-H100_FP32_FLOPS = 67e12               # H100 SXM, fp32 outside tensor cores
-H100_BF16_FLOPS = 989e12              # H100 SXM, dense bf16 tensor cores
+# the card's published peaks by its name (sdn3d_tpu_torch/utils/flops.
+# PEAKS; the H100 SXM: 67 TFLOP/s float32 outside the tensor cores, 989
+# dense bfloat16, 3.35 TB/s): "float32", "bfloat16" FLOP/s, "hbm" bytes/s;
+# main sets them before the first phase
+PEAK = {}
 EDGE_TEST_FLOPS = 15                  # 3 edge functions: 6 sub, 6 mul, 3 cmp
 # walk, per (pixel, edge) and step: where alpha there equals the pixel's,
 # the compare that rules the step out; where it differs, an OUT step of an
@@ -1343,8 +1363,8 @@ def detection_phase(args, card: str, frames, shapenet: str, tmp: str,
                     sorted(macs.items(), key=lambda kv: -kv[1])[:6])
     log(f"[detect] MaskRCNNConfig() at {cfg.image_max_dim}^2: "
         f"{total / 1e9:.3f} GMAC = {2 * total / 1e9:.3f} GFLOP a frame "
-        f"(GMAC: {top}); bound {2 * total / H100_FP32_FLOPS * 1e3:.3f} ms "
-        f"float32, {2 * total / H100_BF16_FLOPS * 1e3:.3f} ms bfloat16")
+        f"(GMAC: {top}); bound {2 * total / PEAK['float32'] * 1e3:.3f} ms "
+        f"float32, {2 * total / PEAK['bfloat16'] * 1e3:.3f} ms bfloat16")
 
     # -- 9a. card against CPU, stage by stage (the CLIs' random weights) --
     t0 = time.perf_counter()
@@ -2960,9 +2980,9 @@ def textural_phase(args, card: str, mark=lambda what: None) -> None:
     TEX_GE_ITERS iterations with the global encoder and a pool of 4.
     12e runs inside the file-contract phase (textural_files)."""
     import torch
-    from torch.utils.flop_counter import FlopCounterMode
 
     from sdn3d_tpu_torch.cli import textural_train
+    from sdn3d_tpu_torch.utils import flops as FL
     from sdn3d_tpu_torch.core.checkpoint import latest_step
 
     dev = torch.device(TEX_DEVICE)
@@ -3029,13 +3049,10 @@ def textural_phase(args, card: str, mark=lambda what: None) -> None:
 
         # -- 12d. times -----------------------------------------------------------
         state.load_fields(fields0)
-        with FlopCounterMode(display=False) as counter:
-            state, _, _, _ = tex_iterations(trainer, state, batch,
-                                            args.seed, 1)
-        flops = counter.get_total_flops()
-        top_ops = sorted(((str(k), v) for k, v in
-                          counter.get_flop_counts().get("Global", {}).items()),
-                         key=lambda kv: -kv[1])[:6]
+        out = []
+        flops, top_ops = FL.count_flops(lambda: out.append(tex_iterations(
+            trainer, state, batch, args.seed, 1)), top=6)
+        state = out[0][0]
         for dtype in ("float32", "bfloat16"):
             if dtype == "bfloat16":
                 del trainer, state
@@ -3056,8 +3073,8 @@ def textural_phase(args, card: str, mark=lambda what: None) -> None:
             conv = sum(v[0] for k, v in kernels if any(
                 w in k.lower() for w in ("conv", "cudnn", "xmma", "gemm",
                                          "gemv", "fft")))
-            bound = flops / (H100_FP32_FLOPS if dtype == "float32"
-                             else H100_BF16_FLOPS) * 1e3
+            bound = FL.mfu_row(flops, None, ms[len(ms) // 2] / 1e3,
+                               dtype=dtype, peaks=PEAK)["floor_ms"]
             log(f"[tex-12d] {dtype} iteration at {shape}, batch 1: "
                 f"{ms[len(ms) // 2]:.3f} ms (median of {TEX_TIME} after "
                 f"{TEX_WARM}, CUDA events; min {ms[0]:.3f}, max "
@@ -3066,7 +3083,7 @@ def textural_phase(args, card: str, mark=lambda what: None) -> None:
                 f"share {1 - busy / wall:.4f}; {launches:.0f} launches an "
                 f"iteration; convolution kernels (cuDNN, FFT, GEMM / GEMV) "
                 f"{conv:.3f} ms; "
-                f"{flops:.4e} FLOP an iteration (FlopCounterMode, float32 "
+                f"{flops:.4e} FLOP an iteration (utils/flops, float32 "
                 f"run), floor {bound:.3f} ms at the card's peak for "
                 f"{dtype}; finite losses "
                 f"{all(np.isfinite(v) for v in losses[-1].values())} "
@@ -3473,20 +3490,19 @@ def sem_time(seed: int, card: str, tmp: str, dtype: str, flops, top_ops,
     """One of 13a's timed variants; counts a step's FLOPs when `flops` is
     None.  Returns (flops, top_ops)."""
     import torch
-    from torch.utils.flop_counter import FlopCounterMode
 
     from sdn3d_tpu_torch.cli.semantic_train import build_trainer
+    from sdn3d_tpu_torch.utils import flops as FL
     targs = sem_args(os.path.join(tmp, "none"), seed,
                      compute_dtype=dtype)
     trainer = build_trainer(targs)
     state = trainer.init()
     batch = sem_batch(targs, seed, targs.device)
     if flops is None:
-        with FlopCounterMode(display=False) as counter:
-            state, _, _ = sem_steps(trainer, state, batch, seed, 1)
-        flops = counter.get_total_flops()
-        top_ops = sorted(((str(k), v) for k, v in counter.get_flop_counts(
-            ).get("Global", {}).items()), key=lambda kv: -kv[1])[:5]
+        out = []
+        flops, top_ops = FL.count_flops(lambda: out.append(sem_steps(
+            trainer, state, batch, seed, 1)))
+        state = out[0][0]
     state, _, _ = sem_steps(trainer, state, batch, seed, SEM_WARM)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3501,9 +3517,8 @@ def sem_time(seed: int, card: str, tmp: str, dtype: str, flops, top_ops,
     conv = sum(v[0] for k, v in kernels if any(
         w in k.lower() for w in ("conv", "cudnn", "xmma", "gemm",
                                  "gemv", "fft")))
-    bound = flops / (H100_FP32_FLOPS if dtype == "float32"
-                     else H100_BF16_FLOPS) * 1e3
     med = ms[len(ms) // 2]
+    row = FL.mfu_row(flops, None, med / 1e3, dtype=dtype, peaks=PEAK)
     what = dtype + (", the decoder's convolutions on cuDNN"
                     if on_cudnn else "")
     log(f"[sem-13a] {what} step at the CLI defaults (batch 8, crop "
@@ -3512,8 +3527,9 @@ def sem_time(seed: int, card: str, tmp: str, dtype: str, flops, top_ops,
         f"host wall {wall:.3f} ms a step; device busy {busy:.3f} ms, "
         f"idle share {1 - busy / wall:.4f}; {launches:.0f} launches a "
         f"step; convolution kernels {conv:.3f} ms; {flops:.4e} FLOP a "
-        f"step (FlopCounterMode, float32 run), floor {bound:.3f} ms at "
-        f"the card's {dtype} peak ({bound / med * 100:.1f}% of it); peak "
+        f"step (utils/flops, float32 run), floor {row['floor_ms']:.3f} "
+        f"ms at the card's {dtype} peak ({row['pct_peak_flops']:.1f}% of "
+        f"it); peak "
         f"memory {peak:.2f} GiB; finite loss {np.isfinite(losses).all()} "
         f"({card})")
     log(f"[sem-13a] {what} top kernels (ms a step, launches over 2): "
@@ -3787,6 +3803,510 @@ def semantic_phase(args, card: str, shapenet: str, tmp: str,
     log(f"[sem] phase 13 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 14: Mask R-CNN training ------------------------------------------
+DT_CLI_ITERS = 2
+# the CLI runs of 14a: (--stage, or None for the schedule, with --coco_ckpt)
+DT_RUNS = (("heads", False), ("4+", False), ("all", False), (None, True))
+DT_DESCENT = 20
+DT_DESCENT_LR = 1e-2
+DT_WINDOW = 3
+DT_DESCENT_FACTOR = 0.9
+DT_WARM = 3
+DT_TIME = 10
+DT_TIME_STAGES = ("heads", "4+", "all")
+# 14c: the small configuration of the card against the CPU (the CLI's
+# --small shapes at 256^2), and 13b's rule
+DT_SMALL = dict(image_min_dim=256, image_max_dim=256, stage_sizes=(1, 1, 1, 1),
+                fpn_channels=32, pre_nms_limit=100, post_nms_rois_training=40,
+                train_rois_per_image=12, mask_shape=(14, 14),
+                mask_pool_size=7, rpn_train_anchors_per_image=32)
+DT_CPU_FACTOR = 3.0
+DT_LOSS_RTOL = 1e-4
+DT_DEVICE = "cuda"
+
+
+def dt_example(cfg, seed: int, dev):
+    """One synthetic example of the CLI's (data/detect_data, the RPN
+    balance drawn from RandomState(seed) through the global generator's
+    state saved and restored), on the device once."""
+    from sdn3d_tpu_torch.cli.detect_train import to_example
+    from sdn3d_tpu_torch.data.detect_data import synthetic_detect_example
+    from sdn3d_tpu_torch.models.maskrcnn import generate_pyramid_anchors
+    saved = np.random.get_state()
+    np.random.seed(seed)
+    try:
+        ex = synthetic_detect_example(cfg, generate_pyramid_anchors(cfg),
+                                      seed=seed)
+    finally:
+        np.random.set_state(saved)
+    return to_example(ex, dev)
+
+
+def dt_proposal_gt(model, cfg, batch):
+    """`batch` with three of the model's own proposals (eval mode, its
+    anchors) as the GT boxes, classes 1, 2, 1: the sampled RoIs then hold
+    positives, and every head's loss has a gradient."""
+    import torch
+
+    from sdn3d_tpu_torch.models.maskrcnn import (bn_mode,
+                                                 generate_pyramid_anchors,
+                                                 proposal_layer)
+    x, match, tb, gids, gb, gm = batch
+    anchors = torch.from_numpy(generate_pyramid_anchors(cfg)).to(x.device)
+    with torch.no_grad(), bn_mode(model, False):
+        _, probs, bbox = model.rpn_forward(model.fpn(x))
+        props, valid = proposal_layer(probs, bbox, anchors, cfg,
+                                      cfg.post_nms_rois_training)
+    pick = torch.nonzero(valid[0])[:, 0][:9:4]
+    gids, gb = torch.zeros_like(gids), torch.zeros_like(gb)
+    gids[:len(pick)] = torch.tensor([1, 2, 1][:len(pick)], dtype=gids.dtype)
+    gb[:len(pick)] = props[0, pick]
+    return x, match, tb, gids, gb, gm
+
+
+def dt_trainer(sd, stage: str, dtype: str = "float32", lr: float = 1e-3,
+               train_bn: bool = False, cfg=None):
+    """A MaskRCNNTrainer on DT_DEVICE and its step-0 state with the weights
+    of state_dict `sd` (MaskRCNNConfig() unless `cfg`)."""
+    from sdn3d_tpu_torch.models.maskrcnn import MaskRCNN, MaskRCNNConfig
+    from sdn3d_tpu_torch.pipelines.detect_train import MaskRCNNTrainer
+    cfg = cfg or MaskRCNNConfig(compute_dtype=dtype)
+    trainer = MaskRCNNTrainer(config=cfg, stage=stage, learning_rate=lr,
+                              train_bn=train_bn, device=DT_DEVICE)
+    model = MaskRCNN(cfg)
+    model.load_state_dict(sd)
+    return trainer, trainer.init(model=model.to(DT_DEVICE))
+
+
+def dt_steps(trainer, state, batch, seed: int, n: int, first: int = 0):
+    """n train steps on one example with the CLI's generator of each
+    iteration; returns (state, [total losses], [ms a step, CUDA
+    events])."""
+    import torch
+
+    from sdn3d_tpu_torch.cli.geometric_train import step_generator
+    dev = batch[0].device
+    totals, events = [], []
+    for i in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, losses = trainer.train_step(
+            state, *batch, step_generator(seed, first + i, dev))
+        b.record()
+        totals.append(sum(losses.values()))
+        events.append((a, b))
+    torch.cuda.synchronize()
+    return (state, [float(t) for t in totals],
+            [a.elapsed_time(b) for a, b in events])
+
+
+def dt_cli_runs(args, card: str, tmp: str, ckpt: str):
+    """14a: cli/detect_train.main --dataset synthetic at MaskRCNNConfig()
+    for each DT_RUNS entry in float32 and bfloat16: every first-step loss
+    finite, the step written, the stage's frozen parameters bit-unchanged
+    and its trained ones moved.  Returns the float32 schedule run's
+    checkpoint directory."""
+    import io
+
+    import torch
+
+    from sdn3d_tpu_torch.cli import detect_train
+    from sdn3d_tpu_torch.core.checkpoint import latest_step, restore_checkpoint
+    from sdn3d_tpu_torch.models.maskrcnn import (MaskRCNN, MaskRCNNConfig,
+                                                 init_weights)
+    from sdn3d_tpu_torch.pipelines import detect_train as TDT
+
+    start = {False: init_weights(MaskRCNN(MaskRCNNConfig()),
+                                 args.seed).state_dict(),
+             True: torch.load(ckpt)}
+    step_fn = TDT.MaskRCNNTrainer.train_step
+    first = []
+
+    def train_step(self, state, *a, **kw):
+        state, losses = step_fn(self, state, *a, **kw)
+        if not first:
+            first.append({k: float(v) for k, v in losses.items()})
+        return state, losses
+    rows, served = [], None
+    TDT.MaskRCNNTrainer.train_step = train_step
+    try:
+        for dtype in ("float32", "bfloat16"):
+            for stage, coco in DT_RUNS:
+                ckd = os.path.join(tmp, f"dt_{dtype}_{stage or 'schedule'}")
+                argv = ["--dataset", "synthetic", "--num_iters",
+                        str(DT_CLI_ITERS), "--num_epochs", "1",
+                        "--ckpt_dir", ckd, "--seed", str(args.seed),
+                        "--device", DT_DEVICE, "--compute_dtype", dtype]
+                argv += ["--stage", stage] if stage else []
+                argv += ["--coco_ckpt", ckpt] if coco else []
+                first.clear()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    state = detect_train.main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                fields, _ = restore_checkpoint(ckd)
+                trained = stage or "transfer"
+                labels = TDT.layer_labels(state.model, trained)
+                sd0 = start[coco]
+                frozen = [n for n, lab in labels.items() if lab == "freeze"]
+                moved = [n for n, lab in labels.items() if lab != "freeze"
+                         and not torch.equal(fields["maskrcnn"][n], sd0[n])]
+                bad = [n for n in frozen
+                       if not torch.equal(fields["maskrcnn"][n], sd0[n])]
+                stats = [n for n in sd0 if n.endswith(("running_mean",
+                                                       "running_var"))
+                         and not torch.equal(fields["maskrcnn"][n], sd0[n])]
+                if latest_step(ckd) != 1 or sorted(fields) != [
+                        "maskrcnn", "opt_state", "step"] \
+                        or state.step != DT_CLI_ITERS \
+                        or not first or not np.isfinite(
+                            list(first[0].values())).all() \
+                        or bad or stats or not moved:
+                    raise AssertionError(
+                        f"14a detect_train {dtype} {stage or 'schedule'}: "
+                        f"step {latest_step(ckd)} / {state.step}, fields "
+                        f"{sorted(fields)}, first losses {first}, frozen "
+                        f"moved {bad[:4]}, statistics moved {stats[:4]}, "
+                        f"trained moved {len(moved)}")
+                rows.append(
+                    f"{dtype} {'--stage ' + stage if stage else 'schedule'}"
+                    f"{' --coco_ckpt' if coco else ''}: first-step losses "
+                    + ", ".join(f"{k} {v:.4f}" for k, v in first[0].items())
+                    + f"; {len(frozen)} frozen bit-unchanged, "
+                    f"{len(moved)} of {len(labels) - len(frozen)} trained "
+                    f"moved; {wall:.2f} s all in")
+                if dtype == "float32" and coco:
+                    served = ckd
+                del state, fields
+                torch.cuda.empty_cache()
+    finally:
+        TDT.MaskRCNNTrainer.train_step = step_fn
+    log(f"[dt-14a] detect_train --dataset synthetic at MaskRCNNConfig() "
+        f"(ResNet-101 FPN, 1024^2, 6000 -> 2000 proposals, 200 RoIs, 28^2 "
+        f"masks, 3 classes, batch 1), {DT_CLI_ITERS} iterations a run, the "
+        f"step written (model built and saved included): "
+        + "; ".join(rows) + f" ({card})")
+    return served
+
+
+def dt_serve(args, card: str, frames, shapenet: str, tmp: str,
+             ckd: str) -> None:
+    """14a: geometric_main --maskrcnn_ckpt <a detect_train step> over
+    phase 4's frames: one B1 launch an item, no plain forward."""
+    import torch
+
+    from sdn3d_tpu_torch.cli import geometric_main
+    from sdn3d_tpu_torch.ops import rasterize as TR
+    from sdn3d_tpu_torch.ops import rasterize_cuda as TC
+    launch = TC.rasterize_face_index_cuda
+    launch.launches = 0
+    TR.rasterize_face_maps.calls = 0
+    n_objs, t0 = [], time.perf_counter()
+    for k, (img, _, edit, _) in enumerate(frames):
+        out_dir = os.path.join(tmp, f"dt_serve{k}")
+        geometric_main.main(["--input_image", img, "--edit_json", edit,
+                             "--shapenet_root", shapenet, "--output_dir",
+                             out_dir, "--seed", str(args.seed),
+                             "--maskrcnn_ckpt", ckd])
+        n_objs.append(check_outputs(out_dir, 16, min_objs=0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b1, plain = launch.launches, TR.rasterize_face_maps.calls
+    if b1 != 2 * len(frames) or plain:
+        raise AssertionError(f"14a geometric_main --maskrcnn_ckpt {ckd}: "
+                             f"forward launches {b1} for {2 * len(frames)} "
+                             f"items, plain calls {plain}")
+    log(f"[dt-14a] geometric_main --maskrcnn_ckpt (the float32 schedule "
+        f"run's step) over {len(frames)} frames x 2 items in {wall:.2f} s: "
+        f"forward kernel launches {b1}, plain forward calls {plain}, "
+        f"objects per frame {n_objs}; outputs ok ({card})")
+
+
+def dt_descent(args, card: str) -> None:
+    """14b: DT_DESCENT steps of stage "all" with train_bn on one example
+    from the weights as drawn: the total loss falls."""
+    import torch
+
+    from sdn3d_tpu_torch.models.maskrcnn import (MaskRCNN, MaskRCNNConfig,
+                                                 init_weights)
+    sd = init_weights(MaskRCNN(MaskRCNNConfig()), args.seed).state_dict()
+    trainer, state = dt_trainer(sd, "all", lr=DT_DESCENT_LR, train_bn=True)
+    batch = dt_example(trainer.config, args.seed, DT_DEVICE)
+    state, totals, _ = dt_steps(trainer, state, batch, args.seed,
+                                DT_DESCENT)
+    first = float(np.mean(totals[:DT_WINDOW]))
+    last = float(np.mean(totals[-DT_WINDOW:]))
+    if not np.isfinite(totals).all() or not last < DT_DESCENT_FACTOR * first:
+        raise AssertionError(f"14b descent: {totals}")
+    log(f"[dt-14b] {DT_DESCENT} steps of stage all, train_bn, lr "
+        f"{DT_DESCENT_LR}, on one synthetic example from the weights as "
+        f"drawn: total loss first / last {DT_WINDOW} {first:.6f} -> "
+        f"{last:.6f} (factor {last / first:.4f}, bound "
+        f"{DT_DESCENT_FACTOR}); step 0 {totals[0]:.6f}, step "
+        f"{DT_DESCENT - 1} {totals[-1]:.6f} ({card})")
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+
+
+def dt_group_grads(sd, cfg, batch, targets, dev, dtype, compute="float32"):
+    """The summed losses' gradients of stage "transfer" by group (one
+    vector each, float64 on the host) and the total, with `targets`
+    (detection_targets' dict) in place of the step's own."""
+    import torch
+
+    from sdn3d_tpu_torch.models import maskrcnn_train as TMT
+    from sdn3d_tpu_torch.models.maskrcnn import MaskRCNN
+    from sdn3d_tpu_torch.pipelines.detect_train import MaskRCNNTrainer
+    cfg = dataclasses.replace(cfg, compute_dtype=compute)
+    model = MaskRCNN(cfg)
+    model.load_state_dict(sd)
+    model = model.to(dev, dtype)
+    trainer = MaskRCNNTrainer(config=cfg, stage="transfer", device=dev)
+    state = trainer.init(model=model)
+    given = {k: (v.to(dev, dtype) if v.is_floating_point() else v.to(dev))
+             for k, v in targets.items()}
+    found = TMT.detection_targets
+    TMT.detection_targets = lambda *a, **kw: given
+    try:
+        x, match, tb, gids, gb, gm = (
+            t.to(dev, dtype) if t.is_floating_point() else t.to(dev)
+            for t in batch)
+        grads, losses = trainer.gradients(state, x, match, tb, gids, gb, gm,
+                                          None, trainer.anchors.to(dtype))
+    finally:
+        TMT.detection_targets = found
+    vec = {g: torch.cat([t.reshape(-1) for t in grads[g]]).double().cpu()
+           for g in grads if grads[g]}
+    return vec, float(sum(losses.values()))
+
+
+def dt_card_against_cpu(args, card: str) -> None:
+    """14c: one step's gradients at DT_SMALL (stage transfer: the "train"
+    and "transfer" groups), the card in float32 within DT_CPU_FACTOR x
+    the CPU float32's distance to a float64 CPU run in each group (error
+    relative to the group's largest entry, and 1 - cosine); bfloat16
+    printed beside; three of the model's proposals are the GT boxes, and
+    every run is given the CPU float32 run's targets."""
+    import torch
+
+    from sdn3d_tpu_torch.models import maskrcnn_train as TMT
+    from sdn3d_tpu_torch.models.maskrcnn import (MaskRCNN, MaskRCNNConfig,
+                                                 generate_pyramid_anchors,
+                                                 init_weights)
+    cfg = MaskRCNNConfig(**DT_SMALL)
+    sd = init_weights(MaskRCNN(cfg), args.seed).state_dict()
+    for k in ("rpn.conv_class.weight", "rpn.conv_bbox.weight",
+              "classifier.linear_class.weight",
+              "classifier.linear_bbox.weight", "mask.conv5.weight"):
+        sd[k] = sd[k] * DET_TAME
+    model = MaskRCNN(cfg)
+    model.load_state_dict(sd)
+    anchors = torch.from_numpy(generate_pyramid_anchors(cfg))
+    batch = dt_proposal_gt(model, cfg, dt_example(cfg, args.seed, "cpu"))
+    x, _, _, gids, gb, gm = batch
+    # the CPU float32 forward's own targets
+    seen = []
+    found = TMT.detection_targets
+
+    def record(*a, **kw):
+        seen.append(found(*a, **kw))
+        return seen[-1]
+    TMT.detection_targets = record
+    try:
+        with torch.no_grad():
+            model.train_forward(x, anchors, gids, gb, gm,
+                                torch.Generator().manual_seed(args.seed))
+    finally:
+        TMT.detection_targets = found
+    targets = {k: v.detach() for k, v in seen[0].items()}
+    ref, ref_loss = dt_group_grads(sd, cfg, batch, targets, "cpu",
+                                   torch.float64)
+    runs = {key: dt_group_grads(sd, cfg, batch, targets, dev, torch.float32,
+                                compute)
+            for key, dev, compute in (("card", DT_DEVICE, "float32"),
+                                      ("cpu", "cpu", "float32"),
+                                      ("bfloat16", DT_DEVICE, "bfloat16"))}
+
+    def errs(vec):
+        out = {}
+        for g, want in ref.items():
+            got = vec[g]
+            cos = float(torch.dot(got, want) / (got.norm() * want.norm()))
+            out[g] = (float((got - want).abs().max() / want.abs().max()),
+                      max(1.0 - cos, 0.0))
+        return out
+    res = {k: (abs(loss - ref_loss) / abs(ref_loss), errs(v))
+           for k, (v, loss) in runs.items()}
+    cpu, c = res["cpu"][1], res["card"][1]
+    # 1 - cosine below 1e-12 is the float64 cosine's own rounding
+    bad = [g for g in ref if not (c[g][0] <= DT_CPU_FACTOR * cpu[g][0]
+                                  and c[g][1] <= DT_CPU_FACTOR
+                                  * max(cpu[g][1], 1e-12))]
+    if bad or res["card"][0] > DT_LOSS_RTOL:
+        raise AssertionError(f"14c card against float64: {res['card']}; the "
+                             f"CPU's float32: {res['cpu']}; groups {bad}")
+
+    def fmt(r):
+        return (f"loss rel {r[0]:.3e}; " + "; ".join(
+            f"{g} {e:.3e} / 1 - cos {d:.3e}" for g, (e, d) in r[1].items()))
+    log(f"[dt-14c] one step's gradients of stage transfer at "
+        f"{cfg.image_max_dim}^2, stage_sizes {cfg.stage_sizes}, FPN "
+        f"{cfg.fpn_channels} (the heads' last layers scaled by {DET_TAME}; "
+        f"every run given the CPU float32 run's targets), against a float64 "
+        f"CPU run, by group (error relative to the group's largest entry): "
+        f"card float32 {fmt(res['card'])} (bound: {DT_CPU_FACTOR}x the "
+        f"CPU's in each group); CPU float32 {fmt(res['cpu'])}; card "
+        f"bfloat16 {fmt(res['bfloat16'])} ({card})")
+
+
+def dt_same_bits(args, card: str, ckpt: str) -> None:
+    """14d: two runs of a full-width float32 step of stage "all" from the
+    same state, example and draws give the same bits: weights, running
+    statistics, the trace and the losses; the GT boxes are three of the
+    model's proposals, so that every head's loss, and the RoI crops'
+    backward, carry a gradient."""
+    import torch
+    from sdn3d_tpu_torch.cli.geometric_train import step_generator
+    trainer, state = dt_trainer(torch.load(ckpt), "all")
+    batch = dt_proposal_gt(state.model, trainer.config, dt_example(
+        trainer.config, args.seed, DT_DEVICE))
+    model0 = clone_fields(state.model.state_dict())
+    trace0 = clone_fields(state.trace)
+    runs = []
+    for _ in range(2):
+        state.model.load_state_dict(model0)
+        state.trace = clone_fields(trace0)
+        state, losses = trainer.train_step(
+            state, *batch, step_generator(args.seed, 0, DT_DEVICE))
+        runs.append((clone_fields(state.model.state_dict()),
+                     clone_fields(state.trace),
+                     {k: float(v) for k, v in losses.items()}))
+    bad = same_fields(runs[0][0], runs[1][0]) + same_fields(runs[0][1],
+                                                            runs[1][1])
+    if bad or runs[0][2] != runs[1][2] or not all(runs[0][2].values()):
+        raise AssertionError(f"14d: two runs of a step differ, or a loss is "
+                             f"0: {bad[:8]}, {runs[0][2]} / {runs[1][2]}")
+    log(f"[dt-14d] two runs of a full-width float32 step (stage all, the "
+        f"phase 9 checkpoint's weights, one example with three of the "
+        f"model's proposals as its GT boxes, the same draws): weights, "
+        f"running statistics, trace and losses bit-equal, every loss "
+        f"nonzero (" + ", ".join(f"{k} {v:.6f}" for k, v in
+                                 runs[0][2].items()) + f") ({card})")
+    del trainer, state, runs
+    torch.cuda.empty_cache()
+
+
+def dt_times(args, card: str, ckpt: str) -> None:
+    """14e: ms a full-width step of each DT_TIME_STAGES stage in float32
+    and bfloat16 (CUDA events, median of DT_TIME after DT_WARM), host
+    wall, device busy and idle share, launches a step, top kernels, FLOPs
+    (utils/flops.count_flops of one float32 step) against the card's peak
+    (utils/flops.mfu_row), peak memory."""
+    import torch
+
+    from sdn3d_tpu_torch.utils import flops as FL
+    sd = torch.load(ckpt)
+    for stage in DT_TIME_STAGES:
+        n_flops = None
+        for dtype in ("float32", "bfloat16"):
+            trainer, state = dt_trainer(sd, stage, dtype)
+            batch = dt_example(trainer.config, args.seed, DT_DEVICE)
+            if n_flops is None:
+                n_flops, top_ops = FL.count_flops(lambda: dt_steps(
+                    trainer, state, batch, args.seed, 1))
+            dt_steps(trainer, state, batch, args.seed, DT_WARM)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, totals, ms = dt_steps(trainer, state, batch, args.seed,
+                                         DT_TIME, first=DT_WARM)
+            wall = (time.perf_counter() - t0) * 1e3 / DT_TIME
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            ms = sorted(ms)
+            med = ms[len(ms) // 2]
+            busy, kernels = device_time(lambda: dt_steps(
+                trainer, state, batch, args.seed, 2), 2)
+            launches = sum(v[1] for _, v in kernels) / 2
+            conv = sum(v[0] for k, v in kernels if any(
+                w in k.lower() for w in ("conv", "cudnn", "xmma", "gemm",
+                                         "gemv", "fft")))
+            row = FL.mfu_row(n_flops, None, med / 1e3, dtype=dtype,
+                             peaks=PEAK)
+            log(f"[dt-14e] {dtype} step of stage {stage} at MaskRCNNConfig() "
+                f"(batch 1): {med:.3f} ms (median of {DT_TIME} after "
+                f"{DT_WARM}, CUDA events; min {ms[0]:.3f}, max {ms[-1]:.3f}), "
+                f"host wall {wall:.3f} ms a step; device busy {busy:.3f} ms, "
+                f"idle share {1 - busy / wall:.4f}; {launches:.0f} launches "
+                f"a step; convolution kernels {conv:.3f} ms; {n_flops:.4e} "
+                f"FLOP a step (utils/flops, float32 run), floor "
+                f"{row['floor_ms']:.3f} ms at the card's {dtype} peak "
+                f"({row['pct_peak_flops']:.1f}% of it); peak memory "
+                f"{peak:.2f} GiB; finite losses {np.isfinite(totals).all()} "
+                f"({card})")
+            log(f"[dt-14e] {dtype} {stage} top kernels (ms a step, launches "
+                f"over 2): " + "; ".join(f"{k[:60]} {v[0]:.3f} ({v[1]})"
+                                         for k, v in kernels[:6]))
+            if dtype == "float32":
+                log(f"[dt-14e] {stage} FLOPs by op (one float32 step): "
+                    + "; ".join(f"{k} {v:.3e}" for k, v in top_ops))
+            del trainer, state, batch
+            torch.cuda.empty_cache()
+
+
+def dt_item_cost(args, card: str, tmp: str) -> None:
+    """14e: the host cost of one VKITTI item (VKittiDetectDataset at
+    MaskRCNNConfig(): PNG decode, scenegt instances, mold_gt_example over
+    the 261,888 anchors, PIL mini-masks) on a write_vkitti_root root."""
+    from sdn3d_tpu_torch.data.detect_data import VKittiDetectDataset
+    from sdn3d_tpu_torch.data.synthetic import write_vkitti_root
+    from sdn3d_tpu_torch.models.maskrcnn import (MaskRCNNConfig,
+                                                 generate_pyramid_anchors)
+    root = os.path.join(tmp, "dt_vk")
+    rng = np.random.RandomState(args.seed)
+    write_vkitti_root(root, {("0001", "clone", f"{i:05d}"): car_boxes(
+        rng, 4 + 4 * i) for i in range(2)}, args.seed)
+    cfg = MaskRCNNConfig()
+    anchors = generate_pyramid_anchors(cfg)
+    ds = VKittiDetectDataset(root, cfg, anchors)
+    walls = []
+    for i in range(2 * len(ds) + 1):
+        t0 = time.perf_counter()
+        ex = ds[i % len(ds)]
+        walls.append((time.perf_counter() - t0) * 1e3)
+    walls = sorted(walls[1:])
+    n = int((ex["gt_class_ids"] > 0).sum())
+    log(f"[dt-14e] one VKITTI item (375x1242 -> 1024^2, "
+        f"{anchors.shape[0]} anchors, 56^2 mini-masks) on the host: "
+        f"{walls[len(walls) // 2]:.3f} ms (median of {len(walls)}; min "
+        f"{walls[0]:.3f}, max {walls[-1]:.3f}); {len(ds)} frames, {n} GT "
+        f"instances in the last ({card})")
+
+
+def detect_train_phase(args, card: str, frames, shapenet: str, tmp: str,
+                       ckpt: str, mark=lambda what: None) -> None:
+    """Phase 14: Mask R-CNN training at MaskRCNNConfig()'s full width (no
+    repo kernel on the training path; B1 on the served step).  14a the
+    CLI in each stage and the schedule with --coco_ckpt (phase 9's
+    checkpoint), float32 and bfloat16, then geometric_main --maskrcnn_ckpt
+    serving a step; 14b descent; 14c the card against the CPU; 14d the
+    same bits on two runs; 14e times and a VKITTI item's host cost."""
+    t_phase = time.perf_counter()
+    served = dt_cli_runs(args, card, tmp, ckpt)
+    dt_serve(args, card, frames, shapenet, tmp, served)
+    mark("14a. detect_train CLI runs, served step")
+    dt_descent(args, card)
+    mark("14b. detect_train descent")
+    dt_card_against_cpu(args, card)
+    mark("14c. detect_train card against CPU")
+    dt_same_bits(args, card, ckpt)
+    mark("14d. detect_train same bits")
+    dt_times(args, card, ckpt)
+    dt_item_cost(args, card, tmp)
+    mark("14e. detect_train times")
+    log(f"[dt] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3807,6 +4327,12 @@ def main(argv=None) -> int:
         # where the script's time limit goes, phase by phase
         log(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
     sys.path.insert(0, REPO)
+    from sdn3d_tpu_torch.utils.flops import device_peaks
+    if device_peaks() is None:
+        log(f"FAILED: no peaks for {torch.cuda.get_device_name(0)} in "
+            f"sdn3d_tpu_torch/utils/flops.PEAKS")
+        return 2
+    PEAK.update(device_peaks())
     from sdn3d_tpu_torch.ops import rasterize as TR
     from sdn3d_tpu_torch.ops import rasterize_cuda as TC
     from sdn3d_tpu_torch.pipelines import derender_infer as TI
@@ -4088,11 +4614,13 @@ def main(argv=None) -> int:
                       num_opts=NUM_OPTS)
         mark("6. profiles")
         # -- 9. detection as the serving source (9e in the chain phase) ----
-        detection_phase(args, card, frames, shapenet, tmp, mark)
+        det_ckpt = detection_phase(args, card, frames, shapenet, tmp, mark)
         # -- 11. derenderer training at full width ---------------------------
         t_launches = training_phase(args, card, frames, shapenet, tmp, mark)
         # -- 13. semantic training and the kitti / cityscapes datasets ------
         semantic_phase(args, card, shapenet, tmp, mark)
+        # -- 14. Mask R-CNN training ------------------------------------------
+        detect_train_phase(args, card, frames, shapenet, tmp, det_ckpt, mark)
 
     # -- 5. kernels vs plain at the main paths' shapes ------------------------
     cf, cv, cs, cc = (captured["faces"], captured["valid"], captured["size"],
@@ -4135,8 +4663,8 @@ def main(argv=None) -> int:
     hi = torch.clamp(torch.floor(pix.amax(2)), -1, cs - 1)
     area = torch.clamp(hi - lo + 1, min=0).prod(-1) * ok
     pairs = float(area.sum())
-    t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
-    t_ops = pairs * EDGE_TEST_FLOPS / H100_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK["hbm"] * 1e3
+    t_ops = pairs * EDGE_TEST_FLOPS / PEAK["float32"] * 1e3
     bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
     log(f"[kernel] {ms:.4f} ms/launch, plain {plain_ms:.1f} ms; bound "
         f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {pairs:.0f} "
@@ -4165,8 +4693,8 @@ def main(argv=None) -> int:
         for a in (0, 1))
     w_bytes, w_ops, walking = walk_bound(TR, alpha, wpp, wfi, W)
     walk_bound_ms, walk_bound_by = max(
-        (w_bytes / H100_HBM_BYTES_PER_S * 1e3, "bytes"),
-        (w_ops / H100_FP32_FLOPS * 1e3, "operations"))
+        (w_bytes / PEAK["hbm"] * 1e3, "bytes"),
+        (w_ops / PEAK["float32"] * 1e3, "operations"))
     log(f"[kernel] walk: {walk_ms:.4f} ms/launch (one backward: both axes "
         f"in one launch); plain {walk_plain_ms:.1f} ms (both axes); bound "
         f"{walk_bound_ms:.4f} ms by {walk_bound_by} ({w_bytes:.0f} B, "
@@ -4204,8 +4732,8 @@ def main(argv=None) -> int:
     r_bytes = sfi_m.numel() * 4 + n_won * 6 * 4 + Bm * Fm * 6 * 4
     r_ops = float(n_won) * REDUCE_FLOPS
     red_bound_ms, red_bound_by = max(
-        (r_bytes / H100_HBM_BYTES_PER_S * 1e3, "bytes"),
-        (r_ops / H100_FP32_FLOPS * 1e3, "operations"))
+        (r_bytes / PEAK["hbm"] * 1e3, "bytes"),
+        (r_ops / PEAK["float32"] * 1e3, "operations"))
     box = TC.won_pixel_boxes_cuda(sfi_m, Fm).float()
     box_px = float(((box[..., 1] - box[..., 0] + 1).clamp(min=0)
                     * (box[..., 3] - box[..., 2] + 1).clamp(min=0)).sum())

@@ -24,9 +24,14 @@ fields, which `restore_variables` leaves on disk:
     opt_enc.pt and opt_dec.pt ({"count", "trace"}: each SGD optimizer's
     schedule count and momentum traces by parameter name), step.pt; the
     manifest's meta is vars(args); semantic_test and semantic_eval
-    --ckpt_dir read encoder.pt and decoder.pt.  The JAX package's orbax step
-directories are not readable here; their variables convert with
-utils/port into a step of this layout.
+    --ckpt_dir read encoder.pt and decoder.pt;
+  - Mask R-CNN training (cli/detect_train): maskrcnn.pt (the reference
+    layout, which geometric_main and edit_chain --maskrcnn_ckpt read),
+    opt_state.pt ({"labels": {name: "train" | "transfer" | "freeze"},
+    "trace": {group: {name: momentum trace}}}), step.pt; the manifest's
+    meta is vars(args).
+The JAX package's orbax step directories are not readable here; their
+variables convert with utils/port into a step of this layout.
 """
 
 from __future__ import annotations

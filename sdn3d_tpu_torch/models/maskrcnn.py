@@ -5,8 +5,9 @@ PyTorch counterpart of the inference graph of sdn3d_tpu/models/maskrcnn.py
 stage keeps the JAX package's fixed shapes and validity masks (top-k,
 padded NMS, masked refinement), with a leading frame axis F: the batched
 detector puts N frames through one pass, and a box's frame selects its
-feature rows (ops/roi_align.crop_and_resize_flat).  Training
-(`train_forward`, the detection targets) waits for the Mask R-CNN trainer.
+feature rows (ops/roi_align.crop_and_resize_flat).  `train_forward` is
+the training graph (models/maskrcnn_train: the detection targets and the
+losses; pipelines/detect_train: the trainer), one frame a pass (F = 1).
 
 The backbone is the reference's, not torchvision's: the stride sits on the
 1x1 conv1 of each bottleneck, padding is TF "SAME", BatchNorm eps is 1e-3
@@ -27,6 +28,7 @@ random deltas may be inf or NaN; every comparison then goes as in JAX
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, List, Sequence, Tuple
@@ -231,8 +233,18 @@ class Bottleneck(nn.Module):
 
 
 def _up2(t: torch.Tensor) -> torch.Tensor:
-    """Nearest 2x repeat along H and W (jnp.repeat twice)."""
-    return t.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    """Nearest 2x repeat along H and W (jnp.repeat twice), as a broadcast:
+    its backward is a sum over the broadcast axes, where
+    repeat_interleave's is an index_add_ (float atomics on the card)."""
+    B, C, H, W = t.shape
+    return t[:, :, :, None, :, None].expand(B, C, H, 2, W, 2).reshape(
+        B, C, 2 * H, 2 * W)
+
+
+def _at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """float32 for a bfloat16 or float32 head output, float64 kept (a
+    float64 reference run)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 class FPN(nn.Module):
@@ -293,10 +305,10 @@ class RPNHead(nn.Module):
     def forward(self, x: torch.Tensor):
         shared = torch.relu(self.conv_shared(x))
         B = x.shape[0]
-        logits = self.conv_class(shared).permute(0, 2, 3, 1).reshape(
-            B, -1, 2).float()
-        bbox = self.conv_bbox(shared).permute(0, 2, 3, 1).reshape(
-            B, -1, 4).float()
+        logits = _at_least_f32(self.conv_class(shared).permute(
+            0, 2, 3, 1).reshape(B, -1, 2))
+        bbox = _at_least_f32(self.conv_bbox(shared).permute(
+            0, 2, 3, 1).reshape(B, -1, 4))
         return logits, torch.softmax(logits, dim=2), bbox
 
 
@@ -362,20 +374,28 @@ class RoiFeatures:
 
 def roi_levels(boxes: torch.Tensor, image_shape) -> torch.Tensor:
     """The pyramid level (2..5) of each normalised box [..., 4]
-    (model.py:414-502)."""
+    (model.py:414-502).  A box with a NaN coordinate (exp of a random
+    delta overflowed) has a NaN level, which XLA converts to 0 and the
+    JAX package's crop then selects at no level: zeros.  Here it takes
+    level 2, where each of its samples falls outside the image and reads
+    the extrapolation value: the same zeros (a NaN cast to an integer is
+    INT64_MIN on the CPU, out of any table)."""
     h = boxes[..., 2] - boxes[..., 0]
     w = boxes[..., 3] - boxes[..., 1]
     image_area = float(image_shape[0] * image_shape[1])
     level = 4 + torch.log2(torch.sqrt(torch.clamp(h * w, min=1e-12))
                            / (224.0 / np.sqrt(image_area)))
-    return torch.round(level).clamp(2, 5).long()
+    level = torch.round(level).clamp(2, 5)
+    return torch.where(torch.isnan(level), 2.0, level).long()
 
 
 def pyramid_roi_align(boxes: torch.Tensor, feats: RoiFeatures,
                       pool_size: int, image_shape) -> torch.Tensor:
-    """boxes [F, N, 4] normalised -> crops [F * N, C, pool, pool], each box
-    cropped from its own level of its own frame (the JAX package crops it
-    at every level and keeps its own: the same values)."""
+    """boxes [F, N, 4] normalised -> crops [F * N, C, pool, pool]
+    (contiguous: under cuDNN's deterministic algorithms no engine takes a
+    channels-last view), each box cropped from its own level of its own
+    frame (the JAX package crops it at every level and keeps its own: the
+    same values)."""
     Fr, N = boxes.shape[:2]
     lvl = roi_levels(boxes, image_shape).reshape(-1) - 2       # [F * N]
     frame = torch.arange(Fr, device=boxes.device).repeat_interleave(N)
@@ -383,12 +403,28 @@ def pyramid_roi_align(boxes: torch.Tensor, feats: RoiFeatures,
     crops = crop_and_resize_flat(feats.table, feats.offsets[lvl, frame],
                                  shape[:, 0], shape[:, 1],
                                  boxes.reshape(-1, 4), (pool_size, pool_size))
-    return crops.permute(0, 3, 1, 2)
+    return crops.permute(0, 3, 1, 2).contiguous()
 
 
 # ---------------------------------------------------------------------------
 # Heads (model.py:920-997)
 # ---------------------------------------------------------------------------
+
+def _conv_as_dense(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A convolution whose kernel covers its whole unpadded input
+    ([N, C, k, k] -> [N, O, 1, 1]) as the product it is, over the flattened
+    input, in the layer's compute dtype (flax's casts, models/layers).  On
+    the card under cuDNN's deterministic algorithms no engine takes the
+    classifier's 7x7-over-7x7 and 1x1-over-1x1 convolutions."""
+    w = conv.weight.reshape(conv.weight.shape[0], -1)
+    x = x.reshape(x.shape[0], -1)
+    dt = conv.compute_dtype
+    if dt == torch.float32:
+        y = F.linear(x, w, conv.bias)
+    else:
+        y = F.linear(x.to(dt), w.to(dt)) + conv.bias.to(dt)
+    return y[:, :, None, None]
+
 
 class Classifier(nn.Module):
     def __init__(self, depth: int = 256, pool_size: int = 7,
@@ -408,11 +444,12 @@ class Classifier(nn.Module):
         [F, N, C, 4]), float32."""
         Fr, N = rois.shape[:2]
         x = pyramid_roi_align(rois, feats, self.pool_size, self.image_shape)
-        x = torch.relu(self.bn1(self.conv1(x)))
-        x = torch.relu(self.bn2(self.conv2(x)))
+        x = torch.relu(self.bn1(_conv_as_dense(self.conv1, x)))
+        x = torch.relu(self.bn2(_conv_as_dense(self.conv2, x)))
         x = x.reshape(-1, 1024)
-        logits = self.linear_class(x).float().reshape(Fr, N, -1)
-        bbox = self.linear_bbox(x).float().reshape(Fr, N, self.num_classes, 4)
+        logits = _at_least_f32(self.linear_class(x)).reshape(Fr, N, -1)
+        bbox = _at_least_f32(self.linear_bbox(x)).reshape(
+            Fr, N, self.num_classes, 4)
         return logits, torch.softmax(logits, dim=2), bbox
 
 
@@ -438,7 +475,7 @@ class MaskHead(nn.Module):
             conv, bn = getattr(self, f"conv{k}"), getattr(self, f"bn{k}")
             x = torch.relu(bn(conv(x)))
         x = torch.relu(self.deconv(x))
-        x = torch.sigmoid(self.conv5(x).float())
+        x = torch.sigmoid(_at_least_f32(self.conv5(x)))
         return x.reshape(Fr, N, *x.shape[1:])
 
 
@@ -543,11 +580,72 @@ class MaskRCNN(nn.Module):
                 "detections": detections, "det_valid": det_valid,
                 "masks": masks}
 
+    def train_forward(self, images: torch.Tensor, anchors: torch.Tensor,
+                      gt_class_ids: torch.Tensor, gt_boxes: torch.Tensor,
+                      gt_masks: torch.Tensor, draws,
+                      train_bn: bool = False) -> Dict[str, torch.Tensor]:
+        """Training graph of one frame (model.py:1783-1821, 'training'
+        mode; JAX MaskRCNN.train_forward): the pyramid, the RPN, proposals
+        from the RPN's outputs without their gradient at
+        post_nms_rois_training, the detection targets
+        (models/maskrcnn_train.detection_targets, sampled with `draws`: a
+        torch.Generator or the two uniform draws), the classifier and the
+        mask head on the sampled rois.
+
+        images [1, 3, H, W] mean-subtracted, anchors [A, 4] (pixels),
+        gt_class_ids [G] (0 = pad), gt_boxes [G, 4] normalised, gt_masks
+        [G, mh, mw] mini-masks.  BatchNorm runs in eval mode on its running
+        statistics (`train_bn` False, the reference's set_bn_eval,
+        model.py:1714-1720) or on the frame's statistics, moving the
+        running ones (flax's rule, models/layers.BatchNorm2d).  Returns
+        rpn_class_logits [A, 2], rpn_bbox [A, 4], targets (detection_targets'
+        dict), mrcnn_class_logits [T, C], mrcnn_bbox [T, C, 4],
+        mrcnn_masks [T, C, mh, mw]."""
+        from sdn3d_tpu_torch.models import maskrcnn_train
+
+        cfg = self.config
+        if images.shape[0] != 1:
+            raise ValueError(f"train_forward takes one frame, got "
+                             f"{images.shape[0]}")
+        if images.is_cuda:
+            from sdn3d_tpu_torch.models.derenderer import strict_fp32
+            strict_fp32()
+        with bn_mode(self, train_bn):
+            pyramid = self.fpn(images)
+            rpn_logits, rpn_probs, rpn_bbox = self.rpn_forward(pyramid)
+            proposals, prop_valid = proposal_layer(
+                rpn_probs.detach(), rpn_bbox.detach(), anchors, cfg,
+                cfg.post_nms_rois_training)
+            tgt = maskrcnn_train.detection_targets(
+                proposals[0], prop_valid[0], gt_class_ids, gt_boxes,
+                gt_masks, draws, cfg)
+            feats = RoiFeatures(pyramid[:4])                   # P2..P5
+            logits, _, deltas = self.classifier(feats, tgt["rois"][None])
+            masks = self.mask(feats, tgt["rois"][None])
+        return {"rpn_class_logits": rpn_logits[0], "rpn_bbox": rpn_bbox[0],
+                "targets": tgt, "mrcnn_class_logits": logits[0],
+                "mrcnn_bbox": deltas[0], "mrcnn_masks": masks[0]}
+
     def rpn_forward(self, feature_maps: Sequence[torch.Tensor]):
         """The shared RPN over every level, concatenated along the anchor
         axis (model.py:1731-1745): (logits, probs, bbox) [F, A, .]."""
         outs = [self.rpn(p) for p in feature_maps]
         return tuple(torch.cat(t, dim=1) for t in zip(*outs))
+
+
+@contextlib.contextmanager
+def bn_mode(module: nn.Module, train: bool):
+    """Every BatchNorm2d under `module` in train (`train`) or eval mode for
+    the span of the block; the modes found are restored after."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    found = [m.training for m in bns]
+    for m in bns:
+        m.train(train)
+    try:
+        yield
+    finally:
+        for m, mode in zip(bns, found):
+            m.train(mode)
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int,

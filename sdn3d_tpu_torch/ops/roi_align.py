@@ -16,6 +16,14 @@ frame in one pass, where the JAX package crops every box at every level
 and keeps one.  A sample outside the image (or at a NaN position, from a
 box that overflowed) reads row 0 and is replaced by the extrapolation
 value, as JAX's clamped gather is; no index leaves the table.
+
+The gather's backward (`GatherRows`) sums each table row's gradient over
+its reads in a fixed order: the reads sorted stably by row, then summed
+one after the other (torch.segment_reduce), with no atomics.  Autograd's
+own backward of `table[idx]` is index_put_(accumulate=True), which adds
+with float atomics on the card, so two runs of a training step that
+crops RoIs from the pyramid (MaskRCNN.train_forward) would differ in the
+last bits.
 """
 
 from __future__ import annotations
@@ -23,6 +31,31 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+
+class GatherRows(torch.autograd.Function):
+    """table [R, C], idx (any shape, int64) -> table[idx] [*idx.shape, C],
+    whose backward sums the gradient of every read of a row in the reads'
+    order (a stable sort by row, then a sequential segment sum): the same
+    bits on every run, on the card and on the CPU."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (idx,) = ctx.saved_tensors
+        flat = idx.reshape(-1)
+        g = grad.reshape(flat.numel(), -1)
+        rows, order = torch.sort(flat, stable=True)
+        uniq, counts = torch.unique_consecutive(rows, return_counts=True)
+        sums = torch.segment_reduce(g[order], "sum", lengths=counts, axis=0)
+        out = g.new_zeros(ctx.rows, g.shape[1])
+        out[uniq] = sums
+        return out, None
 
 
 def _positions(lo: torch.Tensor, hi: torch.Tensor, size_m1: torch.Tensor,
@@ -74,7 +107,8 @@ def crop_and_resize_flat(table: torch.Tensor, offsets: torch.Tensor,
     base = offsets.long()[:, None, None]                   # [N, 1, 1]
 
     def gather(yy, xx):
-        return table[base + (yy * w_row)[:, :, None] + xx[:, None, :]]
+        return GatherRows.apply(table, base + (yy * w_row)[:, :, None]
+                                + xx[:, None, :])
 
     tl = gather(y0i, x0i)                                  # [N, ch, cw, C]
     tr = gather(y0i, x1i)

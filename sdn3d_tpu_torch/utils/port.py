@@ -7,7 +7,8 @@ port_multiscale_discriminator, port_vgg19, port_lpips and port_maskrcnn
 never builds), so weights trained or ported on the JAX side load one to
 one into the port's models, and a derenderer, textural or semantic train state
 (weights, running statistics, Adam's moments and count or SGD's momentum
-traces and schedule count) carries across to the port's trainer:
+traces and schedule count; a Mask R-CNN train state's labels and momentum
+traces by group) carries across to the port's trainer:
 
   conv        [kh, kw, I, O] -> [O, I, kh, kw]
   conv_transpose [kh, kw, O, I] (transpose_kernel) -> [I, O, kh, kw]
@@ -425,3 +426,54 @@ def maskrcnn_state_dict_from_jax(variables: Mapping
     _conv(sd, "mask.deconv", M["deconv"])
     _conv(sd, "mask.conv5", M["conv5"])
     return sd
+
+
+def _masked_tree(tree, params: Mapping):
+    """A params-shaped (values, indicator) pair of numpy trees from an optax
+    tree masked by multi_transform: a leaf of the group keeps its array
+    (indicator 1), a leaf of another group (optax's MaskedNode, which has
+    no shape) becomes zeros (indicator 0)."""
+    if isinstance(params, Mapping):
+        pairs = {k: _masked_tree(tree.get(k) if isinstance(tree, Mapping)
+                                 else None, p) for k, p in params.items()}
+        return ({k: v for k, (v, _) in pairs.items()},
+                {k: i for k, (_, i) in pairs.items()})
+    shape = np.shape(params)
+    if getattr(tree, "shape", None) == shape:
+        return np.asarray(tree), np.ones(shape, np.float32)
+    return np.zeros(shape, np.float32), np.zeros(shape, np.float32)
+
+
+def maskrcnn_train_state_from_jax(state: Mapping) -> Dict[str, object]:
+    """A JAX pipelines/detect_train state ({"params", "batch_stats",
+    "opt_state", "step"}, its arrays as numpy) -> the fields of the port
+    trainer's state (pipelines/detect_train.DetectTrainState.from_fields,
+    a core/checkpoint train-state step): "maskrcnn" (the state_dict,
+    running statistics included, through maskrcnn_state_dict_from_jax),
+    "opt_state" {"labels": {name: label}, "trace": {group: {name:
+    tensor}}} and "step".  The optimizer state is optax.multi_transform's
+    over the labels "train", "transfer" and "freeze", each moved group a
+    chain (clip_by_global_norm, add_decayed_weights, (trace,
+    scale_by_learning_rate)) masked to its parameters: a parameter's label
+    is the group whose trace holds it, "freeze" where none does."""
+    P, S = state["params"], state["batch_stats"]
+    sd = maskrcnn_state_dict_from_jax({"params": P, "batch_stats": S})
+    names = [n for n in sd if not n.endswith(_STATS)]
+    labels = {n: "freeze" for n in names}
+    trace: Dict[str, Dict[str, torch.Tensor]] = {}
+    for group, inner in state["opt_state"].inner_states.items():
+        leaf = _opt_leaf(inner, "trace")
+        if leaf is None:
+            continue
+        values, held = _masked_tree(leaf.trace, P)
+        v_sd = maskrcnn_state_dict_from_jax({"params": values,
+                                             "batch_stats": S})
+        h_sd = maskrcnn_state_dict_from_jax({"params": held,
+                                             "batch_stats": S})
+        mine = [n for n in names if bool(h_sd[n].all())]
+        for n in mine:
+            labels[n] = group
+        trace[group] = {n: v_sd[n] for n in mine}
+    return {"maskrcnn": sd,
+            "opt_state": {"labels": labels, "trace": trace},
+            "step": torch.tensor(int(np.asarray(state["step"])))}

@@ -93,9 +93,9 @@ def test_load_edit_json(tmp_path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of sdn3d_tpu_torch (in a fresh interpreter),
-    the semantic and textural branches, the chain and the file-contract
-    CLIs among them, pulls in neither jax/flax/optax/orbax, pandas nor
-    sdn3d_tpu."""
+    the semantic and textural branches, the chain, the file-contract CLIs
+    and the Mask R-CNN trainer among them, pulls in neither
+    jax/flax/optax/orbax, pandas nor sdn3d_tpu."""
     code = """
 import importlib, pkgutil, sys
 import sdn3d_tpu_torch
@@ -113,7 +113,8 @@ need = {"sdn3d_tpu_torch." + n for n in (
     "cli.edit_chain", "utils.visualizer", "utils.metrics", "ops.pil_resize",
     "models.layers", "models.lpips", "utils.transfer", "core.checkpoint",
     "data.native", "data.vkitti_derender", "cli.edit_benchmark",
-    "cli.textural_test")}
+    "cli.textural_test", "models.maskrcnn_train", "data.detect_data",
+    "pipelines.detect_train", "cli.detect_train", "utils.flops")}
 print(len(names), bad, sorted(need - set(names)))
 assert len(names) >= 30 and need <= set(names) and not bad, bad
 """
