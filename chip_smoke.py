@@ -187,6 +187,26 @@ Phases, each of which must pass (any failure exits non-zero):
      bits; 14e. ms a step of each stage in float32 and bfloat16 (CUDA
      events), device busy, idle share, launches, FLOPs against the card's
      peak (utils/flops), peak memory, and one VKITTI item's host cost.
+ 15. data parallelism (parallel/mesh.py), each run in processes of its
+     own, under cuDNN's deterministic algorithms: 15a. geometric_train's
+     step at the JAX CLI's defaults (batch 16, image 256, render 384,
+     mode full, synthetic batches) through torchrun --nproc_per_node 1
+     (NCCL): B1 / B3 / B2 once a step, ms a step beside the same step
+     with no process group (this process), the collective calls a step
+     and their device kernels' time; 15b. the same step in two ranks on
+     the one card over gloo (8 a rank) against 15a's first step: the
+     losses, the gradient, the running statistics (the same bits on both
+     ranks); 15c. both for semantic_train at its defaults (batch 8, crop
+     256).
+ 16. 16a. render() of the RGB type on 16 slots of phase 4's meshes at
+     768^2 with random texture cubes: one B1 launch, no plain forward,
+     the RGB of 2 images equal to the plain forward's, the texture
+     gradient the same bits on two runs, ms forward and with the texture
+     gradient; 16b. the face-chunk silhouette gradient against the
+     pixelwise one (B3 + B2) on phase 3's 2 x 37 faces at 128^2; 16c. an
+     EditSession over a Cityscapes-layout root (a label click, a stroke,
+     an object paste, style_forward's 4 previews through the full-width
+     generator at 192x624, undo), ms a preview.
 The line before last is the card's name and power limit, the line before
 that the kernels' JSON (launches: phase 11a's training run); the last line is {"ok": true, "device": {...}}.
 """
@@ -4307,10 +4327,659 @@ def detect_train_phase(args, card: str, frames, shapenet: str, tmp: str,
     log(f"[dt] phase 14 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 15. data parallelism: geometric_train and semantic_train under a process
+# group (parallel/mesh.py), in processes of their own
+# ---------------------------------------------------------------------------
+DDP_STEPS = 6             # steps timed a run, after DDP_WARM
+DDP_WARM = 2
+DDP_DEVICE = "cuda"
+DDP_SEM_SHAPES = {"batch_size": 8, "crop_size": 256}
+DDP_TIMEOUT_S = 600
+# World size 2 (gloo, two ranks on the card) against world size 1 (NCCL)
+# on the same global batch, float32: the losses within DDP_LOSS_RTOL; the
+# gradients (the derenderer's Adam moment, the semantic SGD trace) at
+# cosine >= DDP_GRAD_COS with the largest error printed; the running
+# statistics within DDP_STATS_RTOL of each tensor's largest entry and the
+# same bits on both ranks.  The derenderer's silhouette gradient turns a
+# last-bit difference of the encoder (BatchNorm's sums in another order)
+# into moved subpixels, whose walk terms are ~1e-2 of a gradient
+# (tests/test_torch_parallel.py holds the rendering step in float64).
+DDP_LOSS_RTOL = 1e-4
+DDP_GRAD_COS = 0.99
+DDP_STATS_RTOL = 1e-4
+
+
+def ddp_derender(job, dev, parallel):
+    """geometric_train's step (mode full, job's shapes, phase 4's meshes)
+    on this rank's slice: the first step's results, then the launches of
+    B1 / B3 / B2 and ms a step over DDP_STEPS steps, and the collectives'
+    kernels a step (profiler)."""
+    import torch
+
+    from sdn3d_tpu_torch.geometry.assets import load_shapenet_bank
+    from sdn3d_tpu_torch.models.derenderer import DeviceMeshBank
+    from sdn3d_tpu_torch.ops import rasterize_cuda as TC
+
+    S = job["shapes"]
+    bank = DeviceMeshBank.from_host(load_shapenet_bank(job["shapenet"]), dev)
+    trainer = new_trainer(bank, job["seed"], dev, shapes=S)
+    parallel.broadcast_module(trainer.model)
+    B = S["batch_size"]
+    batch = parallel.shard_batch(train_batch(job["seed"], dev, S), B)
+    state = trainer.init()
+    state, losses = trainer.train_step(state, batch, parallel.global_draw(
+        step_generator(job["seed"], 0, dev), B))
+    out = {"losses": {k: float(v) for k, v in losses.items()},
+           "grad": state.mu.cpu().clone(),
+           "params": torch.cat([p.detach().reshape(-1).cpu()
+                                for p in state.model.parameters()]),
+           "stats": {n: v.cpu().clone() for n, v in state.model.state_dict().items()
+                     if n.endswith(("running_mean", "running_var"))}}
+    if not job.get("time"):
+        return out
+    # the kernels' launch counts; their plain versions' call counts on a
+    # CPU rehearsal
+    from sdn3d_tpu_torch.ops import rasterize as TR
+    kernels, count = ((TC.rasterize_face_index_cuda, TC.walk_grads_cuda,
+                       TC.segment_face_grads_cuda), "launches") \
+        if dev.type == "cuda" else ((TR.rasterize_face_maps,
+                                     TR.walk_grads_plain,
+                                     TR.segment_face_grads_plain), "calls")
+
+    def steps(first, n):
+        st = state
+        for i in range(n):
+            st, _ = trainer.train_step(st, batch, parallel.global_draw(
+                step_generator(job["seed"], first + i, dev), B))
+        return st
+
+    state = steps(1, DDP_WARM)
+    for fn in kernels:
+        setattr(fn, count, 0)
+    out["ms"] = timed_steps(lambda i: steps(1 + DDP_WARM + i, 1), DDP_STEPS,
+                            dev)
+    out["launches"] = [getattr(fn, count) / DDP_STEPS for fn in kernels]
+    _, out["calls"] = counted_collectives(lambda: steps(50, 1))
+    out["busy"], out["top"] = ddp_device_time(lambda: steps(100, 2), dev)
+    return out
+
+
+def ddp_semantic(job, dev, parallel):
+    """semantic_train's step at its defaults on this rank's slice: the
+    first step's results, then ms a step and the collectives' kernels."""
+    import torch
+
+    from sdn3d_tpu_torch.cli.semantic_train import build_trainer
+
+    args = sem_args(job["ckpt"], job["seed"], **job["shapes"])
+    args.device = str(dev)
+    trainer = build_trainer(args)
+    B = args.batch_size
+    batch = parallel.shard_batch(sem_batch(args, job["seed"], dev), B)
+    state = trainer.init()
+    state, metrics = trainer.train_step(state, *batch, parallel.global_draw(
+        step_generator(job["seed"], 0, dev), B))
+    model = state.model
+    out = {"losses": {k: float(v) for k, v in metrics.items()},
+           "grad": torch.cat([t.reshape(-1).cpu() for t in
+                              state.trace_enc + state.trace_dec]),
+           "params": torch.cat([p.detach().reshape(-1).cpu()
+                                for p in model.parameters()]),
+           "stats": {n: v.cpu().clone() for n, v in model.state_dict().items()
+                     if n.endswith(("running_mean", "running_var"))}}
+    if not job.get("time"):
+        return out
+
+    def steps(first, n):
+        st = state
+        for i in range(n):
+            st, _ = trainer.train_step(st, *batch, parallel.global_draw(
+                step_generator(job["seed"], first + i, dev), B))
+        return st
+
+    steps(1, DDP_WARM)
+    out["ms"] = timed_steps(lambda i: steps(1 + DDP_WARM + i, 1), DDP_STEPS,
+                            dev)
+    _, out["calls"] = counted_collectives(lambda: steps(50, 1))
+    out["busy"], out["top"] = ddp_device_time(lambda: steps(100, 2), dev)
+    return out
+
+
+def ddp_device_time(fn, dev):
+    """device_time of two steps on the card; nothing measured on the
+    CPU."""
+    import torch
+    if torch.device(dev).type == "cpu":
+        return 0.0, []
+    return device_time(fn, 2)
+
+
+def timed_steps(fn, n: int, dev=None) -> list:
+    """ms of each of n calls fn(i) by CUDA events (by the host's clock
+    when `dev` is the CPU, as a rehearsal of the phase runs it)."""
+    import torch
+    if dev is not None and torch.device(dev).type == "cpu":
+        out = []
+        for i in range(n):
+            t0 = time.perf_counter()
+            fn(i)
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+    events = []
+    for i in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(i)
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in events]
+
+
+def ddp_worker(spec: str) -> int:
+    """One rank of phase 15 (`chip_smoke.py --ddp_worker SPEC`): joins the
+    group (torchrun's environment, or the spec's FileStore, rank and
+    world size), runs the spec's job under the trainers' deterministic
+    cuDNN, and writes its result to the spec's `out` (rank 0), or
+    `out`.rank<r>."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from sdn3d_tpu_torch import parallel
+    from sdn3d_tpu_torch.pipelines.derender import deterministic_cudnn
+
+    job = torch.load(spec, weights_only=False)
+    dev = parallel.initialize_multihost(
+        job["device"], backend=job.get("backend"),
+        init_method=job.get("init", "env://"), rank=job.get("rank"),
+        world_size=job.get("world"))
+    try:
+        with deterministic_cudnn():
+            out = {"derender": ddp_derender,
+                   "semantic": ddp_semantic}[job["kind"]](job, dev, parallel)
+        out.update(rank=parallel.rank(), world=parallel.world_size(),
+                   backend=torch.distributed.get_backend())
+    finally:
+        parallel.shutdown()
+    r = out["rank"]
+    torch.save(out, job["out"] if r == 0 else f"{job['out']}.rank{r}")
+    return 0
+
+
+def run_ranks(tmp: str, tag: str, job: dict, world: int) -> list:
+    """The job on `world` ranks: world 1 through torchrun (--standalone,
+    one process; NCCL on the card), world > 1 as processes of their own on
+    one device over gloo with a FileStore.  Returns each rank's result."""
+    import torch
+
+    out = os.path.join(tmp, f"{tag}.out")
+    cmds = []
+    if world == 1:
+        spec = os.path.join(tmp, f"{tag}.spec")
+        torch.save(dict(job, out=out), spec)
+        cmds.append([sys.executable, "-m", "torch.distributed.run",
+                     "--standalone", "--nproc_per_node", "1", __file__,
+                     "--ddp_worker", spec])
+    else:
+        for r in range(world):
+            spec = os.path.join(tmp, f"{tag}.spec{r}")
+            torch.save(dict(job, out=out, rank=r, world=world,
+                            backend="gloo",
+                            init=f"file://{os.path.join(tmp, tag + '.store')}"),
+                       spec)
+            cmds.append([sys.executable, __file__, "--ddp_worker", spec])
+    env = dict(os.environ, OMP_NUM_THREADS=os.environ.get(
+        "OMP_NUM_THREADS", "4"))
+    procs = [subprocess.Popen(c, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for c in cmds]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DDP_TIMEOUT_S)[0].decode())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, text in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"15 {tag}: a rank exited {p.returncode}:\n"
+                                 f"{text[-6000:]}")
+    return [torch.load(out if r == 0 else f"{out}.rank{r}",
+                       weights_only=False) for r in range(world)]
+
+
+def ddp_compare(tag: str, one: dict, two: list) -> str:
+    """World size 2 (both ranks) against world size 1, or fail; returns a
+    summary."""
+    import torch
+    a, b = two
+    for k in a["stats"]:
+        if not torch.equal(a["stats"][k], b["stats"][k]):
+            raise AssertionError(f"15 {tag}: running statistic {k} differs "
+                                 f"between the ranks")
+    for k, v in one["losses"].items():
+        if abs(a["losses"][k] - v) > DDP_LOSS_RTOL * max(abs(v), 1e-12):
+            raise AssertionError(f"15 {tag}: loss {k} {a['losses'][k]} at "
+                                 f"world size 2, {v} at 1")
+    g1, g2 = one["grad"].double(), a["grad"].double()
+    cos = float((g1 * g2).sum() / (g1.norm() * g2.norm()))
+    g_err = float((g1 - g2).abs().max() / g1.abs().max())
+    stat_err = max(float((a["stats"][k] - v).abs().max()
+                         / max(float(v.abs().max()), 1e-12))
+                   for k, v in one["stats"].items())
+    p_err = float((a["params"] - one["params"]).abs().max())
+    if not cos >= DDP_GRAD_COS or not stat_err <= DDP_STATS_RTOL \
+            or not torch.equal(a["grad"], b["grad"]) \
+            or not torch.equal(a["params"], b["params"]):
+        raise AssertionError(f"15 {tag}: gradient cosine {cos} (largest "
+                             f"error {g_err}), statistics {stat_err}, ranks "
+                             f"equal {torch.equal(a['params'], b['params'])}")
+    return (f"losses within {DDP_LOSS_RTOL} ({one['losses']}); gradient "
+            f"cosine {cos:.9f}, largest error {g_err:.3e} of the largest "
+            f"entry; running statistics within {stat_err:.3e}, the same "
+            f"bits on both ranks; parameters after the step largest "
+            f"|diff| {p_err:.3e}; both ranks' parameters the same bits")
+
+
+def collectives(top, what: str = "nccl") -> tuple:
+    """(launches, ms) a step of the device kernels whose name holds
+    `what` (two steps profiled)."""
+    rows = [v for name, v in top if what in name.lower()]
+    return sum(r[1] for r in rows) / 2, sum(r[0] for r in rows)
+
+
+def counted_collectives(fn):
+    """fn() with torch.distributed's all_reduce and broadcast counted:
+    (fn's result, the calls)."""
+    import torch.distributed as dist
+    calls = [0]
+    found = dist.all_reduce, dist.broadcast
+
+    def wrap(f):
+        def g(*a, **kw):
+            calls[0] += 1
+            return f(*a, **kw)
+        return g
+
+    dist.all_reduce, dist.broadcast = (wrap(f) for f in found)
+    try:
+        return fn(), calls[0]
+    finally:
+        dist.all_reduce, dist.broadcast = found
+
+
+def ddp_phase(args, card: str, shapenet: str, tmp: str,
+              mark=lambda what: None) -> None:
+    """Phase 15, under the trainers' deterministic cuDNN: 15a
+    geometric_train's step at the JAX CLI's defaults (batch 16, image 256,
+    render 384, mode full, a mask loss) through torchrun --nproc_per_node
+    1 (NCCL): B1 / B3 / B2 launches a step, ms a step beside the same
+    step with no process group (this process), the collectives' launches
+    and device ms a step; 15b the same step in two ranks on the one card
+    over gloo (8 a rank) against 15a's first step; 15c both for
+    semantic_train at its defaults (batch 8, crop 256)."""
+    import torch
+
+    from sdn3d_tpu_torch.geometry.assets import load_shapenet_bank
+    from sdn3d_tpu_torch.models.derenderer import DeviceMeshBank
+    from sdn3d_tpu_torch.pipelines.derender import deterministic_cudnn
+
+    dev = torch.device(DDP_DEVICE)
+    S = TRAIN_SHAPES
+    # the step with no process group, in this process
+    with deterministic_cudnn():
+        bank = DeviceMeshBank.from_host(load_shapenet_bank(shapenet), dev)
+        trainer = new_trainer(bank, args.seed, dev, shapes=S)
+        batch = train_batch(args.seed, dev, S)
+        state = trainer.init()
+        for i in range(DDP_WARM):
+            state, _ = trainer.train_step(state, batch, step_generator(
+                args.seed, 1 + i, dev))
+
+        def one(i):
+            nonlocal state
+            state, _ = trainer.train_step(state, batch, step_generator(
+                args.seed, 1 + DDP_WARM + i, dev))
+
+        alone_ms = timed_steps(one, DDP_STEPS, dev)
+        del trainer, state, bank, batch
+        s_args = sem_args(os.path.join(tmp, "ddp_sem"), args.seed,
+                          **DDP_SEM_SHAPES)
+        from sdn3d_tpu_torch.cli.semantic_train import build_trainer
+        s_args.device = str(dev)
+        s_trainer = build_trainer(s_args)
+        s_batch = sem_batch(s_args, args.seed, dev)
+        s_state = s_trainer.init()
+        for i in range(DDP_WARM):
+            s_state, _ = s_trainer.train_step(s_state, *s_batch,
+                                              step_generator(args.seed,
+                                                             1 + i, dev))
+
+        def s_one(i):
+            nonlocal s_state
+            s_state, _ = s_trainer.train_step(
+                s_state, *s_batch,
+                step_generator(args.seed, 1 + DDP_WARM + i, dev))
+
+        s_alone_ms = timed_steps(s_one, DDP_STEPS, dev)
+        del s_trainer, s_state, s_batch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    mark("15. steps with no process group")
+
+    base = {"device": DDP_DEVICE, "seed": args.seed, "shapenet": shapenet,
+            "ckpt": os.path.join(tmp, "ddp_sem")}
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    for tag, kind, shapes, alone in (
+            ("15a", "derender", S, alone_ms),
+            ("15c", "semantic", DDP_SEM_SHAPES, s_alone_ms)):
+        t0 = time.perf_counter()
+        (g1,) = run_ranks(tmp, tag, dict(base, kind=kind, shapes=shapes,
+                                         time=True), 1)
+        n_coll, coll_ms = collectives(g1["top"])
+        n_copy, copy_ms = collectives(g1["top"], "memcpy dtod")
+        extra = ""
+        if kind == "derender":
+            want = [1, 1, 1] if dev.type == "cuda" else [1, 2, 1]
+            if g1["launches"] != want:
+                raise AssertionError(f"{tag}: launches a step "
+                                     f"{g1['launches']}, need {want}")
+            extra = (f"B1 / B3 / B2 launches a step {g1['launches']}; ")
+        if g1["world"] != 1 or (DDP_DEVICE == "cuda"
+                                and g1["backend"] != "nccl"):
+            raise AssertionError(f"{tag}: world {g1['world']}, backend "
+                                 f"{g1['backend']}")
+        if g1["calls"] < 1:
+            raise AssertionError(f"{tag}: no collective in a step")
+        log(f"[ddp-{tag}] {kind} step at {shapes} under torchrun "
+            f"--nproc_per_node 1 ({g1['backend']}): {extra}ms a step median "
+            f"{med(g1['ms']):.3f} (min {min(g1['ms']):.3f}, max "
+            f"{max(g1['ms']):.3f}) against {med(alone):.3f} (min "
+            f"{min(alone):.3f}, max {max(alone):.3f}) with no process group "
+            f"(this process); device busy {g1['busy']:.3f} ms a step; "
+            f"{g1['calls']} collectives a step (all_reduce / broadcast "
+            f"calls), their NCCL kernels {n_coll:g} launches and "
+            f"{coll_ms:.4f} ms a step, device-to-device copies {n_copy:g} "
+            f"and {copy_ms:.4f} ms a step; "
+            f"losses {g1['losses']}; run {time.perf_counter() - t0:.1f} s "
+            f"({card})")
+        for name, (ms_, n) in [kv for kv in g1["top"]
+                               if "nccl" in kv[0].lower()][:4]:
+            log(f"[ddp-{tag}] collective kernel {name}: {ms_:.4f} ms, "
+                f"{n / 2:g} launches a step")
+        t0 = time.perf_counter()
+        two = run_ranks(tmp, tag + "-2", dict(base, kind=kind,
+                                              shapes=shapes), 2)
+        summary = ddp_compare(tag, g1, two)
+        tag2 = "15b" if kind == "derender" else "15c-2"
+        log(f"[ddp-{tag2}] {kind} step at world size 2 ({two[0]['backend']}, "
+            f"two ranks on one device, {shapes['batch_size'] // 2} a rank) "
+            f"against world size 1: {summary}; run "
+            f"{time.perf_counter() - t0:.1f} s ({card})")
+        mark(f"{tag}/{tag2}")
+
+# ---------------------------------------------------------------------------
+# 16. the rest of the library: render() of the RGB type through B1, the
+# face-chunk silhouette gradient, an interactive edit session
+# ---------------------------------------------------------------------------
+RGB_SIZE = 384            # render size: 768^2 rasterization, as phase 4's
+RGB_TEXTURE = 4
+RGB_PLAIN_IMAGES = 2      # images of the plain version's comparison
+RGB_TIME = 5
+CHUNK_TOL = 1e-3          # tests/test_torch_silhouette_chunk.py's bound
+UI_SHAPE = (384, 1248)    # the Cityscapes-layout frames: 624 x 192 items
+UI_PREVIEWS = 4
+LIB_DEVICE = "cuda"
+
+
+def rgb_scene(bank, seed: int, dev):
+    """16 slots of phase 4's meshes (each class twice), posed in front of
+    the camera as phase 3 poses its car, with random texture cubes:
+    (vertices, faces, face_valid, viewing angles, textures)."""
+    import torch
+
+    from sdn3d_tpu_torch.geometry.transforms import perspective_transform
+    rng = np.random.RandomState(seed)
+    cls = torch.arange(16, device=dev) % bank.vertices.shape[0]
+    th = torch.from_numpy(rng.uniform(-np.pi, np.pi, 16).astype(np.float32))
+    rot = torch.stack([torch.cos(th / 2), 0 * th, torch.sin(th / 2), 0 * th],
+                      1).to(dev)
+    trans = torch.from_numpy(np.stack([
+        rng.uniform(-1.5, 1.5, 16), rng.uniform(-0.5, 0.5, 16),
+        rng.uniform(-16, -8, 16)], 1).astype(np.float32)).to(dev)
+    verts, _ = perspective_transform(
+        bank.vertices[cls.long()], scales=torch.full((16, 3), 1.5, device=dev),
+        rotations=rot, translations=trans, perspective_translations=trans,
+        zoom_tos=torch.full((16, 1), 384 / 1450.0, device=dev))
+    F = bank.faces.shape[1]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tex = torch.rand((16, F, RGB_TEXTURE, RGB_TEXTURE, RGB_TEXTURE, 3),
+                     generator=g, device=dev)
+    return (verts, bank.faces[cls.long()], bank.face_valid[cls.long()],
+            torch.full((16,), 29.6, device=dev), tex)
+
+
+def write_cityscapes_textural_root(root: str, seed: int) -> None:
+    """A Cityscapes-layout root for data/textural_cityscapes (the JAX
+    tests' fixture, tests/test_textural_cityscapes.py, at UI_SHAPE): two
+    frames of road / sky / two cars, gtFine label and instance ids, the
+    annotations JSON."""
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    Hh, Ww = UI_SHAPE
+    ann = {"images": []}
+    city = os.path.join(root, "gtFine", "train", "darmstadt")
+    os.makedirs(city, exist_ok=True)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    for k in range(2):
+        name = f"darmstadt_00000{k}_000019"
+        fn = f"{name}_leftImg8bit.png"
+        ann["images"].append({"file_name": fn,
+                              "seg_file_name": f"{name}_gtFine_instanceIds.png"})
+        Image.fromarray(rng.randint(0, 255, (Hh, Ww, 3), np.uint8)).save(
+            os.path.join(root, "images", fn))
+        label = np.full((Hh, Ww), 7, np.uint8)              # road
+        label[:Hh // 3] = 23                                # sky
+        inst = label.astype(np.int32)
+        for j, (y, x) in enumerate(((200, 200), (240, 700))):
+            label[y:y + 90, x:x + 260] = 26                 # car
+            inst[y:y + 90, x:x + 260] = 26000 + j
+        Image.fromarray(label).save(os.path.join(
+            city, f"{name}_gtFine_labelIds.png"))
+        Image.fromarray(inst.astype(np.uint16)).save(os.path.join(
+            city, f"{name}_gtFine_instanceIds.png"))
+    with open(os.path.join(root, "annotations",
+                           "instancesonly_gtFine_train.json"), "w") as f:
+        json.dump(ann, f)
+
+
+def library_phase(args, card: str, shapenet: str, tmp: str, faces128,
+                  mark=lambda what: None) -> None:
+    """Phase 16.  16a: render() of the RGB type on 16 slots of phase 4's
+    39.6k-face meshes at RGB_SIZE (768^2 rasterization) with random
+    texture cubes (size 4): one B1 launch a render and no plain forward,
+    the RGB of RGB_PLAIN_IMAGES images equal to the plain version's on the
+    card, the texture gradient the same bits on two runs, the times;
+    16b: the face-chunk silhouette gradient (plain PyTorch) against the
+    pixelwise one (B3 + B2, walk to the border) on phase 3's 2 x 37 faces
+    at 128^2; 16c: an EditSession over a Cityscapes-layout root (a label
+    click, a stroke, an object paste, style_forward's UI_PREVIEWS previews
+    through the full-width generator at 192x624, undo), ms a preview."""
+    import torch
+
+    from sdn3d_tpu_torch.data.textural_cityscapes import \
+        TexturalCityscapesDataset
+    from sdn3d_tpu_torch.geometry.assets import load_shapenet_bank
+    from sdn3d_tpu_torch.models.derenderer import DeviceMeshBank
+    from sdn3d_tpu_torch.ops import rasterize as TR
+    from sdn3d_tpu_torch.ops import rasterize_cuda as TC
+    from sdn3d_tpu_torch.pipelines import interactive as UI
+    from sdn3d_tpu_torch.pipelines.textural import (TexturalConfig,
+                                                    TexturalTrainer)
+    from sdn3d_tpu_torch.render.renderer import RenderType, render
+
+    dev = torch.device(LIB_DEVICE)
+    # -- 16a. render() RGB ---------------------------------------------------
+    bank = DeviceMeshBank.from_host(load_shapenet_bank(shapenet), dev)
+    verts, faces, valid, angle, tex = rgb_scene(bank, args.seed, dev)
+    kw = dict(image_size=RGB_SIZE, viewing_angle=angle)
+    launch = TC.rasterize_face_index_cuda
+    launch.launches = TR.rasterize_face_maps.calls = 0
+    rgb = render(verts, faces, RenderType.RGB, valid, textures=tex, **kw)
+    torch.cuda.synchronize()
+    n_launch, n_plain = launch.launches, TR.rasterize_face_maps.calls
+    if (n_launch, n_plain) != (1, 0):
+        raise AssertionError(f"16a: B1 launches {n_launch}, plain forwards "
+                             f"{n_plain} for one RGB render")
+    cover = float((rgb.abs().sum(1) > 0).float().mean())
+    if rgb.shape != (16, 3, RGB_SIZE, RGB_SIZE) or not torch.isfinite(
+            rgb).all() or not 0.01 < cover < 0.99:
+        raise AssertionError(f"16a: rgb {tuple(rgb.shape)}, coverage {cover}")
+    # the plain version: the same render with the plain forward
+    n = RGB_PLAIN_IMAGES
+    dispatch = TC.rasterize_face_index
+    TC.rasterize_face_index = lambda f, v, s, near=TR.DEFAULT_NEAR, \
+        far=TR.DEFAULT_FAR, colors=None: TR.rasterize_face_maps(f, v, s,
+                                                                near, far)
+    try:
+        t0 = time.perf_counter()
+        plain = render(verts[:n], faces[:n], RenderType.RGB, valid[:n],
+                       textures=tex[:n], image_size=RGB_SIZE,
+                       viewing_angle=angle[:n])
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    finally:
+        TC.rasterize_face_index = dispatch
+    rgb_err = float((rgb[:n] - plain).abs().max())
+    if not rgb_err <= 1e-6:
+        raise AssertionError(f"16a: kernel RGB against plain: {rgb_err}")
+    cot = torch.randn(rgb.shape, generator=torch.Generator(
+        device=dev).manual_seed(args.seed), device=dev)
+
+    def grad():
+        t = tex.clone().requires_grad_(True)
+        out = render(verts, faces, RenderType.RGB, valid, textures=t, **kw)
+        return torch.autograd.grad((out * cot).sum(), t)[0]
+
+    g1, g2 = grad(), grad()
+    if not torch.equal(g1, g2) or not float(g1.abs().sum()) > 0:
+        raise AssertionError("16a: the texture gradient differs between two "
+                             "runs (or is zero)")
+    fwd_ms = timed_steps(lambda i: render(verts, faces, RenderType.RGB,
+                                          valid, textures=tex, **kw),
+                         RGB_TIME, dev)
+    bwd_ms = timed_steps(lambda i: grad(), RGB_TIME, dev)
+    busy, top = device_time(lambda: render(verts, faces, RenderType.RGB,
+                                           valid, textures=tex, **kw), 1)
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    log(f"[rgb-16a] render() RGB, 16 slots x {faces.shape[1]} faces (2F = "
+        f"{2 * faces.shape[1]} with fill_back), {2 * RGB_SIZE}^2 "
+        f"rasterization, texture cubes {RGB_TEXTURE}^3: one B1 launch, no "
+        f"plain forward; coverage {cover:.4f}; {n} images against the plain "
+        f"forward ({plain_s:.1f} s) max |diff| {rgb_err:.3e}; the texture "
+        f"gradient the same bits on two runs; forward median "
+        f"{med(fwd_ms):.3f} ms (min {min(fwd_ms):.3f}), device busy "
+        f"{busy:.3f} ms; forward + texture gradient median {med(bwd_ms):.3f} "
+        f"ms (min {min(bwd_ms):.3f}) ({card})")
+    for name, (ms_, k) in top[:6]:
+        log(f"[rgb-16a] kernel {name[:90]}: {ms_:.4f} ms, {k} launches")
+    del tex, g1, g2, rgb, plain, bank
+    torch.cuda.empty_cache()
+    mark("16a. RGB render")
+
+    # -- 16b. the face-chunk gradient against the pixelwise one -------------
+    sf, sv, sfi, scot = faces128
+    salpha = (sfi >= 0).float()
+    chunk = TR.silhouette_grad_chunked(sf, sv, sfi, salpha, scot, 128,
+                                       TR.DEFAULT_EPS)
+    launch_w = TC.walk_grads_cuda.launches
+    pix = TR.silhouette_grad_pixelwise(sf, sfi, salpha, scot, 128,
+                                       TR.DEFAULT_EPS, walk=0)
+    torch.cuda.synchronize()
+    c_err = float((chunk - pix).abs().max())
+    scale = float(chunk.abs().max())
+    if TC.walk_grads_cuda.launches != launch_w + 1 or not scale > 0 or \
+            not torch.allclose(pix, chunk, rtol=CHUNK_TOL, atol=CHUNK_TOL):
+        raise AssertionError(f"16b: face-chunk gradient against pixelwise: "
+                             f"max |diff| {c_err} (max |g| {scale})")
+    log(f"[chunk-16b] face-chunk silhouette gradient of 2 x 37 faces @128^2 "
+        f"against the pixelwise one (B3 + B2, walk 128): max |diff| "
+        f"{c_err:.3e}, max |g| {scale:.4g}, within {CHUNK_TOL}")
+    mark("16b. face-chunk gradient")
+
+    # -- 16c. an interactive edit session ------------------------------------
+    root = os.path.join(tmp, "ui_cityscapes")
+    write_cityscapes_textural_root(root, args.seed)
+    cfg = TexturalConfig()
+    ds = TexturalCityscapesDataset(root, "train", load_size=624,
+                                   fine_wh=(624, 192),
+                                   max_instances=cfg.max_instances)
+    item = ds.__getitem__(0, np.random.RandomState(args.seed))
+    rng = np.random.RandomState(args.seed)
+    clusters = {c: rng.uniform(-1, 1, (5, cfg.feat_num)).astype(np.float32)
+                for c in (7, 11, 23, 26)}
+    st = UI.load_state(item["label"], item["inst"], clusters,
+                       pose=item["pose"], normal=item["normal"])
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(args.seed)
+        trainer = TexturalTrainer(cfg)
+    generate = UI.textural_generate(trainer.to(dev))
+    sess = UI.EditSession(st)
+    cars = sorted(int(v) for v in np.unique(item["inst"]) if v >= 26000)
+    car0 = tuple(int(a[0]) for a in np.nonzero(item["inst"] == cars[0]))
+    road = tuple(int(a[-1]) for a in np.nonzero(item["label"] == 1))
+    sess.apply(UI.change_labels_click, car0, road)
+    if (sess.state.inst == cars[0]).any():
+        raise AssertionError("16c: the label click left the instance")
+    sess.apply(UI.add_strokes, (20, 30), 11, 24, clusters, 2)
+    mask = np.zeros((40, 90), bool)
+    mask[5:35, 5:85] = True
+    sess.apply(UI.add_objects_click, (130, 400), 26, mask, clusters, 3)
+    before = sess.state.copy()
+    car1 = tuple(int(a[0]) for a in np.nonzero(sess.state.inst == cars[1]))
+    t0 = time.perf_counter()
+    previews, _, crop = UI.style_forward(sess.state, car1, clusters, generate,
+                                         multiple_output=UI_PREVIEWS)
+    preview_ms = (time.perf_counter() - t0) * 1e3 / len(previews)
+    t0 = time.perf_counter()
+    previews2, _, _ = UI.style_forward(sess.state, car1, clusters, generate,
+                                       multiple_output=UI_PREVIEWS)
+    preview2_ms = (time.perf_counter() - t0) * 1e3 / len(previews2)
+    full, committed, _ = UI.style_forward(sess.state, car1, clusters,
+                                          generate, style_id=1)
+    sess.apply(lambda s: committed)
+    sess.undo()
+    same = all(np.array_equal(getattr(sess.state, f), getattr(before, f))
+               for f in ("label", "inst", "pose"))
+    (y0, x0, y1, x1) = crop
+    if len(previews) != UI_PREVIEWS or not same or any(
+            p.shape != (y1 - y0, x1 - x0, 3) or not np.isfinite(p).all()
+            for p in previews) or full[0].shape != (192, 624, 3) \
+            or not np.abs(previews[0] - previews[1]).max() > 0 \
+            or not all(np.array_equal(a, b)
+                       for a, b in zip(previews, previews2)):
+        raise AssertionError(f"16c: previews {[p.shape for p in previews]}, "
+                             f"crop {crop}, undo restored {same}")
+    log(f"[ui-16c] EditSession over a Cityscapes-layout item (624x192): label "
+        f"click, stroke, object paste, style_forward {UI_PREVIEWS} previews "
+        f"of crop {crop} through the full-width generator: "
+        f"{preview_ms:.2f} ms a preview (first call), {preview2_ms:.2f} ms "
+        f"(second, the same bits), the styles differ; commit, undo restores "
+        f"the state ({card})")
+    mark("16c. interactive session")
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ddp_worker", default=None,
+                    help=argparse.SUPPRESS)   # one rank of phase 15
     args = ap.parse_args(argv)
+    if args.ddp_worker:
+        return ddp_worker(args.ddp_worker)
 
     import torch
     if not torch.cuda.is_available():
@@ -4621,6 +5290,10 @@ def main(argv=None) -> int:
         semantic_phase(args, card, shapenet, tmp, mark)
         # -- 14. Mask R-CNN training ------------------------------------------
         detect_train_phase(args, card, frames, shapenet, tmp, det_ckpt, mark)
+        # -- 15. geometric_train / semantic_train under a process group ------
+        ddp_phase(args, card, shapenet, tmp, mark)
+        # -- 16. render() RGB, the face-chunk gradient, interactive edits ----
+        library_phase(args, card, shapenet, tmp, (sf, sv, sfi, scot), mark)
 
     # -- 5. kernels vs plain at the main paths' shapes ------------------------
     cf, cv, cs, cc = (captured["faces"], captured["valid"], captured["size"],

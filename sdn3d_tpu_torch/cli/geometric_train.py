@@ -14,8 +14,17 @@ torch.Generator seeded from (--seed, iteration).  The state is saved as a
 core/checkpoint step (fields "derenderer", "opt_state", "step"; the
 arguments as the manifest's meta) every --save_every iterations and at
 the last one; geometric_main --ckpt_dir serves it.  Runs on --device
-(default cuda) and trains on one card: the JAX package's data-parallel
-device mesh becomes DDP with ROADMAP A8.
+(default cuda).
+
+Data parallelism (the JAX package's device mesh): started by torchrun,
+`python -m torch.distributed.run --nproc_per_node N -m
+sdn3d_tpu_torch.cli.geometric_train ...`, each process trains on its
+slice of the global --batch_size (NCCL between cards, one process a card;
+gloo with --device cpu), with BatchNorm over the global batch, losses as
+each rank's part of the global batch's, gradients summed over the ranks,
+the class draws of the global batch, and rank 0's initial weights; rank 0
+logs and saves (parallel/mesh.py).  Without torchrun's environment it
+trains in one process, with no collectives.
 """
 
 from __future__ import annotations
@@ -89,6 +98,7 @@ def step_generator(seed: int, it: int, device) -> "torch.Generator":
 def main(argv=None):
     import torch
 
+    from sdn3d_tpu_torch import parallel
     from sdn3d_tpu_torch.core.checkpoint import save_checkpoint
     from sdn3d_tpu_torch.data.synthetic import (centred_square_masks,
                                                 make_derender_batch,
@@ -102,13 +112,19 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
     mode = TargetType.BY_NAME[args.mode]
     device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    owns_group = parallel.in_launcher() and not parallel.active()
+    if parallel.in_launcher():
+        device = parallel.initialize_multihost(device)
+    elif device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device")
+    rows = parallel.local_batch_slice(args.batch_size)
+    lead = parallel.rank() == 0
 
     if args.synthetic or not args.shapenet_root:
         verts, faces = make_sphere_mesh(8, 16)
         bank_host = build_mesh_bank([(verts, faces)] * 8)
-        print("synthetic mesh bank (8x sphere)")
+        if lead:
+            print("synthetic mesh bank (8x sphere)")
     else:
         bank_host = load_shapenet_bank(args.shapenet_root)
     bank = DeviceMeshBank.from_host(bank_host, device=device)
@@ -118,6 +134,7 @@ def main(argv=None):
         torch.manual_seed(args.seed)
         model = Derenderer(num_classes=8, dtype=args.compute_dtype)
     model = model.to(device)
+    parallel.broadcast_module(model)
     trainer = DerenderTrainer(
         model=model, bank=bank, mode=mode, image_size=args.image_size,
         render_size=args.render_size, mask_weight=args.mask_weight,
@@ -129,10 +146,11 @@ def main(argv=None):
                 for k, v in b.items()}
 
     def make_batch(seed):
+        """The global batch of `seed`, this rank's rows on the device."""
         b = make_derender_batch(args.batch_size, args.image_size, seed)
         if mode & TargetType.reproject:
             b.update(centred_square_masks(args.batch_size, args.render_size))
-        return to_device(b)
+        return to_device(parallel.shard_batch(b))
 
     have_real_data = ((args.dataset == "vkitti" and args.vkitti_root)
                       or (args.dataset == "kitti"
@@ -162,14 +180,15 @@ def main(argv=None):
                 raise ValueError(f"the {args.dataset} dataset for --mode "
                                  f"{args.mode} holds {len(ds)} items, fewer "
                                  f"than --batch_size {args.batch_size}")
-            print(f"{args.dataset} derender dataset: {len(ds)} objects"
-                  + (" (weighted hybrid sampler)" if sampler else ""))
+            if lead:
+                print(f"{args.dataset} derender dataset: {len(ds)} objects"
+                      + (" (weighted hybrid sampler)" if sampler else ""))
             it = 0
             while it < args.num_iters:
-                loader = PrefetchLoader(ds, args.batch_size,
-                                        sampler=sampler,
-                                        num_workers=args.num_workers,
-                                        device=device, seed=it)
+                loader = PrefetchLoader(
+                    ds, args.batch_size, sampler=sampler,
+                    num_workers=args.num_workers, device=device, seed=it,
+                    batch_slice=rows if parallel.active() else None)
                 for b in loader:
                     yield b
                     it += 1
@@ -182,15 +201,19 @@ def main(argv=None):
     state = trainer.init()
     step_fn = trainer.make_train_step()
     for it, batch in enumerate(batches()):
-        state, losses = step_fn(state, batch,
-                                step_generator(args.seed, it, device))
-        if it % 10 == 0:
+        state, losses = step_fn(state, batch, parallel.global_draw(
+            step_generator(args.seed, it, device), args.batch_size))
+        if it % 10 == 0 and lead:
             msg = " ".join(f"{k}={float(v):.4f}" for k, v in losses.items())
             print(f"iter {it}: {msg}", flush=True)
-        if (it + 1) % args.save_every == 0 or it + 1 == args.num_iters:
+        if lead and ((it + 1) % args.save_every == 0
+                     or it + 1 == args.num_iters):
             save_checkpoint(args.ckpt_dir, it + 1, state.fields(),
                             meta=vars(args))
-    print("done")
+    if lead:
+        print("done")
+    if owns_group:
+        parallel.shutdown()
     return state
 
 

@@ -13,9 +13,18 @@ JAX package's byte for byte.  Initial weights are drawn by torch from
 iterations and at the last one the state is saved as a core/checkpoint
 step (fields "encoder", "decoder", "opt_enc", "opt_dec", "step"; the
 arguments as the manifest's meta), which semantic_test --ckpt_dir and
-semantic_eval --ckpt_dir serve.  Runs on --device (default cuda) and
-trains on one card: the JAX package's data-parallel device mesh becomes
-DDP with ROADMAP A4.
+semantic_eval --ckpt_dir serve.  Runs on --device (default cuda).
+
+Data parallelism (the JAX package's device mesh): started by torchrun,
+`python -m torch.distributed.run --nproc_per_node N -m
+sdn3d_tpu_torch.cli.semantic_train ...`, each process draws the global
+batch's random numbers, loads and trains on its slice of --batch_size
+(NCCL between cards, one process a card; gloo with --device cpu), with
+BatchNorm over the global batch, the loss and accuracy as each rank's
+part of the global batch's, the dropout masks of the global batch, the
+gradients summed over the ranks before the two SGD steps, and rank 0's
+initial weights; rank 0 logs and saves (parallel/mesh.py).  Without
+torchrun's environment it trains in one process, with no collectives.
 """
 
 from __future__ import annotations
@@ -62,11 +71,13 @@ def synthetic_batches(args, rng):
                             args.crop_size // 8)).astype(np.int32))
 
 
-def vkitti_batches(args, rng):
+def vkitti_batches(args, rng, rows: slice = None):
     """Random crops from VKITTI scenegt (semantic/vkitti_dataset.py): a
     frame drawn over the whole train list, a crop corner, then
     prepare_train_sample on the crop at the crop's own scale, with the
-    labels shifted by +1."""
+    labels shifted by +1.  With `rows` (a rank's slice of the batch) every
+    draw of the global batch is made and only those rows are loaded (the
+    others read their frame's size alone)."""
     import random
 
     from PIL import Image
@@ -78,16 +89,23 @@ def vkitti_batches(args, rng):
     files = vkitti.get_lists("train")
     while True:
         imgs, labels = [], []
-        for _ in range(args.batch_size):
+        keep = range(args.batch_size)[rows or slice(None)]
+        for i in range(args.batch_size):
             f = files[rng.randint(len(files))]
             world, scene, _ = f.split("/")
-            rgb = np.asarray(Image.open(os.path.join(
-                args.data_root, "vkitti_1.3.1_rgb", f)).convert("RGB"))
+            path = os.path.join(args.data_root, "vkitti_1.3.1_rgb", f)
+            s = args.crop_size
+            if i not in keep:
+                W, H = Image.open(path).size
+                rng.randint(max(1, H - s))
+                rng.randint(max(1, W - s))
+                rng.randint(1 << 30)
+                continue
+            rgb = np.asarray(Image.open(path).convert("RGB"))
             gt = np.asarray(Image.open(os.path.join(
                 args.data_root, "vkitti_1.3.1_scenegt", f)).convert("RGB"))
             seg = vkitti.decode_scenegt(gt, world, scene, table)
             H, W = rgb.shape[:2]
-            s = args.crop_size
             y = rng.randint(max(1, H - s))
             x = rng.randint(max(1, W - s))
             out = prepare_train_sample(
@@ -108,14 +126,20 @@ def build_trainer(args):
     from sdn3d_tpu_torch.models.semantic import SemanticModel
     from sdn3d_tpu_torch.pipelines.semantic import SemanticTrainer
 
+    from sdn3d_tpu_torch import parallel
+
     device = torch.device(args.device)
+    if parallel.active() and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
         model = SemanticModel(num_class=args.num_class,
                               dtype=args.compute_dtype)
-    return SemanticTrainer(model.to(device), lr_encoder=args.lr_encoder,
+    model = model.to(device)
+    parallel.broadcast_module(model)
+    return SemanticTrainer(model, lr_encoder=args.lr_encoder,
                            lr_decoder=args.lr_decoder,
                            max_iters=args.max_iters)
 
@@ -131,30 +155,44 @@ def to_batch(imgs: np.ndarray, labels: np.ndarray, device):
 
 def main(argv=None):
     """Returns the trainer's state after the last iteration."""
+    from sdn3d_tpu_torch import parallel
     from sdn3d_tpu_torch.cli.geometric_train import step_generator
     from sdn3d_tpu_torch.core.checkpoint import save_checkpoint
 
     args = build_argparser().parse_args(argv)
+    owns_group = parallel.in_launcher() and not parallel.active()
+    if parallel.in_launcher():
+        parallel.initialize_multihost(args.device)
+    rows = parallel.local_batch_slice(args.batch_size)
+    lead = parallel.rank() == 0
     trainer = build_trainer(args)
     device = next(trainer.model.parameters()).device
     rng = np.random.RandomState(args.seed)
-    batches = (synthetic_batches(args, rng) if args.synthetic or
-               not args.data_root else vkitti_batches(args, rng))
+    if args.synthetic or not args.data_root:
+        batches = (parallel.shard_batch(b, args.batch_size)
+                   for b in synthetic_batches(args, rng))
+    else:
+        batches = vkitti_batches(args, rng,
+                                 rows if parallel.active() else None)
     next(batches)      # the batch the JAX CLI spends on init (:99-100)
     state = trainer.init()
     step_fn = trainer.make_train_step()
 
     for it in range(args.num_iters):
         x, y = to_batch(*next(batches), device)
-        state, metrics = step_fn(state, x, y,
-                                 step_generator(args.seed, it, device))
-        if it % 10 == 0:
+        state, metrics = step_fn(state, x, y, parallel.global_draw(
+            step_generator(args.seed, it, device), args.batch_size))
+        if it % 10 == 0 and lead:
             print(f"iter {it}: loss={float(metrics['loss']):.4f} "
                   f"acc={float(metrics['acc']):.4f}", flush=True)
-        if (it + 1) % args.save_every == 0 or it + 1 == args.num_iters:
+        if lead and ((it + 1) % args.save_every == 0
+                     or it + 1 == args.num_iters):
             save_checkpoint(args.ckpt_dir, it + 1, state.fields(),
                             meta=vars(args))
-    print("done")
+    if lead:
+        print("done")
+    if owns_group:
+        parallel.shutdown()
     return state
 
 

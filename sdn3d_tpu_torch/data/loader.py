@@ -118,14 +118,17 @@ class PrefetchLoader:
     collates into tensors (pinned for a CUDA device) and the consumer
     copies them with non_blocking=True, so the copy overlaps the card's
     work.  `wait_s` accumulates the consumer's seconds blocked on the
-    next batch.
+    next batch.  `batch_slice` (data parallelism, parallel/mesh.py): every
+    rank draws the same sampler order of global batches of `batch_size`
+    and loads only these rows of each (the DistributedSampler role).
     """
 
     def __init__(self, dataset, batch_size: int, sampler=None,
                  num_workers: int = 4, prefetch: int = 2,
                  collate: Callable = zero_fill_collate,
                  device=None, drop_last: bool = True,
-                 shuffle: bool = True, seed: int = 0):
+                 shuffle: bool = True, seed: int = 0,
+                 batch_slice: Optional[slice] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.sampler = sampler
@@ -136,6 +139,7 @@ class PrefetchLoader:
         self.drop_last = drop_last
         self.shuffle = shuffle
         self.seed = seed
+        self.batch_slice = batch_slice
         self.wait_s = 0.0
         self._epoch = 0                   # per-__iter__ reshuffle salt
 
@@ -144,10 +148,14 @@ class PrefetchLoader:
         for i in sampler:
             buf.append(i)
             if len(buf) == self.batch_size:
-                yield list(buf)
+                yield self._rows(buf)
                 buf.clear()
         if buf and not self.drop_last:
-            yield list(buf)
+            yield self._rows(buf)
+
+    def _rows(self, idxs):
+        return list(idxs if self.batch_slice is None
+                    else idxs[self.batch_slice])
 
     def _host_batch(self, idxs):
         """Collate (in a worker thread); tensors, pinned for the card,

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from sdn3d_tpu_torch import parallel
 from sdn3d_tpu_torch.geometry import ffd as ffd_mod
 from sdn3d_tpu_torch.geometry.transforms import perspective_transform
 from sdn3d_tpu_torch.models.resnet import ResNetClassifier
@@ -201,13 +202,15 @@ def select_class(class_probs: torch.Tensor,
 
     The draw is jax.random.categorical's: the argmax of log(p + 1e-20)
     plus Gumbel noise -log(-log(u)), u uniform in [tiny, 1) from
-    `generator` (a torch.Generator on the tensor's device); log_prob is
-    log(p[idx] + 1e-20), differentiable in class_probs."""
+    `generator` (a torch.Generator on the tensor's device, or a
+    parallel.BatchDraw: this rank's rows of the global batch's draw);
+    log_prob is log(p[idx] + 1e-20), differentiable in class_probs."""
     if sample:
         if generator is None:
             raise ValueError("select_class(sample=True) needs a generator")
-        u = torch.rand(class_probs.shape, generator=generator,
-                       dtype=class_probs.dtype, device=class_probs.device)
+        u = parallel.rand_rows(class_probs.shape, generator,
+                               dtype=class_probs.dtype,
+                               device=class_probs.device)
         u = torch.clamp_min(u, torch.finfo(class_probs.dtype).tiny)
         gumbel = -torch.log(-torch.log(u))
         idx = torch.argmax(torch.log(class_probs.detach() + 1e-20) + gumbel,

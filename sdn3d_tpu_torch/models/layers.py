@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sdn3d_tpu_torch import parallel
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -105,14 +107,32 @@ class BatchNorm2d(nn.BatchNorm2d):
     the output (x - mean) * (rsqrt(var + eps) * weight) + bias; and the
     running statistics move by flax's momentum (1 - torch's) towards the
     batch mean and the *biased* variance (torch's own rule takes the
-    unbiased one, n/(n-1) larger)."""
+    unbiased one, n/(n-1) larger).
+
+    Under a process group (parallel/mesh.py) the train-mode statistics are
+    the global batch's, as flax's over a sharded batch: each rank
+    all-reduces its per-channel sum(x), sum(x*x) and count in one
+    differentiable collective, and every rank forms the same mean and
+    biased variance from the sums (so every rank's running statistics are
+    the same bits).  torch's nn.SyncBatchNorm moves the running variance
+    towards the unbiased variance, and is not this."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        if parallel.active():
+            C = x.shape[1]
+            n = x.new_full((1,), x.numel() // C)
+            sums = parallel.all_reduce_autograd(torch.cat(
+                [x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)), n]))
+            mean = sums[:C] / sums[2 * C]
+            var = torch.clamp_min(sums[C:2 * C] / sums[2 * C] - mean * mean,
+                                  0.0)
+        else:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean,
+                                  0.0)
         if self.track_running_stats:
             keep = 1.0 - self.momentum           # flax's momentum
             with torch.no_grad():

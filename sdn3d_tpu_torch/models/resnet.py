@@ -158,9 +158,11 @@ class ResNetClassifier(ResNet):
         set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, 3, H, W] (NCHW) -> [B, num_outputs] float32."""
+        """x [B, 3, H, W] (NCHW) -> [B, num_outputs] in float32 (float64 in
+        a float64 run)."""
         x = self.features(x).mean(dim=(2, 3))      # adaptive avgpool -> 1
-        return self.fc(x).float()
+        x = self.fc(x)
+        return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def resnet50_dilated8(dtype="float32") -> ResNet:

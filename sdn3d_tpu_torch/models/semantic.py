@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sdn3d_tpu_torch import parallel
 from sdn3d_tpu_torch.models.derenderer import strict_fp32
 from sdn3d_tpu_torch.models.layers import (BatchNorm2d, Conv2d,
                                            set_compute_dtype)
@@ -135,7 +136,8 @@ class Dropout(nn.Module):
     eval mode, or at rate 0, the identity.  `draw` is the keep mask (bool,
     x's shape; the CPU tests hand over JAX's) or a torch.Generator on x's
     device to draw it from (uniform < keep, as jax.random.bernoulli
-    draws); None draws from torch's default generator."""
+    draws; a parallel.BatchDraw draws the global batch's mask and keeps
+    this rank's rows); None draws from torch's default generator."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -145,8 +147,9 @@ class Dropout(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        if draw is None or isinstance(draw, torch.Generator):
-            draw = torch.rand(x.shape, generator=draw, device=x.device) < keep
+        if draw is None or isinstance(draw, (torch.Generator,
+                                             parallel.BatchDraw)):
+            draw = parallel.rand_rows(x.shape, draw, device=x.device) < keep
         return torch.where(draw, x / keep, x.new_zeros(()))
 
 
@@ -210,7 +213,8 @@ class DecoderConv2d(Conv2d):
 def _draws(dropout, n: int) -> list:
     """The draws of a decoder's n dropouts: None or one torch.Generator
     for all of them, or one keep mask each, in the order they apply."""
-    if dropout is None or isinstance(dropout, torch.Generator):
+    if dropout is None or isinstance(dropout, (torch.Generator,
+                                               parallel.BatchDraw)):
         return [dropout] * n
     draws = list(dropout)
     if len(draws) != n:
@@ -224,6 +228,11 @@ def _conv_bn_relu(c_in: int, c_out: int) -> nn.Sequential:
     return nn.Sequential(DecoderConv2d(c_in, c_out, 3, padding=1,
                                        bias=False),
                          BatchNorm2d(c_out, eps=BN_EPS), nn.ReLU())
+
+
+def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """Logits in float32, or float64 in a float64 run."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def _outputs(x: torch.Tensor, seg_size, d: Optional[torch.Tensor] = None):
@@ -271,7 +280,7 @@ class PPMBilinear(nn.Module):
             ppm_out.append(resize_bilinear(branch(conv5), hw))
         c = self.conv_last
         x = c[2](c[1](c[0](torch.cat(ppm_out, dim=1))))
-        return c[4](c[3](x, draw)).float()
+        return _at_least_f32(c[4](c[3](x, draw)))
 
     def forward(self, conv_out: Sequence[torch.Tensor],
                 seg_size: Optional[Tuple[int, int]] = None, dropout=None):
@@ -302,7 +311,7 @@ class PPMDeepsup(PPMBilinear):
         if seg_size is not None:
             return _outputs(x, seg_size)
         d = self.dropout_deepsup(self.cbr_deepsup(conv_out[-2]), d_sup)
-        return _outputs(x, None, self.conv_last_deepsup(d).float())
+        return _outputs(x, None, _at_least_f32(self.conv_last_deepsup(d)))
 
 
 class C1BilinearDeepSup(nn.Module):
@@ -324,10 +333,11 @@ class C1BilinearDeepSup(nn.Module):
 
     def forward(self, conv_out: Sequence[torch.Tensor],
                 seg_size: Optional[Tuple[int, int]] = None, dropout=None):
-        x = self.conv_last(self.cbr(conv_out[-1])).float()
+        x = _at_least_f32(self.conv_last(self.cbr(conv_out[-1])))
         if seg_size is not None or not self.deep_sup:
             return _outputs(x, seg_size)
-        d = self.conv_last_deepsup(self.cbr_deepsup(conv_out[-2])).float()
+        d = _at_least_f32(self.conv_last_deepsup(self.cbr_deepsup(
+            conv_out[-2])))
         return _outputs(x, None, d)
 
 
@@ -379,20 +389,26 @@ def segmentation_loss(log_probs: torch.Tensor, labels: torch.Tensor,
     models/semantic.py:228-237): sum(nll * valid) / max(sum(valid), 1),
     0 when every label is ignored.  log_probs [B, C, H, W] float32, labels
     [B, H, W] int.  Each pixel's log-probability is picked by a one-hot
-    select, whose backward writes each element once (no atomics)."""
+    select, whose backward writes each element once (no atomics).  Under
+    a process group the denominator is the global batch's count
+    (parallel.global_count): each rank's loss is its part of the global
+    one."""
     valid = labels != ignore_index
     labels_c = torch.where(valid, labels, torch.zeros_like(labels))
     classes = torch.arange(log_probs.shape[1], device=labels.device)
     onehot = labels_c[:, None] == classes[None, :, None, None]
     nll = -torch.where(onehot, log_probs, log_probs.new_zeros(())).sum(1)
-    return (nll * valid).sum() / valid.sum().clamp_min(1)
+    return (nll * valid).sum() / parallel.global_count(
+        valid.sum()).clamp_min(1)
 
 
 def pixel_accuracy(log_probs: torch.Tensor, labels: torch.Tensor
                    ) -> torch.Tensor:
     """The share of labelled pixels whose argmax class is the label
-    (semantic/models.py:15-21; JAX models/semantic.py:240-244)."""
+    (semantic/models.py:15-21; JAX models/semantic.py:240-244); under a
+    process group this rank's right pixels over the global count."""
     preds = torch.argmax(log_probs, dim=1)
     valid = labels >= 0
     right = (valid & (preds == labels)).sum().to(torch.float32)
-    return right / (valid.sum().to(torch.float32) + 1e-10)
+    return right / (parallel.global_count(valid.sum()).to(torch.float32)
+                    + 1e-10)

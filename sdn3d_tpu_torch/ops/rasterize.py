@@ -739,3 +739,222 @@ def rasterize_face_colors(
     if anti_aliasing:
         rgb = _avg_pool2(rgb)
     return rgb
+
+
+def pixel_weights(faces: torch.Tensor, face_index: torch.Tensor,
+                  image_size: int) -> torch.Tensor:
+    """Dense barycentric weights [B, S, S, 3] of the hit pixels (0
+    elsewhere), from the faces and the face index (`pixel_attributes`),
+    as JAX's rasterize_face_maps returns them."""
+    pix = torch.nonzero((face_index >= 0).reshape(-1)).squeeze(1)
+    _, w, _ = pixel_attributes(faces, face_index, pix, image_size)
+    out = torch.zeros((face_index.numel(), 3), dtype=w.dtype,
+                      device=w.device)
+    out[pix] = w
+    return out.reshape(face_index.shape + (3,))
+
+
+def rasterize_rgbad(
+    faces: torch.Tensor,
+    textures: Optional[torch.Tensor] = None,
+    image_size: int = DEFAULT_IMAGE_SIZE,
+    anti_aliasing: bool = DEFAULT_ANTI_ALIASING,
+    near: float = DEFAULT_NEAR,
+    far: float = DEFAULT_FAR,
+    eps: float = DEFAULT_EPS,
+    background_color: Tuple[float, float, float] = (0.0, 0.0, 0.0),
+    face_valid: Optional[torch.Tensor] = None,
+    return_rgb: bool = True,
+    return_alpha: bool = True,
+    return_depth: bool = True,
+) -> dict:
+    """Full NMR entry point (reference rasterize.py:897-974; JAX
+    rasterize.py:953-1003): RGB by texture-cube sampling, alpha and depth,
+    2x supersampled, vertically flipped, average-pooled.
+
+    The RGB's face index and depth come from one forward rasterization
+    (the kernel on a CUDA tensor, `rasterize_face_maps` on a CPU one), its
+    barycentrics from the faces and that face index (`pixel_weights`);
+    it is differentiable in `textures` (ops/textures.sample_textures), not
+    in the geometry.  Alpha and depth are `SilhouetteFn` / `DepthFn`,
+    differentiable in `faces`, each its own rasterization, as in JAX."""
+    from sdn3d_tpu_torch.ops.rasterize_cuda import rasterize_face_index
+    from sdn3d_tpu_torch.ops.textures import sample_textures
+
+    size = image_size * 2 if anti_aliasing else image_size
+    if face_valid is None:
+        face_valid = torch.ones(faces.shape[:2], dtype=torch.bool,
+                                device=faces.device)
+    out = {"rgb": None, "alpha": None, "depth": None}
+    if return_rgb:
+        if textures is None:
+            raise ValueError("rasterize_rgbad: return_rgb needs textures")
+        fv = faces.detach()
+        fi, d = rasterize_face_index(fv, face_valid, size, near, far)
+        w = pixel_weights(fv, fi, size)
+        rgb = sample_textures(fv, textures, fi, w, d, eps,
+                              background_color)           # [B, H, W, 3]
+        rgb = _flip_rows(rgb.permute(0, 3, 1, 2), 2)
+        out["rgb"] = _avg_pool2(rgb) if anti_aliasing else rgb
+    if return_alpha:
+        alpha = _flip_rows(SilhouetteFn.apply(faces, face_valid, size, near,
+                                              far, eps, 0), 1)
+        out["alpha"] = _avg_pool2(alpha) if anti_aliasing else alpha
+    if return_depth:
+        dep = _flip_rows(DepthFn.apply(faces, face_valid, size, near, far), 1)
+        out["depth"] = _avg_pool2(dep) if anti_aliasing else dep
+    return out
+
+
+# ---------------------------------------------------------------------------
+# NR-4, face-chunk form: the cross-check of the pixelwise gradient
+# ---------------------------------------------------------------------------
+
+def silhouette_grad_chunked(
+    faces: torch.Tensor,          # [B, F, 3, 3]
+    face_valid: torch.Tensor,     # [B, F]
+    face_index: torch.Tensor,     # [B, H, W] int32
+    alpha: torch.Tensor,          # [B, H, W]
+    grad_alpha: torch.Tensor,     # [B, H, W]
+    image_size: int,
+    eps: float,
+) -> torch.Tensor:
+    """Dense NMR edge gradient for the alpha channel (reference
+    rasterize.py:514-745), face chunk by face chunk: JAX's
+    `_silhouette_grad` (rasterize.py:541-720), plain PyTorch.
+
+    For every (face, edge, walk-axis) the reference walks boundary pixels
+    along the edge and accumulates -diff_grad / dist into the two edge
+    vertices' perpendicular coordinates; here the walk is a dense mask
+    over the whole pixel grid, reduced per chunk of faces.  It walks to
+    the border, as `silhouette_grad_pixelwise` with walk 0 does, and
+    serves as its cross-check; no main path calls it.  Returns
+    grad_faces [B, F, 3, 3] (z component 0)."""
+    B, F = faces.shape[:2]
+    isz = image_size
+    dev = faces.device
+    fs = torch.float32
+    faces = faces.to(fs)
+    C = max(1, min(F, (1 << 22) // max(1, B * isz * isz)))
+
+    front = _frontface(faces) & face_valid                       # [B, F]
+    pp = 0.5 * (faces[..., :2] * isz + isz - 1)                  # [B, F, 3, 2]
+    alpha = alpha.to(fs)
+    grad_alpha = grad_alpha.to(fs)
+    alpha_f = alpha.reshape(B, isz * isz)
+    fi_f = face_index.reshape(B, isz * isz)
+    d0v = torch.arange(isz, dtype=fs, device=dev)                # columns
+    d1v = torch.arange(isz, dtype=fs, device=dev)                # walk axis
+    D0 = d0v[None, None, :]
+    D1 = d1v[None, None, None, :]
+    # [b, 0, d0, d1] views of the maps, per walk axis
+    maps = {0: tuple(m.reshape(B, 1, isz, isz).transpose(2, 3)
+                     for m in (alpha, grad_alpha, face_index)),
+            1: tuple(m.reshape(B, 1, isz, isz)
+                     for m in (alpha, grad_alpha, face_index))}
+
+    def gather(m, idx):            # m [B, P], idx [B, c, is] -> [B, c, is]
+        return torch.gather(m[:, None, :].expand(B, idx.shape[1], -1), 2,
+                            idx)
+
+    def per_axis(pp_e, base, axis):
+        """pp_e [B, c, 3, 2] pixel coords ordered (pi0, pi1, pi2) for one
+        edge -> (gA, gB) [B, c], the two edge vertices' perpendicular
+        coordinate's gradients.  axis 0: u = x, v = y; axis 1: u = y,
+        v = x."""
+        c = pp_e.shape[1]
+        u = pp_e[..., (0 + axis) % 2]
+        vv = pp_e[..., (1 + axis) % 2]
+        Au, Bu, Cu = u[..., 0], u[..., 1], u[..., 2]
+        Av, Bv, Cv = vv[..., 0], vv[..., 1], vv[..., 2]
+        one = torch.ones((), dtype=fs, device=dev)
+        if axis == 0:
+            direction = torch.where(Au < Bu, -one, one)
+        else:
+            direction = torch.where(Au < Bu, one, -one)
+        Au_, Bu_, Cu_ = Au[..., None], Bu[..., None], Cu[..., None]
+        Av_, Bv_, Cv_ = Av[..., None], Bv[..., None], Cv[..., None]
+        dir_ = direction[..., None]
+
+        nonvert = (Bu != Au)[..., None]
+        slope = (Bv_ - Av_) / torch.where(nonvert, Bu_ - Au_, one)
+        d1_cross = slope * (D0 - Au_) + Av_                      # [B, c, is]
+        d1_in = torch.where(dir_ > 0, torch.floor(d1_cross),
+                            torch.ceil(d1_cross))
+        d1_out = d1_in + dir_
+        col_ok = (nonvert
+                  & (D0 >= torch.ceil(torch.minimum(Au_, Bu_)))
+                  & (D0 <= torch.maximum(Au_, Bu_))
+                  & (d1_in >= 0) & (d1_in <= isz - 1)
+                  & (d1_out >= 0) & (d1_out <= isz - 1))
+        d1_in_c = torch.clamp(d1_in.to(torch.int64), 0, isz - 1)
+        d1_out_c = torch.clamp(d1_out.to(torch.int64), 0, isz - 1)
+        D0i = d0v.to(torch.int64)[None, None, :].expand(d1_in_c.shape)
+        if axis == 0:
+            pix_in, pix_out = d1_in_c * isz + D0i, d1_out_c * isz + D0i
+        else:
+            pix_in, pix_out = D0i * isz + d1_in_c, D0i * isz + d1_out_c
+        alpha_in = gather(alpha_f, pix_in)
+        alpha_out = gather(alpha_f, pix_out)
+        fi_in = gather(fi_f, pix_in)
+        gid = (base + torch.arange(c, device=dev))[None, :, None]
+        is_own_in = fi_in == gid
+
+        # IN-pass limit: the crossing of the triangle's far boundary at
+        # this column (rasterize.py:660-667)
+        use_ac = (D0 - Au_) * (D0 - Cu_) < 0
+        slope_ac = (Cv_ - Av_) / torch.where((Cu != Au)[..., None],
+                                             Cu_ - Au_, one)
+        slope_bc = (Bv_ - Cv_) / torch.where((Bu != Cu)[..., None],
+                                             Bu_ - Cu_, one)
+        d0_cross2 = torch.where(use_ac, slope_ac * (D0 - Au_) + Av_,
+                                slope_bc * (D0 - Cu_) + Cv_)
+        d1_lim_in = torch.where(dir_ > 0, torch.ceil(d0_cross2),
+                                torch.floor(d0_cross2))
+        lo_in = torch.clamp_min(torch.minimum(d1_in, d1_lim_in), 0.0)
+        hi_in = torch.clamp_max(torch.maximum(d1_in, d1_lim_in), isz - 1.0)
+        d1_lim_out = torch.where(dir_ > 0, (isz - 1.0) * one, 0.0 * one)
+        lo_out = torch.clamp_min(torch.minimum(d1_out, d1_lim_out), 0.0)
+        hi_out = torch.clamp_max(torch.maximum(d1_out, d1_lim_out),
+                                 isz - 1.0)
+
+        a_px, g_px, f_px = maps[axis]
+        cross_ = d1_cross[..., None]                              # [B,c,is,1]
+        base_d = (Bu_ - Au_)[..., None] * 2.0 / isz * (D1 - cross_)
+        distA_ok = (Bu_ != D0)[..., None]
+        distB_ok = (Au_ != D0)[..., None]
+        distA = base_d / torch.where(distA_ok, (Bu_ - D0)[..., None], one)
+        distB = base_d / torch.where(distB_ok, (D0 - Au_)[..., None], one)
+        distA = torch.where(distA > 0, distA + eps, distA - eps)
+        distB = torch.where(distB > 0, distB + eps, distB - eps)
+
+        diff_out = (a_px - alpha_in[..., None]) * g_px
+        m_out = (col_ok & is_own_in)[..., None] \
+            & (D1 >= lo_out[..., None]) & (D1 <= hi_out[..., None]) \
+            & (diff_out > 0)
+        diff_in = (a_px - alpha_out[..., None]) * g_px
+        m_in = col_ok[..., None] \
+            & (D1 >= lo_in[..., None]) & (D1 <= hi_in[..., None]) \
+            & (f_px == gid[..., None]) & (diff_in > 0)
+        zero = torch.zeros((), dtype=fs, device=dev)
+        cA = torch.where(m_out & distA_ok, diff_out / distA, zero) \
+            + torch.where(m_in & distA_ok, diff_in / distA, zero)
+        cB = torch.where(m_out & distB_ok, diff_out / distB, zero) \
+            + torch.where(m_in & distB_ok, diff_in / distB, zero)
+        return -cA.sum(dim=(2, 3)), -cB.sum(dim=(2, 3))
+
+    chunks = []
+    for base in range(0, F, C):
+        ppc = pp[:, base:base + C]
+        frc = front[:, base:base + C]
+        g = torch.zeros((B, ppc.shape[1], 3, 3), dtype=fs, device=dev)
+        for e_ in range(3):
+            order = [e_, (e_ + 1) % 3, (e_ + 2) % 3]
+            pp_e = ppc[:, :, order, :]
+            for axis in range(2):
+                gA, gB = per_axis(pp_e, base, axis)
+                comp = 1 - axis
+                g[:, :, order[0], comp] += torch.where(frc, gA, 0.0)
+                g[:, :, order[1], comp] += torch.where(frc, gB, 0.0)
+        chunks.append(g)
+    return torch.cat(chunks, dim=1)

@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from sdn3d_tpu_torch import parallel
 from sdn3d_tpu_torch.models.derenderer import (
     Derenderer, DeviceMeshBank, TargetType, derender_forward)
 from sdn3d_tpu_torch.pipelines.derender_infer import adam_step
@@ -30,9 +31,13 @@ from sdn3d_tpu_torch.pipelines.derender_infer import adam_step
 
 def masked_mean(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """Mean of per-sample values x [B] over selected samples m [B] bool;
-    0 when none is selected (BaseNet.partial, main.py:96-112)."""
+    0 when none is selected (BaseNet.partial, main.py:96-112).  Under a
+    process group the count is the global batch's (parallel.global_count),
+    so this is the rank's part of the global mean, whatever number of
+    samples each rank selects."""
     m = m.to(x.dtype)
-    return torch.sum(x * m) / torch.clamp_min(torch.sum(m), 1.0)
+    return torch.sum(x * m) / torch.clamp_min(
+        parallel.global_count(torch.sum(m)), 1.0)
 
 
 def masked_mse(pred: torch.Tensor, gt: torch.Tensor,
@@ -177,8 +182,8 @@ class DerenderTrainer:
             loss["class_reward"] = masked_mean(
                 blob["_class_log_probs"] * mask_losses.detach(), is_rep)
             loss["mask_loss"] = masked_mean(mask_losses, is_rep)
-            loss["ffd_coeff_reg"] = self.ffd_coeff_reg * torch.mean(
-                blob["_ffd_coeffs"] ** 2)
+            loss["ffd_coeff_reg"] = self.ffd_coeff_reg \
+                * parallel.global_mean(blob["_ffd_coeffs"] ** 2)
         return loss
 
     def _forward(self, model: Derenderer, batch, training: bool,
@@ -197,7 +202,9 @@ class DerenderTrainer:
         """The loss's gradients in the parameters (in the order of
         `named_parameters()`) and the loss dict, from one training forward
         (which updates the BatchNorm running statistics), under
-        `deterministic_cudnn`."""
+        `deterministic_cudnn`.  Under a process group the gradients and
+        the losses are summed over the ranks (each one flat collective):
+        the global batch's."""
         params = list(state.model.parameters())
         with deterministic_cudnn():
             blob = self._forward(state.model, batch, True, generator)
@@ -206,7 +213,8 @@ class DerenderTrainer:
             grads = torch.autograd.grad(total, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
-        return grads, {k: v.detach() for k, v in loss.items()}
+        return (parallel.sum_across_ranks(grads),
+                parallel.sum_values({k: v.detach() for k, v in loss.items()}))
 
     @torch.no_grad()
     def apply_gradients(self, state: TrainState,

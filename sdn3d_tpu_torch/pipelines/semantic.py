@@ -26,6 +26,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from sdn3d_tpu_torch import parallel
 from sdn3d_tpu_torch.data.semantic_data import (
     IMG_MAX_SIZE_EVAL, MEAN_BGR, STD_BGR, round2nearest_multiple)
 from sdn3d_tpu_torch.models.semantic import (
@@ -166,7 +167,9 @@ class SemanticTrainer:
         """The loss's gradients in the encoder's and the decoder's
         parameters and {"loss", "acc"}, from one training forward (which
         moves the BatchNorm running statistics) with `dropout`'s draws
-        (models/semantic.SemanticModel.forward)."""
+        (models/semantic.SemanticModel.forward).  Under a process group
+        the gradients (one flat collective over both halves) and the
+        metrics are summed over the ranks: the global batch's."""
         model = state.model.train()
         enc = list(model.encoder.parameters())
         dec = list(model.decoder.parameters())
@@ -174,10 +177,11 @@ class SemanticTrainer:
             total, acc = self.objective(model(images, dropout=dropout),
                                         labels)
             grads = torch.autograd.grad(total, enc + dec, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(enc + dec, grads)]
-        return (grads[:len(enc)], grads[len(enc):],
-                {"loss": total.detach(), "acc": acc.detach()})
+        grads = parallel.sum_across_ranks(
+            [torch.zeros_like(p) if g is None else g
+             for p, g in zip(enc + dec, grads)])
+        return (grads[:len(enc)], grads[len(enc):], parallel.sum_values(
+            {"loss": total.detach(), "acc": acc.detach()}))
 
     def apply_gradients(self, state: SemanticTrainState,
                         g_enc: List[torch.Tensor], g_dec: List[torch.Tensor]

@@ -2,9 +2,8 @@
 
 PyTorch counterpart of sdn3d_tpu/render/renderer.py: `render_targets`
 (the inference path, one rasterization for silhouette, normal and depth)
-and the differentiable `render()` for the Silhouette, Depth and Normal
-types.  `render()` of the RGB type (texture sampling and lighting,
-ops/textures.py) waits for ROADMAP A5.
+and the differentiable `render()` of every type: Silhouette, Depth,
+Normal, and RGB (texture sampling and lighting, ops/textures.py).
 """
 
 from __future__ import annotations
@@ -41,10 +40,12 @@ def render(
     eps: float = R.DEFAULT_EPS,
     grad_walk: int = 0,
     vertex_adjacency: Optional[torch.Tensor] = None,
+    textures: Optional[torch.Tensor] = None,
+    light_kwargs: Optional[dict] = None,
 ) -> torch.Tensor:
     """Render [B, V, 3] vertices + [B, F, 3] int faces to 2.5D maps,
     differentiable in `vertices` (JAX renderer.py:39-144): [B, 1, H, W]
-    for Silhouette and Depth, [B, 3, H, W] for Normal.
+    for Silhouette and Depth, [B, 3, H, W] for Normal and RGB.
 
     The camera is the fixed derender3d camera (eye at the origin, looking
     along -z, up +y, renderer.py:226-229) after the reference's x-flip fix
@@ -54,13 +55,21 @@ def render(
     colours each face by its normal from the pre-camera vertices (NMR
     texture-cube convention, renderer.py:60-77) and negates x at the end
     (renderer.py:268-271).  `vertex_adjacency` [B, V, D] routes the face
-    gathers' backward through the mesh's adjacency (deterministic)."""
-    if render_type not in (RenderType.Silhouette, RenderType.Depth,
-                           RenderType.Normal):
-        raise NotImplementedError(
-            f"render() of type {RenderType(render_type).name} is not ported "
-            "yet: texture sampling and lighting (ops/textures.py) are "
-            "ROADMAP A5")
+    gathers' backward through the mesh's adjacency (deterministic).
+
+    RGB samples `textures` [B, F, ts, ts, ts, 3] (per-face texture cubes)
+    lit by `light_kwargs` (ops/textures.lighting, on the faces before the
+    camera) and is differentiable in the textures and, through the
+    lighting, in `vertices`.  Its fill_back is the reference's 2F
+    concatenation: each face again with its winding reversed, carrying
+    its texture cube transposed ((0, 1, 4, 3, 2, 5), nr renderer.py:99);
+    one forward rasterization of the 2F faces (ops/rasterize.
+    rasterize_rgbad)."""
+    if render_type == RenderType.RGB:
+        return _render_rgb(vertices, faces, textures, face_valid,
+                           image_size, viewing_angle, anti_aliasing,
+                           fill_back, near, far, eps, vertex_adjacency,
+                           light_kwargs)
     dt = vertices.dtype
     dev = vertices.device
 
@@ -99,6 +108,45 @@ def render(
                                   anti_aliasing, near, far)
     return rgb * constant((-1.0, 1.0, 1.0), rgb.dtype,
                           dev)[None, :, None, None]
+
+
+def _render_rgb(vertices, faces, textures, face_valid, image_size,
+                viewing_angle, anti_aliasing, fill_back, near, far, eps,
+                vertex_adjacency, light_kwargs) -> torch.Tensor:
+    """render() of the RGB type (JAX renderer.py:75-86, 133-142)."""
+    from sdn3d_tpu_torch.ops.textures import lighting
+
+    if textures is None:
+        raise ValueError("render() of the RGB type needs textures")
+    dt, dev = vertices.dtype, vertices.device
+    B = vertices.shape[0]
+
+    def gather(v):
+        # the 2F list's back copies are the front faces' vertices in
+        # reverse order: gather the F faces (through the adjacency when
+        # given) and flip
+        fv = (camera.vertices_to_faces_adj(v, faces, vertex_adjacency)
+              if vertex_adjacency is not None
+              else camera.vertices_to_faces(v, faces))
+        return torch.cat([fv, fv.flip(2)], dim=1) if fill_back else fv
+
+    if fill_back:
+        textures = torch.cat([textures, textures.permute(0, 1, 4, 3, 2, 5)],
+                             dim=1)
+        if face_valid is not None:
+            face_valid = torch.cat([face_valid, face_valid], dim=1)
+    vertices = vertices * constant((-1.0, 1.0, 1.0), dt, dev)  # x-flip fix
+    # lighting on the geometry before the camera (nr renderer.py:101-110)
+    textures = lighting(gather(vertices), textures, **(light_kwargs or {}))
+    eye = torch.zeros((B, 3), dtype=dt, device=dev)
+    direction = constant((0.0, 0.0, -1.0), dt, dev).expand(B, 3)
+    up = constant((0.0, 1.0, 0.0), dt, dev).expand(B, 3)
+    vertices = camera.perspective_divide(
+        camera.look(vertices, eye, direction, up), viewing_angle)
+    return R.rasterize_rgbad(gather(vertices), textures, image_size,
+                             anti_aliasing, near, far, eps,
+                             face_valid=face_valid, return_alpha=False,
+                             return_depth=False)["rgb"]
 
 
 def project_faces(vertices: torch.Tensor, faces: torch.Tensor,

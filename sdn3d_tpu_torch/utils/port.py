@@ -477,3 +477,24 @@ def maskrcnn_train_state_from_jax(state: Mapping) -> Dict[str, object]:
     return {"maskrcnn": sd,
             "opt_state": {"labels": labels, "trace": trace},
             "step": torch.tensor(int(np.asarray(state["step"])))}
+
+
+def sparse_adam_state_from_jax(state):
+    """The JAX package's sparse Adam state (core/optimizers.py: its
+    SparseAdamState, or the optax chain state of `sparse_adam` that holds
+    it) -> port core/optimizers.SparseAdamState: the count, and the moments
+    as nested dicts of float32 tensors of the params' keys."""
+    from sdn3d_tpu_torch.core.optimizers import SparseAdamState
+
+    s = _opt_leaf(state, "nu")
+    if s is None or "count" not in s._fields:
+        raise ValueError("no sparse Adam state (count, mu, nu) in the "
+                         "given optimizer state")
+
+    def tree(x):
+        if isinstance(x, Mapping):
+            return {k: tree(v) for k, v in x.items()}
+        return _t(x)
+
+    return SparseAdamState(count=int(np.asarray(s.count)), mu=tree(s.mu),
+                           nu=tree(s.nu))

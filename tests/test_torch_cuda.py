@@ -885,3 +885,66 @@ def test_geometric_train_datasets_launch_each_kernel_once_a_step(
     assert state.step == 3
     assert [fn.launches for fn in kernels] == [3, 3, 3]
     assert [fn.calls for fn in plain] == [0, 0, 0]
+
+
+@pytest.mark.cuda
+def test_render_rgb_launches_the_forward_once(cuda):
+    """render() of the RGB type (2F fill_back, lighting, texture cubes):
+    one forward launch and no plain forward a render, the RGB equal to the
+    same render on the card through the plain forward, and the texture
+    gradient the same bits on two runs."""
+    from sdn3d_tpu_torch.render.renderer import RenderType, render
+
+    rng = np.random.RandomState(11)
+    verts = torch.from_numpy(rng.uniform(-0.5, 0.5, (2, 30, 3)).astype(
+        np.float32))
+    verts[..., 2] -= 4.0
+    faces = torch.from_numpy(np.stack([rng.permutation(30)[:3]
+                                       for _ in range(80)]).reshape(
+        2, 40, 3).astype(np.int32))
+    tex = torch.rand((2, 40, 4, 4, 4, 3), generator=torch.Generator(
+    ).manual_seed(1))
+    v, f, t = verts.to(cuda), faces.to(cuda), tex.to(cuda)
+    TC.rasterize_face_index_cuda.launches = 0
+    TR.rasterize_face_maps.calls = 0
+    rgb = render(v, f, RenderType.RGB, image_size=64, textures=t)
+    torch.cuda.synchronize()
+    assert TC.rasterize_face_index_cuda.launches == 1
+    assert TR.rasterize_face_maps.calls == 0
+    dispatch = TC.rasterize_face_index
+    TC.rasterize_face_index = lambda f_, v_, s_, near=TR.DEFAULT_NEAR, \
+        far=TR.DEFAULT_FAR, colors=None: TR.rasterize_face_maps(
+            f_, v_, s_, near, far)
+    try:
+        want = render(v, f, RenderType.RGB, image_size=64, textures=t)
+    finally:
+        TC.rasterize_face_index = dispatch
+    assert TR.rasterize_face_maps.calls == 1
+    assert float(rgb.abs().sum()) > 0 and torch.equal(rgb, want)
+
+    def grad():
+        tt = t.clone().requires_grad_(True)
+        out = render(v, f, RenderType.RGB, image_size=64, textures=tt)
+        return torch.autograd.grad((out * out).sum(), tt)[0]
+
+    g = grad()
+    assert float(g.abs().sum()) > 0 and torch.equal(g, grad())
+
+
+@pytest.mark.cuda
+def test_face_chunk_gradient_matches_the_kernels(cuda):
+    """The face-chunk silhouette gradient (plain PyTorch on the card)
+    against the pixelwise one through the walk and reduction kernels,
+    walking to the border: within 1e-3 (relative and absolute)."""
+    faces, valid, _ = _faces(2, 2, 37)
+    f, v = torch.from_numpy(faces).to(cuda), torch.from_numpy(valid).to(cuda)
+    fi, _ = TC.rasterize_face_index(f, v, 96)
+    alpha = (fi >= 0).float()
+    cot = torch.from_numpy(np.random.RandomState(3).randn(2, 96, 96).astype(
+        np.float32)).to(cuda)
+    chunk = TR.silhouette_grad_chunked(f, v, fi, alpha, cot, 96,
+                                       TR.DEFAULT_EPS)
+    pix = TR.silhouette_grad_pixelwise(f, fi, alpha, cot, 96, TR.DEFAULT_EPS,
+                                       walk=0)
+    assert float(chunk.abs().max()) > 0
+    torch.testing.assert_close(pix, chunk, rtol=1e-3, atol=1e-3)

@@ -347,12 +347,19 @@ def test_render_silhouette_and_grad_match_jax(grad_walk, aa):
 
 
 def test_render_other_types_not_ported():
-    """render() of the RGB type (texture sampling and lighting) is ROADMAP
-    A5's and raises naming it."""
+    """Every RenderType is ported: render() of the RGB type samples its
+    texture cubes ([B, 3, H, W]; tests/test_torch_textures.py holds it
+    against JAX's) and, without textures, raises ValueError naming them
+    instead of NotImplementedError."""
     verts, faces, _, _ = _mesh_batch()
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match="textures"):
         render(torch.from_numpy(verts), torch.from_numpy(faces),
                RenderType.RGB)
+    tex = torch.rand(faces.shape[:2] + (2, 2, 2, 3))
+    rgb = render(torch.from_numpy(verts), torch.from_numpy(faces),
+                 RenderType.RGB, image_size=16, textures=tex)
+    assert rgb.shape == (faces.shape[0], 3, 16, 16)
+    assert torch.isfinite(rgb).all()
 
 
 @pytest.mark.parametrize("render_type,aa", [

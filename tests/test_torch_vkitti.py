@@ -93,8 +93,9 @@ def test_load_edit_json(tmp_path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of sdn3d_tpu_torch (in a fresh interpreter),
-    the semantic and textural branches, the chain, the file-contract CLIs
-    and the Mask R-CNN trainer among them, pulls in neither
+    the semantic and textural branches, the chain, the file-contract CLIs,
+    the Mask R-CNN trainer and the data-parallel helpers and library
+    modules among them, pulls in neither
     jax/flax/optax/orbax, pandas nor sdn3d_tpu."""
     code = """
 import importlib, pkgutil, sys
@@ -114,7 +115,10 @@ need = {"sdn3d_tpu_torch." + n for n in (
     "models.layers", "models.lpips", "utils.transfer", "core.checkpoint",
     "data.native", "data.vkitti_derender", "cli.edit_benchmark",
     "cli.textural_test", "models.maskrcnn_train", "data.detect_data",
-    "pipelines.detect_train", "cli.detect_train", "utils.flops")}
+    "pipelines.detect_train", "cli.detect_train", "utils.flops",
+    "parallel.mesh", "ops.textures", "core.optimizers", "core.config",
+    "utils.metrics_log", "pipelines.ablations", "pipelines.interactive",
+    "data.textural_cityscapes")}
 print(len(names), bad, sorted(need - set(names)))
 assert len(names) >= 30 and need <= set(names) and not bad, bad
 """
