@@ -37,8 +37,10 @@ Phases, each of which must pass (any failure exits non-zero):
      silhouette term's mean over items must fall), and the steady-state
      geo.refine time;
   5. kernels vs plain at the main paths' own inputs (the last forward of
-     phase 4, the last refine step's backward of 4b): equality as in 3, the
-     kernels' and plain versions' times, each kernel's bound; for the walk
+     phase 4, the kernel on all 16 slots and the plain version on
+     PLAIN_SLOTS of them; the last refine step's backward of 4b): equality
+     as in 3, the kernels' and plain versions' times (the forward's on
+     those slots alone too), each kernel's bound; for the walk
      its time per backward (one launch, both axes), the hit pixels that
      walk at all, and the same source built without staging
      (global-memory scans), timed in turns with it; for the
@@ -46,7 +48,8 @@ Phases, each of which must pass (any failure exits non-zero):
      face-tile pairs, the longest tile list and the wide lists; for the
      reduction the box pass's time, box pixels per won pixel, and the time
      of one index_add_ computing the same sums;
-  6. profile: one 16-car frame, unrefined and refined: wall time, device
+  6. profile: one 16-car frame, unrefined and refined (PROFILE_CALLS
+     calls each): wall time, device
      busy time and idle share, PyTorch's elementwise kernels (device time
      and launches), and device time by kernel (torch.profiler);
   7. reference: the port's CUDA path against its CPU path on a small input,
@@ -76,10 +79,11 @@ Phases, each of which must pass (any failure exits non-zero):
      8e. --lpips_ckpt (an official-layout checkpoint written from --seed):
          a finite mean_LPIPS, lpips_backbone "ported";
      then steady wall per pair of the serial, batched and pipelined chains
-     over the edit set in turns, with each one's device idle share, and
-     uncached and cached pairs apart, serial against batched; the per-pair
-     profile (uncached and cached walls, device busy, top kernels); the
-     chain's CUDA path against its CPU path on small shapes;
+     over the edit set in turns (MODE_REPS rounds), with each one's device
+     idle share, and uncached and cached pairs apart, serial against
+     batched; the per-pair profile (PAIR_PROFILE_CALLS uncached and cached
+     walls, device busy, top kernels); the chain's CUDA path against its
+     CPU path on small shapes;
   9. detection as the serving source (Mask R-CNN, MaskRCNNConfig(): a
      ResNet-101 FPN at 1024^2, 6000 -> 1000 proposals, 100 detections):
      its FLOP count; 9a. the detector with the CLIs' random weights from
@@ -99,7 +103,7 @@ Phases, each of which must pass (any failure exits non-zero):
      checkpoint, serial, --batch_pairs 4 and --batch_pairs 4 --pipeline:
      one forward launch per pair or chunk, no plain forward, pipelined
      bit-equal to batched; then the three modes' wall per pair on one
-     stream;
+     stream over the first BATCH_PAIRS pairs;
  10. the per-stage file contract at the chain's full widths, the weights
      from --seed written once as core/checkpoint step directories: 10a.
      semantic_test --test_img benchmark -> geometric_main --vkitti_root
@@ -124,7 +128,7 @@ Phases, each of which must pass (any failure exits non-zero):
      B1, B3 and B2 launched once a step (no plain version, no invariant
      stack), the train-state step written, then geometric_main --ckpt_dir
      serving phase 4's frames from it (one launch an item); 11c. the last
-     step's forward (TRAIN_PLAIN_IMAGES of its images), walk and reduction
+     step's forward (TRAIN_PLAIN_SLOTS of its images), walk and reduction
      against their plain versions as in phase 5; 11b. DESCENT_STEPS steps
      (lr 3e-3, mask_weight 1.0) on one batch: the mask loss descends;
      11d. one step on a small shape, the card against the CPU (losses,
@@ -187,11 +191,13 @@ Phases, each of which must pass (any failure exits non-zero):
      bits; 14e. ms a step of each stage in float32 and bfloat16 (CUDA
      events), device busy, idle share, launches, FLOPs against the card's
      peak (utils/flops), peak memory, and one VKITTI item's host cost.
- 15. data parallelism (parallel/mesh.py), each run in processes of its
-     own, under cuDNN's deterministic algorithms: 15a. geometric_train's
+ 15. data parallelism (parallel/mesh.py), in processes of their own (one
+     run at world size 1 and one at 2, each running both trainers' steps),
+     under cuDNN's deterministic algorithms: 15a. geometric_train's
      step at the JAX CLI's defaults (batch 16, image 256, render 384,
      mode full, synthetic batches) through torchrun --nproc_per_node 1
-     (NCCL): B1 / B3 / B2 once a step, ms a step beside the same step
+     (NCCL): B1 / B3 / B2 once a step, ms a step (DDP_STEPS after
+     DDP_WARM) beside the same step
      with no process group (this process), the collective calls a step
      and their device kernels' time; 15b. the same step in two ranks on
      the one card over gloo (8 a rank) against 15a's first step: the
@@ -200,13 +206,22 @@ Phases, each of which must pass (any failure exits non-zero):
      256).
  16. 16a. render() of the RGB type on 16 slots of phase 4's meshes at
      768^2 with random texture cubes: one B1 launch, no plain forward,
-     the RGB of 2 images equal to the plain forward's, the texture
+     the RGB of RGB_PLAIN_IMAGES images equal to the plain forward's, the
+     texture
      gradient the same bits on two runs, ms forward and with the texture
      gradient; 16b. the face-chunk silhouette gradient against the
      pixelwise one (B3 + B2) on phase 3's 2 x 37 faces at 128^2; 16c. an
      EditSession over a Cityscapes-layout root (a label click, a stroke,
      an object paste, style_forward's 4 previews through the full-width
-     generator at 192x624, undo), ms a preview.
+     generator at 192x624, undo), ms a preview; 16d. the reference's
+     library names on the card, at the serving shape (16 slots of phase
+     4's meshes, 768^2): Renderer(image_size=768, anti_aliasing=False)'s
+     Silhouette forward and backward, one launch each of B1, B3 and B2 and
+     no plain version, its silhouette and vertex gradient the same bits as
+     render()'s with the same arguments; look_at of the meshes from
+     get_points_from_angles and FFD.from_vertices(...)(coeff) within
+     NAMES_ATOL of the CPU's; trace() around one render() writes a Chrome
+     trace holding B1's kernel.
 The line before last is the card's name and power limit, the line before
 that the kernels' JSON (launches: phase 11a's training run); the last line is {"ok": true, "device": {...}}.
 """
@@ -252,9 +267,19 @@ WALK_IN_TERM_FLOPS = 15
 EDGE_INVARIANT_FLOPS = 78
 REDUCE_FLOPS = 6                      # one add per plane for a won pixel
 NUM_OPTS = 10
+# phase 5: the slots of the main path's 16 whose forward is held against
+# the plain version (~3.6 s an image at 768^2; the kernel runs on all 16)
+PLAIN_SLOTS = (0, 5, 10, 15)
 # the chain's modes (phase 8): pairs a chunk of the batched and pipelined
 # chains, and the planes a pair's outputs are compared by
 BATCH_PAIRS = 4
+# the modes' steady walls on one stream: rounds of (serial, batched,
+# pipelined, pipelined, batched, serial); the per-pair profile's calls of
+# each source's pair, uncached and cached; the 16-car frame's profile
+# (phase 6) calls
+MODE_REPS = 1
+PAIR_PROFILE_CALLS = 3
+PROFILE_CALLS = 3
 PLANES = ("instance_png", "normal_png", "depth_png", "instance_small",
           "normal_small")
 # the chain phase's textural shapes: the CLI defaults
@@ -310,12 +335,20 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def compare(TC, TR, faces, valid, isz, colors):
+def compare(TC, TR, faces, valid, isz, colors, slots=None):
     """Kernel vs plain on the same card inputs.  Fails unless face index
-    and colours are equal and depth bit-equal.  Returns (max |depth
+    and colours are equal and depth bit-equal.  With `slots`, the kernel
+    runs on the whole batch and the plain version on those images only
+    (each image is rasterized on its own, so the kernel's rows of those
+    images are what the plain version must give).  Returns (max |depth
     diff|, covered pixels, the plain version's ms on the card)."""
     import torch
     got = TC.rasterize_face_index_cuda(faces, valid, isz, colors=colors)
+    if slots is not None:
+        idx = torch.as_tensor(slots, device=faces.device)
+        faces, valid = faces[idx].contiguous(), valid[idx].contiguous()
+        colors = None if colors is None else colors[idx].contiguous()
+        got = tuple(g[idx] for g in got)
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -506,7 +539,6 @@ def profile_frame(frame, shapenet: str, seed: int, card: str,
     kernel under torch.profiler."""
     import torch
     from PIL import Image
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from sdn3d_tpu_torch.cli import geometric_main
@@ -533,7 +565,7 @@ def profile_frame(frame, shapenet: str, seed: int, card: str,
 
     run()
     run()
-    n = 5
+    n = PROFILE_CALLS
     t0 = time.perf_counter()
     for _ in range(n):
         run()
@@ -552,11 +584,10 @@ def profile_frame(frame, shapenet: str, seed: int, card: str,
         for _ in range(n):
             run()
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            rec = by_name.setdefault(e.name, [0.0, 0])
-            rec[0] += e.time_range.elapsed_us() / 1e3 / n
-            rec[1] += 1
+    for name, ms in device_events(prof):
+        rec = by_name.setdefault(name, [0.0, 0])
+        rec[0] += ms / n
+        rec[1] += 1
     busy_ms = sum(v[0] for v in by_name.values())
     what = f"{n_cars}-car frame, num_opts {num_opts}"
     if busy_ms == 0.0:
@@ -1011,21 +1042,30 @@ def profile_chain_pair(chain, requests, card: str, n: int = 10) -> None:
             f"  {name[:90]}")
 
 
+def device_events(prof):
+    """(name, ms) of each device event of a finished torch.profiler run,
+    read from its kineto results: the events that prof.events() reports
+    on the CUDA device, without building its tree of CPU ops, which took
+    ~6 s for 25k kernels on the card's host."""
+    from torch.autograd import DeviceType
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            yield e.name(), e.duration_ns() / 1e6
+
+
 def device_time(fn, m: int):
     """Run fn under torch.profiler: (device busy ms per unit, [(kernel
     name, (ms per unit, launches))] by time), with `m` units in fn."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            rec = by_name.setdefault(e.name, [0.0, 0])
-            rec[0] += e.time_range.elapsed_us() / 1e3 / m
-            rec[1] += 1
+    for name, ms in device_events(prof):
+        rec = by_name.setdefault(name, [0.0, 0])
+        rec[0] += ms / m
+        rec[1] += 1
     busy = sum(v[0] for v in by_name.values())
     return busy, sorted(by_name.items(), key=lambda kv: -kv[1][0])
 
@@ -1427,7 +1467,6 @@ def detection_phase(args, card: str, frames, shapenet: str, tmp: str,
     # -- 9b. the RPN NMS at 6000 boxes: raw weights, then the checkpoint's -
     ckpt = detector_checkpoint(os.path.join(tmp, "maskrcnn.pth"), args.seed)
     tamed = MaskRCNNDetector(cfg, "cuda").load_state_dict(torch.load(ckpt))
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for what, det in (("random weights", gpu), ("checkpoint", tamed)):
         with torch.no_grad():
@@ -1443,8 +1482,7 @@ def detection_phase(args, card: str, frames, shapenet: str, tmp: str,
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             N.nms(boxes, cfg.rpn_nms_threshold)
-        launches = sum(e.device_type == DeviceType.CUDA
-                       for e in prof.events())
+        launches = sum(1 for _ in device_events(prof))
         # bytes: the boxes read once, the keep mask written once
         log(f"[detect-9b] RPN NMS ({what}) at {boxes.shape[0]} boxes: card "
             f"keep == cpu keep ({int(keep.sum())} kept); {stats['steps']} "
@@ -1823,15 +1861,16 @@ def chain_phase(args, card: str, mark=lambda what: None) -> int:
         generator_batch(chain, card)
         dtype_times(chain, requests[0]["image_rgb"], card)
         mark("8b/8d. generator batch, dtype times")
-        time_chain_modes(chain, requests, card)
+        time_chain_modes(chain, requests, card, reps=MODE_REPS)
         mark("8. modes on one stream")
         time_chain_modes(EditChain.build(ChainConfig(), shapenet,
                                          maskrcnn_ckpt=det_ckpt, device="cuda",
                                          seed=args.seed),
-                         [dict(r, dets=None) for r in requests], card,
-                         reps=1, tag="chain-9e-modes", split=False)
+                         [dict(r, dets=None)
+                          for r in requests[:BATCH_PAIRS]], card,
+                         reps=MODE_REPS, tag="chain-9e-modes", split=False)
         mark("9e. maskrcnn modes on one stream")
-        profile_chain_pair(chain, requests, card, n=6)
+        profile_chain_pair(chain, requests, card, n=PAIR_PROFILE_CALLS)
         mark("8. pair profile")
         chain_reference(write_meshes(os.path.join(tmp, "shapenet_small"),
                                      args.seed, 20, 40),
@@ -2136,10 +2175,9 @@ DESCENT_STEPS = 30
 TIME_STEPS = 10
 TIME_TURNS = 4
 TRAIN_SHAPES = {"batch_size": 16, "image_size": 256, "render_size": 384}
-# 11c: images of the last training step's forward held against the plain
-# forward (at 16 x 768^2 the plain forward takes ~60 s; phase 5 holds all
-# 16 serving images)
-TRAIN_PLAIN_IMAGES = 4
+# 11c: slots of the last training step's forward (the kernel runs on all
+# 16) held against the plain forward, ~3.5 s an image at 768^2
+TRAIN_PLAIN_SLOTS = (0, 15)
 # 11d: the card against the CPU, one step on the small shape, with the
 # bounds of tests/test_torch_derender_train.py (port against JAX): losses
 # relative (geometry, reprojection), running statistics and the two
@@ -2577,17 +2615,16 @@ def training_phase(args, card: str, frames, shapenet: str, tmp: str,
     mark("11a. training CLI")
 
     # -- 11c. the kernels at the last training step's own inputs ------------
-    n_img = TRAIN_PLAIN_IMAGES
-    err, hits, plain_ms = compare(TC, TR, last["faces"][:n_img].contiguous(),
-                                  last["valid"][:n_img].contiguous(),
-                                  last["size"], None)
+    n_img = len(TRAIN_PLAIN_SLOTS)
+    err, hits, plain_ms = compare(TC, TR, last["faces"], last["valid"],
+                                  last["size"], None, TRAIN_PLAIN_SLOTS)
     walk_err = check_walk(TC, TR, last["alpha"], last["cot"], last["pp"],
                           last["fi"], last["walk"], TR.DEFAULT_EPS)
     red_err = check_reduction(TC, TR, last["acc_x"], last["acc_y"],
                               last["fi"], last["F"])
-    log(f"[train-11c] last step's forward, {n_img} of "
-        f"{last['faces'].shape[0]} images @{last['size']}^2: kernel == "
-        f"plain ({hits} covered pixels, plain {plain_ms:.1f} ms); walk "
+    log(f"[train-11c] last step's forward of {last['faces'].shape[0]} "
+        f"images @{last['size']}^2, {n_img} of them {TRAIN_PLAIN_SLOTS}: "
+        f"kernel == plain ({hits} covered pixels, plain {plain_ms:.1f} ms); walk "
         f"{tuple(last['alpha'].shape)}, window {last['walk']}: bit-equal "
         f"(both axes); reduction: boxes == won_pixel_boxes, max err vs "
         f"float64 {red_err:.3e}, bit-equal across launches")
@@ -4331,8 +4368,8 @@ def detect_train_phase(args, card: str, frames, shapenet: str, tmp: str,
 # 15. data parallelism: geometric_train and semantic_train under a process
 # group (parallel/mesh.py), in processes of their own
 # ---------------------------------------------------------------------------
-DDP_STEPS = 6             # steps timed a run, after DDP_WARM
-DDP_WARM = 2
+DDP_STEPS = 3             # steps timed a run, after DDP_WARM
+DDP_WARM = 1
 DDP_DEVICE = "cuda"
 DDP_SEM_SHAPES = {"batch_size": 8, "crop_size": 256}
 DDP_TIMEOUT_S = 600
@@ -4481,8 +4518,9 @@ def timed_steps(fn, n: int, dev=None) -> list:
 def ddp_worker(spec: str) -> int:
     """One rank of phase 15 (`chip_smoke.py --ddp_worker SPEC`): joins the
     group (torchrun's environment, or the spec's FileStore, rank and
-    world size), runs the spec's job under the trainers' deterministic
-    cuDNN, and writes its result to the spec's `out` (rank 0), or
+    world size), runs the spec's jobs (`kinds`: (kind, shapes) pairs, in
+    order, one group for all) under the trainers' deterministic cuDNN,
+    and writes their results by kind to the spec's `out` (rank 0), or
     `out`.rank<r>."""
     import torch
 
@@ -4496,9 +4534,14 @@ def ddp_worker(spec: str) -> int:
         init_method=job.get("init", "env://"), rank=job.get("rank"),
         world_size=job.get("world"))
     try:
-        with deterministic_cudnn():
-            out = {"derender": ddp_derender,
-                   "semantic": ddp_semantic}[job["kind"]](job, dev, parallel)
+        out = {}
+        for kind, shapes in job["kinds"]:
+            with deterministic_cudnn():
+                out[kind] = {"derender": ddp_derender,
+                             "semantic": ddp_semantic}[kind](
+                    dict(job, shapes=shapes), dev, parallel)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
         out.update(rank=parallel.rank(), world=parallel.world_size(),
                    backend=torch.distributed.get_backend())
     finally:
@@ -4620,7 +4663,8 @@ def ddp_phase(args, card: str, shapenet: str, tmp: str,
     step with no process group (this process), the collectives' launches
     and device ms a step; 15b the same step in two ranks on the one card
     over gloo (8 a rank) against 15a's first step; 15c both for
-    semantic_train at its defaults (batch 8, crop 256)."""
+    semantic_train at its defaults (batch 8, crop 256).  One run at each
+    world size steps both trainers, derenderer first."""
     import torch
 
     from sdn3d_tpu_torch.geometry.assets import load_shapenet_bank
@@ -4671,14 +4715,20 @@ def ddp_phase(args, card: str, shapenet: str, tmp: str,
     mark("15. steps with no process group")
 
     base = {"device": DDP_DEVICE, "seed": args.seed, "shapenet": shapenet,
-            "ckpt": os.path.join(tmp, "ddp_sem")}
+            "ckpt": os.path.join(tmp, "ddp_sem"),
+            "kinds": [("derender", S), ("semantic", DDP_SEM_SHAPES)]}
     med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    t0 = time.perf_counter()
+    (g1s,) = run_ranks(tmp, "15-1", dict(base, time=True), 1)
+    run1_s = time.perf_counter() - t0
+    if g1s["world"] != 1 or (DDP_DEVICE == "cuda"
+                             and g1s["backend"] != "nccl"):
+        raise AssertionError(f"15: world {g1s['world']}, backend "
+                             f"{g1s['backend']}")
     for tag, kind, shapes, alone in (
             ("15a", "derender", S, alone_ms),
             ("15c", "semantic", DDP_SEM_SHAPES, s_alone_ms)):
-        t0 = time.perf_counter()
-        (g1,) = run_ranks(tmp, tag, dict(base, kind=kind, shapes=shapes,
-                                         time=True), 1)
+        g1 = g1s[kind]
         n_coll, coll_ms = collectives(g1["top"])
         n_copy, copy_ms = collectives(g1["top"], "memcpy dtod")
         extra = ""
@@ -4688,14 +4738,10 @@ def ddp_phase(args, card: str, shapenet: str, tmp: str,
                 raise AssertionError(f"{tag}: launches a step "
                                      f"{g1['launches']}, need {want}")
             extra = (f"B1 / B3 / B2 launches a step {g1['launches']}; ")
-        if g1["world"] != 1 or (DDP_DEVICE == "cuda"
-                                and g1["backend"] != "nccl"):
-            raise AssertionError(f"{tag}: world {g1['world']}, backend "
-                                 f"{g1['backend']}")
         if g1["calls"] < 1:
             raise AssertionError(f"{tag}: no collective in a step")
         log(f"[ddp-{tag}] {kind} step at {shapes} under torchrun "
-            f"--nproc_per_node 1 ({g1['backend']}): {extra}ms a step median "
+            f"--nproc_per_node 1 ({g1s['backend']}): {extra}ms a step median "
             f"{med(g1['ms']):.3f} (min {min(g1['ms']):.3f}, max "
             f"{max(g1['ms']):.3f}) against {med(alone):.3f} (min "
             f"{min(alone):.3f}, max {max(alone):.3f}) with no process group "
@@ -4704,22 +4750,24 @@ def ddp_phase(args, card: str, shapenet: str, tmp: str,
             f"calls), their NCCL kernels {n_coll:g} launches and "
             f"{coll_ms:.4f} ms a step, device-to-device copies {n_copy:g} "
             f"and {copy_ms:.4f} ms a step; "
-            f"losses {g1['losses']}; run {time.perf_counter() - t0:.1f} s "
+            f"losses {g1['losses']}; the run (both trainers) {run1_s:.1f} s "
             f"({card})")
         for name, (ms_, n) in [kv for kv in g1["top"]
                                if "nccl" in kv[0].lower()][:4]:
             log(f"[ddp-{tag}] collective kernel {name}: {ms_:.4f} ms, "
                 f"{n / 2:g} launches a step")
-        t0 = time.perf_counter()
-        two = run_ranks(tmp, tag + "-2", dict(base, kind=kind,
-                                              shapes=shapes), 2)
-        summary = ddp_compare(tag, g1, two)
-        tag2 = "15b" if kind == "derender" else "15c-2"
-        log(f"[ddp-{tag2}] {kind} step at world size 2 ({two[0]['backend']}, "
+    mark("15a/15c")
+    t0 = time.perf_counter()
+    two = run_ranks(tmp, "15-2", base, 2)
+    run2_s = time.perf_counter() - t0
+    for tag, kind, shapes in (("15b", "derender", S),
+                              ("15c-2", "semantic", DDP_SEM_SHAPES)):
+        summary = ddp_compare(tag, g1s[kind], [r[kind] for r in two])
+        log(f"[ddp-{tag}] {kind} step at world size 2 ({two[0]['backend']}, "
             f"two ranks on one device, {shapes['batch_size'] // 2} a rank) "
-            f"against world size 1: {summary}; run "
-            f"{time.perf_counter() - t0:.1f} s ({card})")
-        mark(f"{tag}/{tag2}")
+            f"against world size 1: {summary}; the run (both trainers) "
+            f"{run2_s:.1f} s ({card})")
+    mark("15b/15c-2")
 
 # ---------------------------------------------------------------------------
 # 16. the rest of the library: render() of the RGB type through B1, the
@@ -4727,18 +4775,24 @@ def ddp_phase(args, card: str, shapenet: str, tmp: str,
 # ---------------------------------------------------------------------------
 RGB_SIZE = 384            # render size: 768^2 rasterization, as phase 4's
 RGB_TEXTURE = 4
-RGB_PLAIN_IMAGES = 2      # images of the plain version's comparison
+RGB_PLAIN_IMAGES = 1      # images of the plain version's comparison
 RGB_TIME = 5
 CHUNK_TOL = 1e-3          # tests/test_torch_silhouette_chunk.py's bound
 UI_SHAPE = (384, 1248)    # the Cityscapes-layout frames: 624 x 192 items
 UI_PREVIEWS = 4
 LIB_DEVICE = "cuda"
+VIEW_ANGLE = 29.6         # the slots' viewing angle (degrees)
+# 16d: Renderer's image size without anti-aliasing, so that B1 / B3 / B2
+# run at the serving shape (16 slots, 768^2); look_at and FFD on the card
+# against the CPU (float32, TF32 off; values of order 1)
+NAMES_SIZE = 768
+NAMES_ATOL = 1e-5
 
 
-def rgb_scene(bank, seed: int, dev):
+def posed_slots(bank, seed: int, dev):
     """16 slots of phase 4's meshes (each class twice), posed in front of
-    the camera as phase 3 poses its car, with random texture cubes:
-    (vertices, faces, face_valid, viewing angles, textures)."""
+    the camera as phase 3 poses its car: (vertices, faces, face_valid,
+    viewing angles)."""
     import torch
 
     from sdn3d_tpu_torch.geometry.transforms import perspective_transform
@@ -4754,12 +4808,19 @@ def rgb_scene(bank, seed: int, dev):
         bank.vertices[cls.long()], scales=torch.full((16, 3), 1.5, device=dev),
         rotations=rot, translations=trans, perspective_translations=trans,
         zoom_tos=torch.full((16, 1), 384 / 1450.0, device=dev))
+    return (verts, bank.faces[cls.long()], bank.face_valid[cls.long()],
+            torch.full((16,), VIEW_ANGLE, device=dev))
+
+
+def rgb_scene(bank, seed: int, dev):
+    """posed_slots with random texture cubes: (vertices, faces,
+    face_valid, viewing angles, textures)."""
+    import torch
     F = bank.faces.shape[1]
     g = torch.Generator(device=dev).manual_seed(seed)
     tex = torch.rand((16, F, RGB_TEXTURE, RGB_TEXTURE, RGB_TEXTURE, 3),
                      generator=g, device=dev)
-    return (verts, bank.faces[cls.long()], bank.face_valid[cls.long()],
-            torch.full((16,), 29.6, device=dev), tex)
+    return posed_slots(bank, seed, dev) + (tex,)
 
 
 def write_cityscapes_textural_root(root: str, seed: int) -> None:
@@ -4971,6 +5032,170 @@ def library_phase(args, card: str, shapenet: str, tmp: str, faces128,
         f"(second, the same bits), the styles differ; commit, undo restores "
         f"the state ({card})")
     mark("16c. interactive session")
+    names_phase(args, card, shapenet, tmp, mark)
+
+
+@contextlib.contextmanager
+def torch_deterministic():
+    """torch's deterministic algorithms (warn_only: an op without one
+    warns and runs as it is) for the block, the flags found restored."""
+    import torch
+    found = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(found[0], warn_only=found[1])
+
+
+def names_phase(args, card: str, shapenet: str, tmp: str,
+                mark=lambda what: None) -> None:
+    """16d: the reference's library names on the card at the serving
+    shape (posed_slots: 16 slots of phase 4's 39.6k-face meshes, 768^2).
+    Renderer(NAMES_SIZE, anti_aliasing=False)'s Silhouette forward and
+    backward launch B1, B3 (walk to the border) and B2 once each and no
+    plain version, and give render()'s bits with the same arguments (both
+    under torch's deterministic algorithms: the vertex gather's backward
+    adds with atomics otherwise); look_at of the meshes from eyes of
+    get_points_from_angles, and FFD.from_vertices(...)(coeff), within
+    NAMES_ATOL of the CPU; trace() around one render() writes a Chrome
+    trace that holds B1's raster kernel."""
+    import torch
+
+    from sdn3d_tpu_torch.geometry import FFD, look_at
+    from sdn3d_tpu_torch.geometry.assets import load_shapenet_bank
+    from sdn3d_tpu_torch.geometry.camera import get_points_from_angles
+    from sdn3d_tpu_torch.models.derenderer import DeviceMeshBank
+    from sdn3d_tpu_torch.ops import rasterize as TR
+    from sdn3d_tpu_torch.ops import rasterize_cuda as TC
+    from sdn3d_tpu_torch.render import Renderer, RenderType, render
+    from sdn3d_tpu_torch.utils.profiling import trace
+
+    dev = torch.device(LIB_DEVICE)
+    host = load_shapenet_bank(shapenet)
+    bank = DeviceMeshBank.from_host(host, dev)
+    verts, faces, valid, _ = posed_slots(bank, args.seed, dev)
+    S = NAMES_SIZE
+    renderer = Renderer(image_size=S, viewing_angle=VIEW_ANGLE,
+                        anti_aliasing=False)
+    cot = torch.randn((16, 1, S, S), generator=torch.Generator(
+        device=dev).manual_seed(args.seed + 1), device=dev)
+    kernels = (TC.rasterize_face_index_cuda, TC.walk_grads_cuda,
+               TC.segment_face_grads_cuda)
+    plain = (TR.rasterize_face_maps, TR.walk_grads_plain,
+             TR.segment_face_grads_plain, TR.edge_invariant_stack,
+             TR.face_pixel_coords)
+
+    def silhouette(fn):
+        v = verts.detach().clone().requires_grad_(True)
+        sil = fn(v)
+        g, = torch.autograd.grad((sil * cot).sum(), v)
+        torch.cuda.synchronize()
+        return sil.detach(), g
+
+    def by_renderer(v):
+        return renderer(v, faces, RenderType.Silhouette, valid)
+
+    def by_render(v):
+        return render(v, faces, RenderType.Silhouette, valid, image_size=S,
+                      viewing_angle=VIEW_ANGLE, anti_aliasing=False)
+
+    with torch_deterministic():
+        for fn in kernels:
+            fn.launches = 0
+        for fn in plain:
+            fn.calls = 0
+        t0 = time.perf_counter()
+        sil_r, g_r = silhouette(by_renderer)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = [fn.launches for fn in kernels]
+        p_counts = [fn.calls for fn in plain]
+        sil_f, g_f = silhouette(by_render)
+    cover = float(sil_r.mean())
+    if counts != [1, 1, 1] or any(p_counts):
+        raise AssertionError(f"16d: Renderer's forward and backward launched "
+                             f"B1 / B3 / B2 {counts}, plain calls {p_counts}")
+    if sil_r.shape != (16, 1, S, S) or not 0.01 < cover < 0.99 \
+            or not torch.isfinite(g_r).all() or not g_r.abs().max() > 0:
+        raise AssertionError(f"16d: silhouette {tuple(sil_r.shape)} coverage "
+                             f"{cover}, gradient finite "
+                             f"{bool(torch.isfinite(g_r).all())}")
+    if not torch.equal(sil_r, sil_f) or not torch.equal(g_r, g_f):
+        raise AssertionError(
+            f"16d: Renderer against render(): silhouette max |diff| "
+            f"{float((sil_r - sil_f).abs().max())}, vertex gradient "
+            f"{float((g_r - g_f).abs().max())}")
+    # the same two without the deterministic algorithms, for the record
+    g_a = silhouette(by_renderer)[1]
+    g_b = silhouette(by_render)[1]
+    free_diff = float((g_a - g_b).abs().max())
+    log(f"[names-16d] Renderer(image_size={S}, anti_aliasing=False) "
+        f"Silhouette of 16 slots x {faces.shape[1]} faces @{S}^2 (walk to "
+        f"the border): forward + backward {wall_ms:.1f} ms (first call), "
+        f"B1 / B3 / B2 launches {counts}, plain calls {p_counts}; coverage "
+        f"{cover:.4f}; silhouette and vertex gradient (max |g| "
+        f"{float(g_r.abs().max()):.4g}) the same bits as render() under "
+        f"torch's deterministic algorithms; without them the two gradients "
+        f"differ by {free_diff:.3g} ({card})")
+
+    # look_at from get_points_from_angles, and FFD, card against CPU
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        rng = np.random.RandomState(args.seed)
+        angles = [rng.uniform(a, b, 16).astype(np.float32)
+                  for a, b in ((2.0, 3.0), (-20.0, 40.0), (-180.0, 180.0))]
+        v_host = torch.from_numpy(host.vertices[np.arange(16) % len(
+            host.vertices)])
+        coeff = torch.from_numpy((rng.randn(16, 3 * 64) * 0.1).astype(
+            np.float32))
+        n0 = int(host.num_vertices[0])
+
+        def camera_and_ffd(d):
+            eye = get_points_from_angles(
+                *(torch.from_numpy(a).to(d) for a in angles))
+            seen = look_at(v_host.to(d), eye)
+            ffd = FFD.from_vertices(host.vertices[0, :n0], device=d)
+            return eye.cpu(), seen.cpu(), ffd(coeff.to(d)).cpu()
+
+        on_card, on_cpu = camera_and_ffd(dev), camera_and_ffd("cpu")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    errs = [float((a - b).abs().max()) for a, b in zip(on_card, on_cpu)]
+    if not all(e <= NAMES_ATOL for e in errs) or not all(
+            torch.isfinite(t).all() for t in on_card):
+        raise AssertionError(f"16d: card against CPU: get_points_from_angles "
+                             f"{errs[0]}, look_at {errs[1]}, FFD {errs[2]} "
+                             f"(bound {NAMES_ATOL})")
+    log(f"[names-16d] card against CPU (float32, TF32 off): "
+        f"get_points_from_angles max |diff| {errs[0]:.3g}, look_at of "
+        f"{tuple(on_card[1].shape)} vertices {errs[1]:.3g} (scale "
+        f"{float(on_cpu[1].abs().max()):.3g}), FFD.from_vertices(...)(coeff) "
+        f"{tuple(on_card[2].shape)} {errs[2]:.3g} (bound {NAMES_ATOL})")
+
+    # trace() around one render()
+    log_dir = os.path.join(tmp, "trace_16d")
+    with trace(log_dir):
+        by_render(verts)
+        torch.cuda.synchronize()
+    files = sorted(os.listdir(log_dir))
+    size, text = 0, ""
+    if files:
+        size = os.path.getsize(os.path.join(log_dir, files[0]))
+        with open(os.path.join(log_dir, files[0])) as fh:
+            text = fh.read()
+    if len(files) != 1 or not size or "raster_binned_kernel" not in text:
+        raise AssertionError(f"16d: trace() wrote {files} ({size} B), B1's "
+                             f"kernel in it: {'raster_binned_kernel' in text}")
+    log(f"[names-16d] trace() around one render(): {files[0]}, {size} B, "
+        f"B1's raster kernel in it ({card})")
+    del bank, verts, cot, sil_r, sil_f, g_r, g_f, g_a, g_b
+    torch.cuda.empty_cache()
+    mark("16d. library names")
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5298,11 +5523,19 @@ def main(argv=None) -> int:
     # -- 5. kernels vs plain at the main paths' shapes ------------------------
     cf, cv, cs, cc = (captured["faces"], captured["valid"], captured["size"],
                       captured["colors"])
-    err, hits, plain_ms = compare(TC, TR, cf, cv, cs, cc)
+    err, hits, plain_ms = compare(TC, TR, cf, cv, cs, cc, PLAIN_SLOTS)
     max_err = max(max_err, err)
     bins = check_bins(TC, cf, cv, cs, lists=False)
-    log(f"[kernel] main-path inputs {tuple(cf.shape)} @{cs}^2: equal "
-        f"({hits} covered pixels); bin boxes == pack_faces boxes")
+    slot_idx = torch.as_tensor(PLAIN_SLOTS, device=dev)
+    sf_, sv_, sc_ = (cf[slot_idx].contiguous(), cv[slot_idx].contiguous(),
+                     None if cc is None else cc[slot_idx].contiguous())
+    slots_ms = cuda_ms(lambda: launch(sf_, sv_, cs, colors=sc_), iters=20,
+                       warmup=3)
+    log(f"[kernel] main-path inputs {tuple(cf.shape)} @{cs}^2: the kernel's "
+        f"slots {PLAIN_SLOTS} equal to the plain version's ({hits} covered "
+        f"pixels); bin boxes == pack_faces boxes; on those "
+        f"{len(PLAIN_SLOTS)} slots alone: kernel {slots_ms:.4f} ms, plain "
+        f"{plain_ms:.1f} ms ({card})")
     # the wrapper (pre-pass, bin, raster) and its parts
     rec = TC.face_records(cf, cv, cs)
     ms = cuda_ms(lambda: launch(cf, cv, cs, colors=cc), iters=20, warmup=3)
@@ -5339,7 +5572,8 @@ def main(argv=None) -> int:
     t_bytes = nbytes / PEAK["hbm"] * 1e3
     t_ops = pairs * EDGE_TEST_FLOPS / PEAK["float32"] * 1e3
     bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
-    log(f"[kernel] {ms:.4f} ms/launch, plain {plain_ms:.1f} ms; bound "
+    log(f"[kernel] {ms:.4f} ms/launch, plain {plain_ms:.1f} ms (on "
+        f"{len(PLAIN_SLOTS)} of the {B} slots); bound "
         f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {pairs:.0f} "
         f"face-pixel box pairs) ({card})")
 

@@ -9,6 +9,22 @@ from typing import Dict, Tuple
 import numpy as np
 
 
+def make_cube_mesh(scale: float = 0.5) -> Tuple[np.ndarray, np.ndarray]:
+    """Unit cube centered at origin, 12 triangles, verts in [-0.5, 0.5]."""
+    v = np.array([[x, y, z]
+                  for x in (-1, 1) for y in (-1, 1) for z in (-1, 1)],
+                 np.float32) * scale
+    f = np.array([
+        [0, 1, 3], [0, 3, 2],     # x = -1
+        [4, 6, 7], [4, 7, 5],     # x = +1
+        [0, 4, 5], [0, 5, 1],     # y = -1
+        [2, 3, 7], [2, 7, 6],     # y = +1
+        [0, 2, 6], [0, 6, 4],     # z = -1
+        [1, 5, 7], [1, 7, 3],     # z = +1
+    ], np.int32)
+    return v, f
+
+
 def make_sphere_mesh(n_theta: int = 12, n_phi: int = 24,
                      radius: float = 0.5) -> Tuple[np.ndarray, np.ndarray]:
     """UV sphere with ~2*n_theta*n_phi triangles, verts in [-r, r]."""

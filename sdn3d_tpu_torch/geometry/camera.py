@@ -1,8 +1,10 @@
-"""Camera transforms: look / perspective divide / face gathers (one with a
-gather-based backward over the mesh's adjacency).
+"""Camera transforms: look / look_at / perspective divide / face gathers
+(one with a gather-based backward over the mesh's adjacency) / camera
+positions from angles.
 
 PyTorch counterpart of sdn3d_tpu/geometry/camera.py
-(geometric/neural_renderer/{look,perspective,vertices_to_faces}.py).
+(geometric/neural_renderer/{look,look_at,perspective,vertices_to_faces,
+get_points_from_angles}.py).
 """
 
 from __future__ import annotations
@@ -45,6 +47,28 @@ def look(vertices: torch.Tensor,
     r = torch.stack([x_axis, y_axis, z_axis], dim=1)          # [B, 3, 3] rows
     vertices = vertices - eye[:, None, :]
     return torch.matmul(vertices, r.transpose(1, 2))
+
+
+def look_at(vertices: torch.Tensor, eye: torch.Tensor,
+            at: Optional[torch.Tensor] = None,
+            up: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """'Look at' transformation (neural_renderer/look_at.py:7-45).
+
+    vertices [B, V, 3]; eye [3] or [B, 3]; at (default the origin) and up
+    (default +y) likewise.
+    """
+    kw = dict(dtype=vertices.dtype, device=vertices.device)
+    if at is None:
+        at = torch.tensor([0.0, 0.0, 0.0], **kw)
+    if up is None:
+        up = torch.tensor([0.0, 1.0, 0.0], **kw)
+    eye, at, up = _atleast_2d(eye), _atleast_2d(at), _atleast_2d(up)
+    z_axis = _normalize(at - eye)
+    x_axis = _normalize(torch.linalg.cross(up.expand_as(z_axis), z_axis))
+    y_axis = _normalize(torch.linalg.cross(z_axis, x_axis))
+    r = torch.stack([x_axis, y_axis, z_axis], dim=1)          # [B, 3, 3] rows
+    vertices = vertices - eye[:, None, :]
+    return torch.einsum("bvj,bkj->bvk", vertices, r)
 
 
 def perspective_divide(vertices: torch.Tensor, angle_deg) -> torch.Tensor:
@@ -126,3 +150,21 @@ def face_normals(face_vertices: torch.Tensor, eps: float = 1e-12) -> torch.Tenso
     v12 = face_vertices[:, :, 2] - face_vertices[:, :, 1]
     n = torch.linalg.cross(v10, v12)
     return n / torch.clamp_min(torch.linalg.norm(n, dim=-1, keepdim=True), eps)
+
+
+def get_points_from_angles(distance, elevation, azimuth,
+                           degrees: bool = True) -> torch.Tensor:
+    """Spherical camera position (neural_renderer/get_points_from_angles.py):
+    (d*cos(el)*sin(az), d*sin(el), -d*cos(el)*cos(az)) in float32.
+    Scalars or tensors (on the first tensor's device); returns [..., 3]."""
+    args = (distance, elevation, azimuth)
+    dev = next((x.device for x in args if torch.is_tensor(x)), None)
+    distance, elevation, azimuth = (
+        torch.as_tensor(x, dtype=torch.float32, device=dev) for x in args)
+    if degrees:
+        elevation, azimuth = torch.deg2rad(elevation), torch.deg2rad(azimuth)
+    return torch.stack([
+        distance * torch.cos(elevation) * torch.sin(azimuth),
+        distance * torch.sin(elevation),
+        -distance * torch.cos(elevation) * torch.cos(azimuth),
+    ], dim=-1)

@@ -3,13 +3,14 @@
 PyTorch counterpart of sdn3d_tpu/geometry/ffd.py (itself a re-expression
 of geometric/derender3d/models/transforms.py:10-99).  The basis is
 precomputed on the host in numpy; `deform` is a batched tensor function
-so padded object slots deform in one product.
+so padded object slots deform in one product, and `FFD` is the
+reference's one-mesh object over it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -115,3 +116,30 @@ def deform(B: torch.Tensor, P0: torch.Tensor, ffd_coeff: torch.Tensor,
     P = (P0 + dP).reshape(lead + (3, G ** 3))                 # [..., 3, G^3]
     Bf = B.reshape(B.shape[:-3] + (G ** 3,))                   # [..., V, G^3]
     return torch.matmul(Bf, P.transpose(-1, -2))
+
+
+class FFD:
+    """Bernstein free-form deformation for one mesh (JAX ffd.py:102-140):
+    the basis B [V, G, G, G] and control grid P0 [3, G, G, G] as tensors
+    on one device.  A plain object: `deform` is the batched form."""
+
+    def __init__(self, B: torch.Tensor, P0: torch.Tensor, num_grids: int,
+                 constraints: Sequence[Constraint] = CAR_CONSTRAINTS):
+        self.B = B
+        self.P0 = P0
+        self.num_grids = num_grids
+        self.constraints = tuple(constraints)
+
+    @classmethod
+    def from_vertices(cls, vertices: np.ndarray, num_grids: int = 4,
+                      constraints: Sequence[Constraint] = CAR_CONSTRAINTS,
+                      device: Union[str, torch.device] = "cuda") -> "FFD":
+        B, P0 = make_ffd_basis(np.asarray(vertices), num_grids)
+        return cls(torch.from_numpy(B).to(device),
+                   torch.from_numpy(P0).to(device), num_grids, constraints)
+
+    def __call__(self, ffd_coeff: torch.Tensor) -> torch.Tensor:
+        """ffd_coeff [..., 3 * G^3] -> deformed vertices [..., V, 3]
+        (transforms.py:68-99)."""
+        return deform(self.B, self.P0, ffd_coeff, self.num_grids,
+                      self.constraints)

@@ -1,11 +1,12 @@
 """ResNet family (torchvision / semantic-branch layout), NCHW.
 
-PyTorch counterpart of sdn3d_tpu/models/resnet.py for two backbones:
+PyTorch counterpart of sdn3d_tpu/models/resnet.py, with its builders:
   * torchvision resnet18 (BasicBlock, 7x7 stem): the derenderer encoder
-    (derender3d/models/derenderer.py:28);
+    (derender3d/models/derenderer.py:28), `resnet18_feature`;
   * dilated resnet50 (Bottleneck, deep 3-conv stem, output stride 8): the
     semantic encoder (semantic/resnet.py:104-132, semantic/models.py:
-    183-247).
+    183-247), `resnet50_dilated8`;
+  * torchvision resnet101 (Bottleneck, 7x7 stem), `resnet101`.
 Module names follow the reference state_dicts (`conv1`, `bn1`, [`conv2`,
 `bn2`, `conv3`, `bn3` for the deep stem], `layerI.J.*`,
 `downsample.0/1`, `fc`), so they map one to one.  Padding is explicit and
@@ -129,6 +130,10 @@ class ResNet(nn.Module):
             setattr(self, f"layer{i + 1}", nn.Sequential(*layer))
         self.num_features = in_ch
 
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """x [B, 3, H, W] -> (C1, C2, C3, C4, C5), as JAX ResNet.__call__."""
+        return self.stages(x)
+
     def stages(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """x [B, 3, H, W] -> (C1, C2, C3, C4, C5)."""
         x = torch.relu(self.bn1(self.conv1(x)))
@@ -165,7 +170,18 @@ class ResNetClassifier(ResNet):
         return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
+def resnet18_feature(num_outputs: int = 256,
+                     dtype="float32") -> ResNetClassifier:
+    return ResNetClassifier(stage_sizes=(2, 2, 2, 2),
+                            num_outputs=num_outputs, dtype=dtype)
+
+
 def resnet50_dilated8(dtype="float32") -> ResNet:
     return set_compute_dtype(ResNet(stage_sizes=(3, 4, 6, 3),
                                     block_cls=Bottleneck, output_stride=8,
                                     deep_stem=True), dtype)
+
+
+def resnet101(dtype="float32") -> ResNet:
+    return set_compute_dtype(ResNet(stage_sizes=(3, 4, 23, 3),
+                                    block_cls=Bottleneck), dtype)

@@ -222,7 +222,7 @@ def _draws(dropout, n: int) -> list:
     return draws
 
 
-def _conv_bn_relu(c_in: int, c_out: int) -> nn.Sequential:
+def conv_bn_relu(c_in: int, c_out: int) -> nn.Sequential:
     """conv3x3_bn_relu (semantic/models.py; JAX ConvBNReLU): 3x3 conv
     without bias, BatchNorm, ReLU, under the reference keys `.0`, `.1`."""
     return nn.Sequential(DecoderConv2d(c_in, c_out, 3, padding=1,
@@ -300,7 +300,7 @@ class PPMDeepsup(PPMBilinear):
                  pool_scales: Sequence[int] = (1, 2, 3, 6),
                  dropout_rate: float = 0.1):
         super().__init__(num_class, fc_dim, pool_scales, dropout_rate)
-        self.cbr_deepsup = _conv_bn_relu(fc_dim // 2, fc_dim // 4)
+        self.cbr_deepsup = conv_bn_relu(fc_dim // 2, fc_dim // 4)
         self.dropout_deepsup = Dropout(dropout_rate)
         self.conv_last_deepsup = DecoderConv2d(fc_dim // 4, num_class, 1)
 
@@ -325,10 +325,10 @@ class C1BilinearDeepSup(nn.Module):
                  deep_sup: bool = True):
         super().__init__()
         self.deep_sup = deep_sup
-        self.cbr = _conv_bn_relu(fc_dim, fc_dim // 4)
+        self.cbr = conv_bn_relu(fc_dim, fc_dim // 4)
         self.conv_last = DecoderConv2d(fc_dim // 4, num_class, 1)
         if deep_sup:
-            self.cbr_deepsup = _conv_bn_relu(fc_dim // 2, fc_dim // 4)
+            self.cbr_deepsup = conv_bn_relu(fc_dim // 2, fc_dim // 4)
             self.conv_last_deepsup = DecoderConv2d(fc_dim // 4, num_class, 1)
 
     def forward(self, conv_out: Sequence[torch.Tensor],

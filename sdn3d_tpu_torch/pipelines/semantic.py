@@ -218,6 +218,16 @@ class SemanticTrainer:
         return self.train_step
 
 
+def pad_to_multiple(image: np.ndarray, multiple: int = 8) -> np.ndarray:
+    """Pad H, W up to a multiple (semantic/vkitti_dataset.py padding)."""
+    h, w = image.shape[:2]
+    ph = -h % multiple
+    pw = -w % multiple
+    if ph or pw:
+        image = np.pad(image, ((0, ph), (0, pw)) + ((0, 0),) * (image.ndim - 2))
+    return image
+
+
 def scale_sizes(height: int, width: int,
                 scales: Sequence[int] = EVAL_SCALES) -> List[Tuple[int, int]]:
     """Per-scale (h, w) of the reference eval protocol

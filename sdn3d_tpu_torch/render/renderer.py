@@ -3,7 +3,8 @@
 PyTorch counterpart of sdn3d_tpu/render/renderer.py: `render_targets`
 (the inference path, one rasterization for silhouette, normal and depth)
 and the differentiable `render()` of every type: Silhouette, Depth,
-Normal, and RGB (texture sampling and lighting, ops/textures.py).
+Normal, and RGB (texture sampling and lighting, ops/textures.py), and
+`Renderer`, the reference's stateful wrapper of `render()`.
 """
 
 from __future__ import annotations
@@ -244,3 +245,24 @@ def render_targets(
         out["normal"] = rgb * constant(
             (-1.0, 1.0, 1.0), rgb.dtype, dev)[None, :, None, None]
     return out
+
+
+class Renderer:
+    """Stateful wrapper mirroring derender3d Renderer(Module) (JAX
+    renderer.py:242-258): `render()` at this renderer's image size,
+    viewing angle and anti-aliasing."""
+
+    def __init__(self, image_size: int = 256, viewing_angle: float = 30.0,
+                 anti_aliasing: bool = True):
+        self.image_size = image_size
+        self.viewing_angle = viewing_angle
+        self.anti_aliasing = anti_aliasing
+
+    def __call__(self, vertices, faces, render_type=RenderType.Silhouette,
+                 face_valid=None, viewing_angle=None):
+        return render(
+            vertices, faces, render_type, face_valid,
+            image_size=self.image_size,
+            viewing_angle=(self.viewing_angle if viewing_angle is None
+                           else viewing_angle),
+            anti_aliasing=self.anti_aliasing)

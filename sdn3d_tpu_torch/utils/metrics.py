@@ -1,6 +1,6 @@
 """Image-quality metrics of the edit benchmark (textural/util/util2.py:
-48-59): PSNR and SSIM (host-side numpy) and LPIPS (models/lpips.py, on a
-torch device).
+48-59): l2, PSNR, SSIM and DSSIM (host-side numpy) and LPIPS
+(models/lpips.py, on a torch device).
 
 Counterparts of sdn3d_tpu/utils/metrics.py.  ssim re-implements
 skimage's structural_similarity with its defaults (7x7 uniform windows,
@@ -12,6 +12,11 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
+
+
+def l2(p0: np.ndarray, p1: np.ndarray, value_range: float = 255.0) -> float:
+    """Half mean squared error on [0, 1]-scaled inputs (util2.py:48-49)."""
+    return float(0.5 * np.mean((p0 / value_range - p1 / value_range) ** 2))
 
 
 def psnr(p0: np.ndarray, p1: np.ndarray, peak: float = 255.0) -> float:
@@ -56,6 +61,12 @@ def ssim(p0: np.ndarray, p1: np.ndarray, data_range: float = 255.0,
             (ux ** 2 + uy ** 2 + c1) * (vx + vy + c2))
         vals.append(s.mean())
     return float(np.mean(vals))
+
+
+def dssim(p0: np.ndarray, p1: np.ndarray,
+          value_range: float = 255.0) -> float:
+    """(1 - multichannel SSIM) / 2 (util2.py:56-58)."""
+    return (1.0 - ssim(p0, p1, data_range=value_range)) / 2.0
 
 
 def load_lpips(path: str, device="cuda"):

@@ -1,16 +1,17 @@
-"""Running averages and step timers (host-side).
+"""Running averages, step timers (host-side) and a trace scope.
 
-Counterpart of sdn3d_tpu/utils/profiling.py's AverageMeter and StepTimer
-(the reference's AverageMeter wall-clock timers, semantic/utils.py).  The
-JAX module's `trace` is a jax.profiler scope that no CLI reaches; on the
-card, torch.profiler plays its part (chip_smoke.device_time).
+Counterpart of sdn3d_tpu/utils/profiling.py: AverageMeter and StepTimer
+(the reference's AverageMeter wall-clock timers, semantic/utils.py), and
+`trace`, which is a torch.profiler scope here where the JAX package's is
+a jax.profiler one.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 
 class AverageMeter:
@@ -46,3 +47,26 @@ class StepTimer:
 
     def summary(self) -> Dict[str, float]:
         return {k: m.average for k, m in self.meters.items()}
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]):
+    """torch.profiler trace scope; no-op when log_dir is None.
+
+    Records CPU activity and, when a card is present, CUDA activity, and
+    writes a Chrome trace (trace_<pid>_<µs>.json) under log_dir on exit;
+    view it in chrome://tracing or Perfetto."""
+    if log_dir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace_{os.getpid()}_{time.time_ns() // 1000}.json"))

@@ -1,16 +1,17 @@
-"""Result visualization: label colormaps, image conversion, HTML galleries
-(host-side numpy).
+"""Result visualization: label colormaps, image conversion, HTML galleries,
+instance overlays and loss plots (host-side numpy).
 
-Copy of the corresponding part of sdn3d_tpu/utils/visualizer.py
-(textural/util/util.py:12-117 tensor2im/tensor2label + the N-class
-colormap, textural/util/html.py galleries with plain string templates).
-The instance overlay and loss plots wait for the detection slice.
+Copy of sdn3d_tpu/utils/visualizer.py (textural/util/util.py:12-117
+tensor2im/tensor2label + the N-class colormap, textural/util/html.py
+galleries with plain string templates, maskrcnn/visualize.py's
+display_instances and plot_loss).  plot_loss needs matplotlib, which it
+imports when called; nothing on a card path calls it.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -82,3 +83,54 @@ class HTMLGallery:
         with open(out, "w") as f:
             f.write(html)
         return out
+
+
+def display_instances(image: np.ndarray, boxes: np.ndarray,
+                      masks: np.ndarray, class_ids: np.ndarray,
+                      class_names: Sequence[str],
+                      scores: Optional[np.ndarray] = None,
+                      alpha: float = 0.5) -> np.ndarray:
+    """Instance overlay (maskrcnn/visualize.py display_instances): colored
+    masks + box outlines burned into the image.  Returns uint8."""
+    out = np.asarray(image).astype(np.float32).copy()
+    cmap = _uint8_colormap(max(len(boxes) + 1, 8)).astype(np.float32)
+    for i in range(len(boxes)):
+        color = cmap[i + 1]
+        m = masks[i, 0] if masks.ndim == 4 else masks[i]
+        sel = m > 0.5
+        out[sel] = out[sel] * (1 - alpha) + color * alpha
+        y1, x1, y2, x2 = [int(v) for v in boxes[i]]
+        y1, y2 = np.clip([y1, y2], 0, out.shape[0] - 1)
+        x1, x2 = np.clip([x1, x2], 0, out.shape[1] - 1)
+        out[y1, x1:x2] = color
+        out[y2, x1:x2] = color
+        out[y1:y2, x1] = color
+        out[y1:y2, x2] = color
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def plot_loss(records: Sequence[Dict[str, float]], out_path: str,
+              keys: Optional[Sequence[str]] = None,
+              step_key: str = "step") -> str:
+    """Loss curves from metric records to a PNG
+    (maskrcnn/visualize.py:405-421 plot_loss, without the interactive
+    matplotlib backend).  `records` is e.g. MetricsLogger.read_all()."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    if keys is None:
+        keys = sorted({k for r in records for k in r
+                       if k != step_key and isinstance(r[k], (int, float))})
+    steps = [r.get(step_key, i) for i, r in enumerate(records)]
+    fig, ax = plt.subplots(figsize=(8, 5))
+    for k in keys:
+        xs = [s for s, r in zip(steps, records) if k in r]
+        ys = [r[k] for r in records if k in r]
+        ax.plot(xs, ys, label=k)
+    ax.set_xlabel(step_key)
+    ax.legend(loc="best", fontsize=8)
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=100)
+    plt.close(fig)
+    return out_path

@@ -948,3 +948,80 @@ def test_face_chunk_gradient_matches_the_kernels(cuda):
                                        walk=0)
     assert float(chunk.abs().max()) > 0
     torch.testing.assert_close(pix, chunk, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_renderer_launches_each_kernel_once_and_is_render(cuda):
+    """Renderer's Silhouette forward and backward on the card: one launch
+    of B1, B3 and B2 and no plain version; its silhouette and vertex
+    gradient render()'s bits with the same arguments (under torch's
+    deterministic algorithms: the vertex gather's backward adds with
+    atomics otherwise).  look_at from get_points_from_angles and FFD
+    within 1e-5 of the CPU, and trace() writes B1's kernel."""
+    import json
+    import os
+    import tempfile
+
+    from sdn3d_tpu_torch.data.synthetic import make_sphere_mesh
+    from sdn3d_tpu_torch.geometry import FFD, look_at
+    from sdn3d_tpu_torch.geometry.camera import get_points_from_angles
+    from sdn3d_tpu_torch.render import Renderer, RenderType, render
+    from sdn3d_tpu_torch.utils.profiling import trace
+
+    vh, fh = make_sphere_mesh(8, 16)
+    rng = np.random.RandomState(12)
+    verts = torch.from_numpy(np.stack([
+        vh * rng.uniform(1, 2, 3) + [rng.uniform(-.3, .3), 0, -3.0]
+        for _ in range(3)]).astype(np.float32)).to(cuda)
+    faces = torch.from_numpy(np.repeat(fh[None], 3, 0)).to(cuda)
+    cot = torch.randn((3, 1, 96, 96), generator=torch.Generator(
+        device=cuda).manual_seed(2), device=cuda)
+    kernels = (TC.rasterize_face_index_cuda, TC.walk_grads_cuda,
+               TC.segment_face_grads_cuda)
+    plain = (TR.rasterize_face_maps, TR.walk_grads_plain,
+             TR.segment_face_grads_plain)
+
+    def run(fn):
+        v = verts.clone().requires_grad_(True)
+        sil = fn(v)
+        return sil.detach(), torch.autograd.grad((sil * cot).sum(), v)[0]
+
+    found = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for fn in kernels:
+            fn.launches = 0
+        for fn in plain:
+            fn.calls = 0
+        got = run(lambda v: Renderer(96, 31.0)(v, faces))
+        torch.cuda.synchronize()
+        assert [fn.launches for fn in kernels] == [1, 1, 1]
+        assert [fn.calls for fn in plain] == [0, 0, 0]
+        want = run(lambda v: render(v, faces, RenderType.Silhouette,
+                                    image_size=96, viewing_angle=31.0))
+    finally:
+        torch.use_deterministic_algorithms(found[0], warn_only=found[1])
+    assert 0.01 < float(got[0].mean()) < 0.99
+    assert float(got[1].abs().max()) > 0
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    angles = [torch.from_numpy(rng.uniform(a, b, 3).astype(np.float32))
+              for a, b in ((2, 3), (-20, 40), (-180, 180))]
+    coeff = torch.from_numpy((rng.randn(3, 192) * 0.1).astype(np.float32))
+    out = {}
+    for d in ("cpu", cuda):
+        eye = get_points_from_angles(*(a.to(d) for a in angles))
+        out[str(d)] = (look_at(verts.to(d), eye).cpu(),
+                       FFD.from_vertices(vh, device=d)(coeff.to(d)).cpu())
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+    with tempfile.TemporaryDirectory() as d:
+        with trace(d):
+            render(verts, faces, image_size=96)
+            torch.cuda.synchronize()
+        (name,) = os.listdir(d)
+        with open(os.path.join(d, name)) as fh_:
+            names = {e.get("name", "") for e in json.load(fh_)["traceEvents"]}
+    assert any("raster_binned_kernel" in n for n in names)
