@@ -858,8 +858,13 @@ def check_chain_run(tag: str, saved: dict, records, n_pairs: int,
 def log_phases(tag: str, saved: dict, n_pairs: int, card: str) -> None:
     """Steady wall per stage and per pair: a stage's steady per-call time
     times its calls over the pairs (the cached stages run once per
-    source); the first call of each phase carries one-time set-up."""
+    source); the first call of each phase carries one-time set-up.  A
+    counter ({"n"}) is printed with its count and per pair."""
     for name, rec in sorted(saved["phase_breakdown"].items()):
+        if "n" in rec:
+            log(f"[{tag}] counter {name}: {rec['n']} ({rec['n'] / n_pairs:.3f}"
+                f" a pair)")
+            continue
         steady = rec.get("steady_avg_s")
         per_pair = ("n/a" if steady is None else
                     f"{steady * rec['calls'] / n_pairs:.6f}")
@@ -5438,6 +5443,9 @@ def main(argv=None) -> int:
         snap = phases.snapshot()
         phases.reset(False)
         for name, rec in snap.items():
+            if "n" in rec:
+                log(f"[phases] {tag} counter {name}: {rec['n']}")
+                continue
             log(f"[phases] {tag} {name}: calls {rec['calls']} first_s "
                 f"{rec.get('first_s', rec['s'])} steady_avg_s "
                 f"{rec.get('steady_avg_s', 'n/a')} MB {rec['MB']} ({card})")

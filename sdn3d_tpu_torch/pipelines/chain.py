@@ -26,6 +26,7 @@ one batched pass in `edit_frames` and the pipelined chain's stage A.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from types import SimpleNamespace
@@ -72,17 +73,23 @@ class _SourceCache:
 
     Benchmark pairs sharing a source arrive consecutively, so a small cap
     gives full recompute elision; the bound keeps a long streaming run from
-    pinning every source's intermediates in host memory."""
+    pinning every source's intermediates in host memory.  Each lookup
+    counts `count.cache.<name>.hit` or `.miss` (utils/phases)."""
 
-    def __init__(self, cap: int):
+    def __init__(self, cap: int, name: str):
         self.cap = max(1, int(cap))
         self._d: Dict[str, object] = {}
+        self._hit = f"count.cache.{name}.hit"
+        self._miss = f"count.cache.{name}.miss"
 
     def get(self, key: str):
         v = self._d.get(key)
-        if v is not None:                      # refresh recency
-            self._d.pop(key)
-            self._d[key] = v
+        if v is None:
+            phases.count(self._miss)
+            return None
+        phases.count(self._hit)
+        self._d.pop(key)                       # refresh recency
+        self._d[key] = v
         return v
 
     def put(self, key: str, value) -> None:
@@ -102,7 +109,10 @@ class EditChain:
     a SemanticModel, `derender` a (Derenderer, DeviceMeshBank) tuple,
     `textural` a TexturalTrainer, `detector` None or a MaskRCNNDetector,
     all on `device`), then call `edit_frame` per (source image,
-    operations) pair.  Stage wall-clock accumulates in `self.stage_s`."""
+    operations) pair.  Stage wall-clock accumulates in `self.stage_s`, the
+    seconds of the `stage.*` spans (utils/phases); each request is a
+    `chain.request` span and each pipelined chunk's stages `chain.stage_a`,
+    `_b` and `_c` spans, by a running count."""
 
     def __init__(self, cfg: ChainConfig, semantic, derender, textural,
                  device="cuda", detector=None):
@@ -114,12 +124,14 @@ class EditChain:
         self.textural_trainer = textural
         self.detector = detector
         self.stage_s = {"semantic": 0.0, "geometric": 0.0, "textural": 0.0}
-        self._label_cache = _SourceCache(cfg.cache_sources)
+        self._label_cache = _SourceCache(cfg.cache_sources, "label")
         # per-source textural inputs (transformed image, transformed label,
         # feature-code table) — recompute elision for pairs sharing a source
-        self._src_cache = _SourceCache(cfg.cache_sources)
+        self._src_cache = _SourceCache(cfg.cache_sources, "source")
         # per-source de-render encode (objs, blob) — edit-independent
-        self._encode_cache = _SourceCache(cfg.cache_sources)
+        self._encode_cache = _SourceCache(cfg.cache_sources, "encode")
+        self._requests = 0
+        self._chunks = 0
 
         from sdn3d_tpu_torch.models.derenderer import TargetType
         from sdn3d_tpu_torch.pipelines.derender_infer import \
@@ -188,6 +200,14 @@ class EditChain:
 
     # -- stages -----------------------------------------------------------
 
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        """The `stage.<name>` span; its wall seconds add to stage_s."""
+        t0 = time.time_ns()
+        with phases.phase("stage." + name):
+            yield
+        self.stage_s[name] += (time.time_ns() - t0) / 1e9
+
     def labels(self, image_rgb: np.ndarray,
                cache_key: Optional[str] = None) -> np.ndarray:
         """Semantic stage: multi-scale argmax labels [H, W] uint8
@@ -196,13 +216,12 @@ class EditChain:
             cached = self._label_cache.get(cache_key)
             if cached is not None:
                 return cached
-        t0 = time.perf_counter()
         from sdn3d_tpu_torch.cli.semantic_test import infer_image
-        with phases.phase("sem.infer"):
+        with self._stage("semantic"), phases.phase("sem.infer"):
             pred = infer_image(self.semantic_model, image_rgb,
                                SimpleNamespace(scales=tuple(self.cfg.scales)))
             phases.add_bytes("sem.infer", pred)
-        self.stage_s["semantic"] += time.perf_counter() - t0
+        phases.count("count.semantic_pass")
         if cache_key is not None:
             self._label_cache.put(cache_key, pred)
         return pred
@@ -261,20 +280,28 @@ class EditChain:
                 dets_list[i] = keep_largest_detections(self.infer_cfg, *out)
         return dets_list
 
+    def _encode(self, image_rgb: np.ndarray, dets,
+                cache_key: Optional[str]):
+        """The frame's derender_encode (object prep + encoder +
+        refinement), put in the per-source cache under `cache_key`."""
+        from sdn3d_tpu_torch.pipelines.derender_infer import derender_encode
+        class_ids, masks, rois = dets
+        encoded = derender_encode(self.derender_model, image_rgb,
+                                  class_ids, masks, rois, self.infer_cfg,
+                                  device=self.device, bank=self.bank)
+        phases.count("count.encode")
+        if cache_key is not None:
+            self._encode_cache.put(cache_key, encoded)
+        return encoded
+
     def _encoded(self, image_rgb: np.ndarray, dets,
                  cache_key: Optional[str]):
-        """The frame's derender_encode (object prep + encoder +
-        refinement), from the per-source cache when it holds the frame."""
-        from sdn3d_tpu_torch.pipelines.derender_infer import derender_encode
+        """The frame's encode, from the per-source cache when it holds the
+        frame."""
         encoded = (self._encode_cache.get(cache_key)
                    if cache_key is not None else None)
         if encoded is None:
-            class_ids, masks, rois = dets
-            encoded = derender_encode(self.derender_model, image_rgb,
-                                      class_ids, masks, rois, self.infer_cfg,
-                                      device=self.device, bank=self.bank)
-            if cache_key is not None:
-                self._encode_cache.put(cache_key, encoded)
+            encoded = self._encode(image_rgb, dets, cache_key)
         return encoded
 
     def derender(self, image_rgb: np.ndarray, dets,
@@ -284,17 +311,15 @@ class EditChain:
         (pipelines/derender_infer.derender_image).  With `cache_key` the
         edit-independent encode (object prep + encoder + refinement) is
         cached per source frame; only the ops and the re-render replay."""
-        t0 = time.perf_counter()
         from sdn3d_tpu_torch.pipelines.derender_infer import derender_image
         class_ids, masks, rois = dets
-        encoded = self._encoded(image_rgb, dets, cache_key)
-        out = derender_image(self.derender_model, self.bank, image_rgb,
-                             class_ids, masks, rois, self.infer_cfg,
-                             operations=operations, encoded=encoded,
-                             device=self.device,
-                             small_plan=self._small_plan(image_rgb.shape))
-        self.stage_s["geometric"] += time.perf_counter() - t0
-        return out
+        with self._stage("geometric"):
+            encoded = self._encoded(image_rgb, dets, cache_key)
+            return derender_image(
+                self.derender_model, self.bank, image_rgb, class_ids, masks,
+                rois, self.infer_cfg, operations=operations, encoded=encoded,
+                device=self.device,
+                small_plan=self._small_plan(image_rgb.shape))
 
     def _source_inputs(self, image_rgb: np.ndarray, label: np.ndarray,
                        cache_key: Optional[str]):
@@ -311,6 +336,7 @@ class EditChain:
                     self.textural_trainer, Image.fromarray(image_rgb),
                     Image.fromarray(label.astype(np.uint8)),
                     self.cfg.load_size, self._wh)
+            phases.count("count.source_prep")
             if cache_key is not None:
                 self._src_cache.put(cache_key, cached)
         return cached
@@ -346,11 +372,10 @@ class EditChain:
         device-packed planes, full or downsized).  With `cache_key` the
         source-side inputs (transforms + feature encode) are cached per
         source."""
-        t0 = time.perf_counter()
-        item = self._tex_item(self._source_inputs(image_rgb, label,
-                                                  cache_key), geo_out)
-        fakes, maps = self._generate_items([item])
-        self.stage_s["textural"] += time.perf_counter() - t0
+        with self._stage("textural"):
+            item = self._tex_item(self._source_inputs(image_rgb, label,
+                                                      cache_key), geo_out)
+            fakes, maps = self._generate_items([item])
         return fakes[0], maps[0]
 
     # -- fused frame ------------------------------------------------------
@@ -364,12 +389,16 @@ class EditChain:
         `dets` is (class_ids, masks, rois) (e.g. VKITTI GT); when None
         the chain's Mask R-CNN detector runs.  Returns label, geometric
         outputs, and the generated frame [fine_h, fine_w, 3] in [-1, 1]."""
-        if label is None:
-            label = self.labels(image_rgb, cache_key=cache_key)
-        if dets is None:
-            dets = self.detect(image_rgb)
-        geo = self.derender(image_rgb, dets, operations, cache_key=cache_key)
-        fake, maps = self.generate(image_rgb, label, geo, cache_key=cache_key)
+        self._requests += 1
+        with phases.phase("chain.request", self._requests):
+            if label is None:
+                label = self.labels(image_rgb, cache_key=cache_key)
+            if dets is None:
+                dets = self.detect(image_rgb)
+            geo = self.derender(image_rgb, dets, operations,
+                                cache_key=cache_key)
+            fake, maps = self.generate(image_rgb, label, geo,
+                                       cache_key=cache_key)
         return {"label": label, "geo": geo, "fake": fake, "maps": maps}
 
     def edit_frames(self, requests: Sequence[Dict[str, object]]
@@ -383,37 +412,38 @@ class EditChain:
         from sdn3d_tpu_torch.pipelines.derender_infer import \
             derender_images_batch
 
-        # detection for every det-less request in one batched pass, its
-        # copy in flight while the semantic passes run
-        dets_list = [r.get("dets") for r in requests]
-        det_handle = self.detect_missing_begin(requests, dets_list)
-        labels = [r["label"] if r.get("label") is not None else
-                  self.labels(r["image_rgb"], cache_key=r.get("cache_key"))
-                  for r in requests]
-        self.detect_missing_finish(det_handle, dets_list)
+        self._requests += 1
+        with phases.phase("chain.request", self._requests):
+            # detection for every det-less request in one batched pass,
+            # its copy in flight while the semantic passes run
+            dets_list = [r.get("dets") for r in requests]
+            det_handle = self.detect_missing_begin(requests, dets_list)
+            labels = [r["label"] if r.get("label") is not None else
+                      self.labels(r["image_rgb"],
+                                  cache_key=r.get("cache_key"))
+                      for r in requests]
+            self.detect_missing_finish(det_handle, dets_list)
 
-        t0 = time.perf_counter()
-        frames = []
-        for r, dets in zip(requests, dets_list):
-            class_ids, masks, rois = dets
-            frames.append({
-                "image_rgb": r["image_rgb"], "class_ids": class_ids,
-                "image_masks": masks, "rois": rois,
-                "operations": r.get("operations"),
-                "encoded": self._encoded(r["image_rgb"], dets,
-                                         r.get("cache_key"))})
-        geos = derender_images_batch(
-            self.derender_model, self.bank, frames, self.infer_cfg,
-            small_plan=self._small_plan(frames[0]["image_rgb"].shape),
-            device=self.device)
-        self.stage_s["geometric"] += time.perf_counter() - t0
+            with self._stage("geometric"):
+                frames = []
+                for r, dets in zip(requests, dets_list):
+                    class_ids, masks, rois = dets
+                    frames.append({
+                        "image_rgb": r["image_rgb"], "class_ids": class_ids,
+                        "image_masks": masks, "rois": rois,
+                        "operations": r.get("operations"),
+                        "encoded": self._encoded(r["image_rgb"], dets,
+                                                 r.get("cache_key"))})
+                geos = derender_images_batch(
+                    self.derender_model, self.bank, frames, self.infer_cfg,
+                    small_plan=self._small_plan(frames[0]["image_rgb"].shape),
+                    device=self.device)
 
-        t0 = time.perf_counter()
-        items = [self._tex_item(self._source_inputs(
-            r["image_rgb"], label, r.get("cache_key")), geo)
-            for r, label, geo in zip(requests, labels, geos)]
-        fakes, maps_list = self._generate_items(items)
-        self.stage_s["textural"] += time.perf_counter() - t0
+            with self._stage("textural"):
+                items = [self._tex_item(self._source_inputs(
+                    r["image_rgb"], label, r.get("cache_key")), geo)
+                    for r, label, geo in zip(requests, labels, geos)]
+                fakes, maps_list = self._generate_items(items)
         return [{"label": label, "geo": geo, "fake": fake, "maps": maps}
                 for label, geo, fake, maps in
                 zip(labels, geos, fakes, maps_list)]
@@ -433,62 +463,67 @@ class EditChain:
             derender_encode_batch_begin)
         from sdn3d_tpu_torch.pipelines.semantic import multiscale_labels_begin
 
-        t0 = time.perf_counter()
-        labels = []                  # ("host", np) | ("dev", HostFetch)
-        fetches = {}                 # cache key -> the chunk's HostFetch
-        for r in requests:
-            lab = r.get("label")
-            key = r.get("cache_key")
-            if lab is None and key is not None:
-                lab = self._label_cache.get(key)
-            if lab is not None:
-                labels.append(("host", lab))
-                continue
-            if key is None or key not in fetches:
-                with phases.phase("sem.infer"):
-                    fetch = multiscale_labels_begin(
-                        self.semantic_model,
-                        np.ascontiguousarray(r["image_rgb"]),
-                        scales=tuple(self.cfg.scales), device=self.device)
-                    phases.add_bytes("sem.infer", fetch)
-                if key is not None:
-                    fetches[key] = fetch
-            labels.append(("dev", fetches.get(key, fetch)))
-        self.stage_s["semantic"] += time.perf_counter() - t0
+        self._chunks += 1
+        with phases.phase("chain.stage_a", self._chunks):
+            with self._stage("semantic"):
+                labels = []          # ("host", np) | ("dev", HostFetch)
+                fetches = {}         # cache key -> the chunk's HostFetch
+                for r in requests:
+                    lab = r.get("label")
+                    key = r.get("cache_key")
+                    if lab is None and key is not None:
+                        lab = self._label_cache.get(key)
+                    if lab is not None:
+                        labels.append(("host", lab))
+                        continue
+                    if key is None or key not in fetches:
+                        with phases.phase("sem.infer"):
+                            fetch = multiscale_labels_begin(
+                                self.semantic_model,
+                                np.ascontiguousarray(r["image_rgb"]),
+                                scales=tuple(self.cfg.scales),
+                                device=self.device)
+                            phases.add_bytes("sem.infer", fetch)
+                        phases.count("count.semantic_pass")
+                        if key is not None:
+                            fetches[key] = fetch
+                    labels.append(("dev", fetches.get(key, fetch)))
 
-        t0 = time.perf_counter()
-        dets_list = [r.get("dets") for r in requests]
-        self.detect_missing_finish(
-            self.detect_missing_begin(requests, dets_list), dets_list)
-        enc_frames, enc_slots = [], []   # enc_slots: request indices each
-        by_key = {}                      # cache key -> its enc_slots entry
-        encoded_list: List[object] = []
-        for i, (r, dets) in enumerate(zip(requests, dets_list)):
-            key = r.get("cache_key")
-            encoded = self._encode_cache.get(key) if key is not None \
-                else None
-            if encoded is None and self.infer_cfg.num_opts:
-                # refinement has no overlapped path: encode now
-                encoded = self._encoded(r["image_rgb"], dets, key)
-            encoded_list.append(encoded)
-            if encoded is None:
-                if key is not None and key in by_key:
-                    by_key[key].append(i)
-                    continue
-                class_ids, masks, rois = dets
-                enc_frames.append({
-                    "image_rgb": r["image_rgb"], "class_ids": class_ids,
-                    "image_masks": masks, "rois": rois})
-                enc_slots.append([i])
-                if key is not None:
-                    by_key[key] = enc_slots[-1]
-        enc_pending = (derender_encode_batch_begin(
-            self.derender_model, enc_frames, self.infer_cfg,
-            device=self.device) if enc_frames else [])
-        self.stage_s["geometric"] += time.perf_counter() - t0
+            with self._stage("geometric"):
+                dets_list = [r.get("dets") for r in requests]
+                self.detect_missing_finish(
+                    self.detect_missing_begin(requests, dets_list), dets_list)
+                enc_frames, enc_slots = [], []   # slots: request indices
+                by_key = {}                      # cache key -> its slots
+                encoded_list: List[object] = []
+                for i, (r, dets) in enumerate(zip(requests, dets_list)):
+                    key = r.get("cache_key")
+                    encoded = (self._encode_cache.get(key)
+                               if key is not None else None)
+                    if encoded is None and self.infer_cfg.num_opts:
+                        # refinement has no overlapped path: encode now
+                        encoded = self._encode(r["image_rgb"], dets, key)
+                    encoded_list.append(encoded)
+                    if encoded is None:
+                        if key is not None and key in by_key:
+                            by_key[key].append(i)
+                            continue
+                        class_ids, masks, rois = dets
+                        enc_frames.append({
+                            "image_rgb": r["image_rgb"],
+                            "class_ids": class_ids, "image_masks": masks,
+                            "rois": rois})
+                        enc_slots.append([i])
+                        if key is not None:
+                            by_key[key] = enc_slots[-1]
+                enc_pending = (derender_encode_batch_begin(
+                    self.derender_model, enc_frames, self.infer_cfg,
+                    device=self.device) if enc_frames else [])
+                phases.count("count.encode", len(enc_frames))
         return {"requests": requests, "labels": labels,
                 "dets_list": dets_list, "encoded_list": encoded_list,
-                "enc_pending": enc_pending, "enc_slots": enc_slots}
+                "enc_pending": enc_pending, "enc_slots": enc_slots,
+                "chunk": self._chunks}
 
     def _stage_b(self, a):
         """Pipeline stage B: take stage A's copies, apply the edit ops on
@@ -503,71 +538,74 @@ class EditChain:
             derender_encode_batch_finish, derender_render_begin)
 
         requests = a["requests"]
-        t0 = time.perf_counter()
-        labels = []
-        for r, (kind, lab) in zip(requests, a["labels"]):
-            if kind == "dev":
-                lab = lab.result()
-                key = r.get("cache_key")
-                if key is not None:
-                    self._label_cache.put(key, lab)
-            labels.append(lab)
-        self.stage_s["semantic"] += time.perf_counter() - t0
+        with phases.phase("chain.stage_b", a["chunk"]):
+            with self._stage("semantic"):
+                labels = []
+                for r, (kind, lab) in zip(requests, a["labels"]):
+                    if kind == "dev":
+                        lab = lab.result()
+                        key = r.get("cache_key")
+                        if key is not None:
+                            self._label_cache.put(key, lab)
+                    labels.append(lab)
 
-        t0 = time.perf_counter()
-        encoded_list = list(a["encoded_list"])
-        for slots, encoded in zip(a["enc_slots"],
-                                  derender_encode_batch_finish(
-                                      a["enc_pending"])):
-            for slot in slots:
-                encoded_list[slot] = encoded
-            key = requests[slots[0]].get("cache_key")
-            if key is not None:
-                self._encode_cache.put(key, encoded)
-        frames = []
-        for r, dets, encoded in zip(requests, a["dets_list"], encoded_list):
-            class_ids, masks, rois = dets
-            frames.append({
-                "image_rgb": r["image_rgb"], "class_ids": class_ids,
-                "image_masks": masks, "rois": rois,
-                "operations": r.get("operations"), "encoded": encoded})
-        pending_render = derender_render_begin(
-            self.derender_model, self.bank, frames, self.infer_cfg,
-            small_plan=self._small_plan(frames[0]["image_rgb"].shape),
-            device=self.device)
-        self.stage_s["geometric"] += time.perf_counter() - t0
+            with self._stage("geometric"):
+                encoded_list = list(a["encoded_list"])
+                for slots, encoded in zip(a["enc_slots"],
+                                          derender_encode_batch_finish(
+                                              a["enc_pending"])):
+                    for slot in slots:
+                        encoded_list[slot] = encoded
+                    key = requests[slots[0]].get("cache_key")
+                    if key is not None:
+                        self._encode_cache.put(key, encoded)
+                frames = []
+                for r, dets, encoded in zip(requests, a["dets_list"],
+                                            encoded_list):
+                    class_ids, masks, rois = dets
+                    frames.append({
+                        "image_rgb": r["image_rgb"], "class_ids": class_ids,
+                        "image_masks": masks, "rois": rois,
+                        "operations": r.get("operations"),
+                        "encoded": encoded})
+                pending_render = derender_render_begin(
+                    self.derender_model, self.bank, frames, self.infer_cfg,
+                    small_plan=self._small_plan(frames[0]["image_rgb"].shape),
+                    device=self.device)
 
-        t0 = time.perf_counter()
-        prepared, pending = [], []
-        first = {}                   # cache key -> first request index
-        for i, (r, label) in enumerate(zip(requests, labels)):
-            key = r.get("cache_key")
-            cached = self._src_cache.get(key) if key is not None else None
-            if cached is None and key is not None and key in first:
-                pending.append(first[key])      # this chunk's own prepare
-            elif cached is None:
-                with phases.phase("tex.prepare"):
-                    pending.append(prepare_source_begin(
-                        self.textural_trainer, Image.fromarray(r["image_rgb"]),
-                        Image.fromarray(label.astype(np.uint8)),
-                        self.cfg.load_size, self._wh))
-                if key is not None:
-                    first[key] = i
-            else:
-                pending.append(None)
-            prepared.append(cached)
-        for i, p in enumerate(pending):
-            if isinstance(p, int):
-                prepared[i] = prepared[p]
-            elif p is not None:
-                with phases.phase("tex.prepare"):
-                    prepared[i] = prepare_source_finish(p)
-                key = requests[i].get("cache_key")
-                if key is not None:
-                    self._src_cache.put(key, prepared[i])
-        self.stage_s["textural"] += time.perf_counter() - t0
+            with self._stage("textural"):
+                prepared, pending = [], []
+                first = {}               # cache key -> first request index
+                for i, (r, label) in enumerate(zip(requests, labels)):
+                    key = r.get("cache_key")
+                    cached = (self._src_cache.get(key) if key is not None
+                              else None)
+                    if cached is None and key is not None and key in first:
+                        pending.append(first[key])  # the chunk's own prepare
+                    elif cached is None:
+                        with phases.phase("tex.prepare"):
+                            pending.append(prepare_source_begin(
+                                self.textural_trainer,
+                                Image.fromarray(r["image_rgb"]),
+                                Image.fromarray(label.astype(np.uint8)),
+                                self.cfg.load_size, self._wh))
+                        phases.count("count.source_prep")
+                        if key is not None:
+                            first[key] = i
+                    else:
+                        pending.append(None)
+                    prepared.append(cached)
+                for i, p in enumerate(pending):
+                    if isinstance(p, int):
+                        prepared[i] = prepared[p]
+                    elif p is not None:
+                        with phases.phase("tex.prepare"):
+                            prepared[i] = prepare_source_finish(p)
+                        key = requests[i].get("cache_key")
+                        if key is not None:
+                            self._src_cache.put(key, prepared[i])
         return {"labels": labels, "pending_render": pending_render,
-                "prepared": prepared}
+                "prepared": prepared, "chunk": a["chunk"]}
 
     def _stage_c(self, b) -> List[Dict[str, object]]:
         """Pipeline stage C: take the chunk's packed render, assemble the
@@ -575,15 +613,14 @@ class EditChain:
         from sdn3d_tpu_torch.pipelines.derender_infer import (
             derender_render_finish)
 
-        t0 = time.perf_counter()
-        geos = derender_render_finish(b["pending_render"])
-        self.stage_s["geometric"] += time.perf_counter() - t0
+        with phases.phase("chain.stage_c", b["chunk"]):
+            with self._stage("geometric"):
+                geos = derender_render_finish(b["pending_render"])
 
-        t0 = time.perf_counter()
-        items = [self._tex_item(prep, geo)
-                 for prep, geo in zip(b["prepared"], geos)]
-        fakes, maps_list = self._generate_items(items)
-        self.stage_s["textural"] += time.perf_counter() - t0
+            with self._stage("textural"):
+                items = [self._tex_item(prep, geo)
+                         for prep, geo in zip(b["prepared"], geos)]
+                fakes, maps_list = self._generate_items(items)
         return [{"label": label, "geo": geo, "fake": fake, "maps": maps}
                 for label, geo, fake, maps in
                 zip(b["labels"], geos, fakes, maps_list)]

@@ -27,6 +27,7 @@ from sdn3d_tpu_torch import parallel
 from sdn3d_tpu_torch.models.derenderer import (
     Derenderer, DeviceMeshBank, TargetType, derender_forward)
 from sdn3d_tpu_torch.pipelines.derender_infer import adam_step
+from sdn3d_tpu_torch.utils import phases
 
 
 def masked_mean(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -204,17 +205,23 @@ class DerenderTrainer:
         (which updates the BatchNorm running statistics), under
         `deterministic_cudnn`.  Under a process group the gradients and
         the losses are summed over the ranks (each one flat collective):
-        the global batch's."""
+        the global batch's.  The forward and the losses are a
+        `train.forward` span, the gradients a `train.backward` span and the
+        sums a `train.optimizer` span (utils/phases)."""
         params = list(state.model.parameters())
         with deterministic_cudnn():
-            blob = self._forward(state.model, batch, True, generator)
-            loss = self.losses(blob, batch)
-            total = sum(loss.values())
-            grads = torch.autograd.grad(total, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
-        return (parallel.sum_across_ranks(grads),
-                parallel.sum_values({k: v.detach() for k, v in loss.items()}))
+            with phases.phase("train.forward"):
+                blob = self._forward(state.model, batch, True, generator)
+                loss = self.losses(blob, batch)
+                total = sum(loss.values())
+            with phases.phase("train.backward"):
+                grads = torch.autograd.grad(total, params, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(params, grads)]
+        with phases.phase("train.optimizer"):
+            return (parallel.sum_across_ranks(grads),
+                    parallel.sum_values({k: v.detach()
+                                         for k, v in loss.items()}))
 
     @torch.no_grad()
     def apply_gradients(self, state: TrainState,
@@ -239,9 +246,15 @@ class DerenderTrainer:
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One step: forward in train mode (class draws from `generator`),
         the losses, their gradients, the optimizer.  Updates the state in
-        place and returns it with the loss dict."""
-        grads, loss = self.gradients(state, batch, generator)
-        return self.apply_gradients(state, grads), loss
+        place and returns it with the loss dict.  The step is a
+        `train.step` span of id `state.count` (utils/phases) over the spans
+        of `gradients` and a second `train.optimizer` span, Adam and the
+        copy back."""
+        with phases.phase("train.step", state.count):
+            grads, loss = self.gradients(state, batch, generator)
+            with phases.phase("train.optimizer"):
+                state = self.apply_gradients(state, grads)
+        return state, loss
 
     def make_train_step(self):
         """train_step(state, batch, generator) -> (state, losses)."""

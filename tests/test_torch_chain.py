@@ -328,7 +328,7 @@ def test_source_caches_change_no_answer(env, chains):
         np.testing.assert_array_equal(cached["geo"][k], fresh["geo"][k])
     np.testing.assert_array_equal(cached["fake"], fresh["fake"])
 
-    c = _SourceCache(2)
+    c = _SourceCache(2, "lru")
     c.put("a", 1)
     c.put("b", 2)
     assert c.get("a") == 1          # refreshes 'a'
@@ -633,3 +633,82 @@ def test_edit_frames_match_jax(env, chains):
             np.testing.assert_array_equal(g["maps"][k], w["maps"][k])
         d = np.abs(g["fake"] - w["fake"])
         assert d.max() <= FAKE_E2E_MAX and d.mean() <= FAKE_E2E_MEAN
+
+
+def _profiled_log(fn):
+    """utils/phases' profiled log of fn() under a CPU torch profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdn3d_tpu_torch.utils import phases
+    phases.profiled()
+    with profile(activities=[ProfilerActivity.CPU]):
+        fn()
+    return phases.profiled()
+
+
+def test_chain_spans_and_counters(env, chains):
+    """Two serial requests sharing a source, then the same two as one
+    pipelined chunk, each on a chain with empty caches: the spans' names,
+    parents and ids, the per-source caches' exact hits and misses, each
+    piece of per-source work counted once where it ran (in the chunk, one
+    semantic pass, encode and source prep for the two), and stage_s the
+    sums of the stage spans."""
+    _, root, edit_json, _ = env
+    _, tchain, _, _ = chains
+    requests = _request_dicts(root, edit_json)
+    assert len(requests) == 2 and \
+        requests[0]["cache_key"] == requests[1]["cache_key"]
+    serial = _port_chain(tchain, **SMALL48)
+    log = _profiled_log(lambda: [serial.edit_frame(
+        r["image_rgb"], operations=r["operations"], dets=r["dets"],
+        cache_key=r["cache_key"]) for r in requests])
+    assert log["dropped"] == 0
+    spans = log["spans"]
+    roots = [s for s in spans if s.name == "chain.request"]
+    assert [(s.rid, s.parent) for s in roots] == [(1, 0), (2, 0)]
+    stages = [(s.name, s.rid) for s in spans if s.name.startswith("stage.")]
+    assert stages == [("stage.semantic", 1), ("stage.geometric", 1),
+                      ("stage.textural", 1), ("stage.geometric", 2),
+                      ("stage.textural", 2)]
+    by_sid = {s.sid: s for s in spans}
+    for s in spans:
+        if s.name != "chain.request":
+            top = s
+            while top.parent:
+                top = by_sid[top.parent]
+            assert top.name == "chain.request" and top.rid == s.rid, s
+    assert log["counts"] == {
+        "count.cache.label.miss": 1, "count.cache.label.hit": 1,
+        "count.cache.encode.miss": 1, "count.cache.encode.hit": 1,
+        "count.cache.source.miss": 1, "count.cache.source.hit": 1,
+        "count.semantic_pass": 1, "count.encode": 1, "count.source_prep": 1}
+    for name, secs in serial.stage_s.items():
+        summed = sum(s.end_ns - s.start_ns for s in spans
+                     if s.name == "stage." + name) / 1e9
+        assert abs(secs - summed) < 1e-3, (name, secs, summed)
+
+    pipelined = _port_chain(tchain, **SMALL48)
+    log = _profiled_log(lambda: list(pipelined.edit_frames_pipelined(
+        [requests])))
+    spans = log["spans"]
+    roots = {s.sid: s for s in spans if s.name.startswith("chain.")}
+    assert sorted((s.name, s.rid, s.parent) for s in roots.values()) == [
+        ("chain.stage_a", 1, 0), ("chain.stage_b", 1, 0),
+        ("chain.stage_c", 1, 0)]
+    under = sorted((roots[s.parent].name, s.name) for s in spans
+                   if s.name.startswith("stage."))
+    assert under == [("chain.stage_a", "stage.geometric"),
+                     ("chain.stage_a", "stage.semantic"),
+                     ("chain.stage_b", "stage.geometric"),
+                     ("chain.stage_b", "stage.semantic"),
+                     ("chain.stage_b", "stage.textural"),
+                     ("chain.stage_c", "stage.geometric"),
+                     ("chain.stage_c", "stage.textural")]
+    assert log["counts"] == {
+        "count.cache.label.miss": 2, "count.cache.encode.miss": 2,
+        "count.cache.source.miss": 2, "count.semantic_pass": 1,
+        "count.encode": 1, "count.source_prep": 1}
+    for name, secs in pipelined.stage_s.items():
+        summed = sum(s.end_ns - s.start_ns for s in spans
+                     if s.name == "stage." + name) / 1e9
+        assert abs(secs - summed) < 1e-3, (name, secs, summed)

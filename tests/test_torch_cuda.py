@@ -1025,3 +1025,61 @@ def test_renderer_launches_each_kernel_once_and_is_render(cuda):
         with open(os.path.join(d, name)) as fh_:
             names = {e.get("name", "") for e in json.load(fh_)["traceEvents"]}
     assert any("raster_binned_kernel" in n for n in names)
+
+
+def _cuda_events(prof):
+    return [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+def test_span_brackets_its_kernels_on_the_profilers_clock(cuda):
+    """A kernel launched and waited for inside a utils/phases span runs,
+    by the profiler's device timestamps, inside the span's time.time_ns()
+    interval (the span and the card share one clock), and the span puts
+    no event of its own on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdn3d_tpu_torch.utils import phases
+    a = torch.randn(2048, 2048, device=cuda)
+    (a @ a).sum().item()
+    phases.profiled()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with phases.phase("stage.probe", 1):
+            a @ a
+            torch.cuda.synchronize()
+    span, = phases.profiled()["spans"]
+    dev = _cuda_events(prof)
+    assert dev and not any(e.name() == "stage.probe" for e in dev)
+    for e in dev:
+        assert span.start_ns <= e.start_ns()
+        assert e.start_ns() + e.duration_ns() <= span.end_ns
+
+
+@pytest.mark.cuda
+def test_spans_add_no_device_events_to_a_train_step(cuda, monkeypatch):
+    """One full-mode derenderer training step under the profiler gives
+    the same CUDA device events, by count and name, with its train.*
+    spans on and with utils/phases' spans stubbed out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdn3d_tpu_torch.utils import phases
+    trainer, sd0, batch = _train_setup(cuda)
+    _one_step(trainer, sd0, batch, cuda)
+
+    def names():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _one_step(trainer, sd0, batch, cuda)
+        return sorted(e.name() for e in _cuda_events(prof))
+
+    phases.profiled()
+    on = names()
+    spans = phases.profiled()["spans"]
+    assert {"train.step", "train.forward", "train.backward",
+            "train.optimizer"} <= {s.name for s in spans}
+    monkeypatch.setattr(phases, "phase", lambda name, rid=None: phases._OFF)
+    off = names()
+    assert not phases.profiled()["spans"]
+    assert len(on) == len(off) and on == off

@@ -625,3 +625,31 @@ def test_bfloat16_train_step(setup):
     assert all(v.dtype == torch.float32 for k, v in
                state.model.state_dict().items()
                if k.endswith(("running_mean", "running_var", "weight")))
+
+
+def test_train_step_spans(setup):
+    """One step records `train.step` (id: Adam's count before the step)
+    over `train.forward`, `train.backward` and `train.optimizer` (the sums
+    over the ranks, then Adam and the copy back), in that order, each
+    inside the step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdn3d_tpu_torch.utils import phases
+
+    trainer, state = t_trainer(setup, "full")
+    count = state.count
+    phases.profiled()
+    with profile(activities=[ProfilerActivity.CPU]):
+        trainer.train_step(state, t_batch(setup["batch"]),
+                           torch.Generator().manual_seed(4))
+    spans = phases.profiled()["spans"]
+    assert [s.name for s in spans] == [
+        "train.forward", "train.backward", "train.optimizer",
+        "train.optimizer", "train.step"]
+    step = spans[-1]
+    assert (step.parent, step.rid) == (0, count)
+    for s in spans[:4]:
+        assert (s.parent, s.rid) == (step.sid, count)
+        assert step.start_ns <= s.start_ns <= s.end_ns <= step.end_ns
+    for a, b in zip(spans[:3], spans[1:4]):
+        assert a.end_ns <= b.start_ns
