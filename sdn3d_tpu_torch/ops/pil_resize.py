@@ -106,7 +106,9 @@ def nearest_indices(in_size: int, out_size: int) -> np.ndarray:
     return np.clip(xs, 0, in_size - 1).astype(np.int32)
 
 
-@functools.lru_cache(maxsize=64)
+# The device tables are kept for the process: a captured CUDA graph
+# (pipelines/derender_infer._RenderGraph) reads them on every replay.
+@functools.lru_cache(maxsize=None)
 def _device_coeffs(in_size: int, out_size: int, method: str,
                    device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     idx, ki = coeffs_u8(in_size, out_size, method)
@@ -114,7 +116,7 @@ def _device_coeffs(in_size: int, out_size: int, method: str,
             torch.from_numpy(ki).to(device))
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _device_nearest(in_size: int, out_size: int,
                     device: torch.device) -> torch.Tensor:
     return torch.from_numpy(

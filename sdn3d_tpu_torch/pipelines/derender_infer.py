@@ -11,13 +11,17 @@ contract, or (`small_plan`) the instance and normal planes downsized on
 the device to the textural conditioning resolution (ops/pil_resize).
 The batched API (derender_encode_batch_*, derender_render_begin/finish,
 derender_images_batch) renders N frames' slots in one rasterization and
-fetches each chunk in one asynchronous copy.
+fetches each chunk in one asynchronous copy.  On a CUDA device the
+re-render, composite and pack run as one CUDA graph per shape key
+(`_render_chunk`), fed by one upload of the chunk's inputs.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -466,6 +470,143 @@ def _render_composite_batch(blob_b, bank, interests, obj_valid, cfg, height,
     return out, insts, nrms, deps, torch.stack(packs)
 
 
+# Each input of the packed render buffer starts on a multiple of this many
+# bytes, so that every typed view of it is aligned for its dtype.
+_ALIGN = 16
+
+
+def _packed_inputs(per) -> Tuple[np.ndarray, tuple]:
+    """The chunk's render inputs in one host byte buffer: each key of the
+    frames' edited blobs stacked over the frames (sorted key order), then
+    their interests and slot validity, each in the dtype its stack has.
+    `per` holds derender_render_begin's (objs, edited blob, interests) a
+    frame.  Returns (uint8 buffer, layout: one (name, torch dtype, shape,
+    byte offset) an input), the arguments of `_input_views`."""
+    arrays = [(k, np.stack([np.asarray(p[1][k]) for p in per]))
+              for k in sorted(per[0][1])]
+    arrays.append(("interests", np.stack([p[2] for p in per])))
+    arrays.append(("obj_valid", np.stack([p[0]["valid"] for p in per])))
+    layout, off = [], 0
+    for name, a in arrays:
+        dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+        layout.append((name, dtype, a.shape, off))
+        off += -(-a.nbytes // _ALIGN) * _ALIGN
+    buf = np.zeros(off, np.uint8)
+    for (_, _, _, o), (_, a) in zip(layout, arrays):
+        buf[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    return buf, tuple(layout)
+
+
+def _input_views(buf: torch.Tensor, layout):
+    """(blob {key: [N, M, ...]}, interests [N, M], obj_valid [N, M]):
+    typed views of the bytes of `_packed_inputs` in `buf`, on any
+    device."""
+    views = [buf[off:off + dtype.itemsize * math.prod(shape)]
+             .view(dtype).reshape(shape)
+             for _, dtype, shape, off in layout]
+    blob = {name: v for (name, *_), v in zip(layout[:-2], views)}
+    return blob, views[-2], views[-1]
+
+
+def _kernel_counts():
+    """(wrapper, launches) of each kernel wrapper's launch counter
+    (ops/rasterize_cuda)."""
+    from sdn3d_tpu_torch.ops import rasterize_cuda as TC
+    return [(f, f.launches) for f in vars(TC).values()
+            if callable(f) and hasattr(f, "launches")]
+
+
+class _RenderGraph:
+    """`_render_composite_batch` for one shape key as one CUDA graph.
+
+    Built on a key's first call: the eager function runs once on a side
+    stream (which fills the cached constants, `pil_resize`'s coefficients
+    and the stream's cuBLAS workspace outside the capture), then is
+    captured there into a private memory pool.  `first` holds the eager
+    run's outputs, the first call's answer; the caller takes it.
+
+    The graph reads its inputs from `static_in` (the packed bytes of
+    `_packed_inputs`) and writes into its pool.  `replay` copies a chunk's
+    bytes into `static_in` and launches the captured kernels with the
+    same arguments in the same order, so its outputs are the eager
+    function's bits.  The kernel wrappers' launch counters advance by the
+    captured launches on each replay, not at the capture, which launches
+    nothing."""
+
+    def __init__(self, buf, layout, bank, cfg, height, width, small):
+        main = torch.cuda.current_stream(buf.device)
+        self.static_in = buf.clone()
+        blob, interests, valid = _input_views(self.static_in, layout)
+        run = functools.partial(_render_composite_batch, blob, bank,
+                                interests, valid, cfg, height, width,
+                                small=small)
+        side = torch.cuda.Stream(buf.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out, insts, nrms, deps, packed = run()
+        main.wait_stream(side)
+        for t in (*insts, *nrms, *deps, packed):
+            t.record_stream(main)
+        phases.count("count.render_graph.eager")
+        counts = _kernel_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=side,
+                              capture_error_mode="thread_local"):
+            _, *self.outs = run()
+        self.launches = [(f, f.launches - n) for f, n in counts]
+        for f, n in counts:
+            f.launches = n
+        phases.count("count.render_graph.capture")
+        # the render dict goes out as metadata: its readers take shapes
+        self.meta = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                     for k, v in out.items()}
+        self.first = (self.meta, insts, nrms, deps, packed)
+
+    def replay(self, buf):
+        """The render of the packed inputs `buf`.  The packed buffer is the
+        graph's own: its copy to the host must be queued before the next
+        replay.  The maps go out as copies, which no replay changes."""
+        self.static_in.copy_(buf)
+        self.graph.replay()
+        for f, n in self.launches:
+            f.launches += n
+        phases.count("count.render_graph.replay")
+        insts, nrms, deps, packed = self.outs
+        return (self.meta, [t.clone() for t in insts],
+                [t.clone() for t in nrms], [t.clone() for t in deps], packed)
+
+
+# id(bank) -> {shape key: _RenderGraph}; a bank's graphs go with it
+_GRAPHS: Dict[int, Dict[tuple, _RenderGraph]] = {}
+
+
+def _render_chunk(buf: torch.Tensor, layout, bank, cfg, height, width,
+                  small=None):
+    """`_render_composite_batch` over the packed inputs `buf` (the bytes
+    of `_packed_inputs` on the render's device).  On a CUDA device it runs
+    as one CUDA graph per shape key (`_RenderGraph`: the inputs' layout,
+    the frame size, the small plan, cfg's mode and sizes, the bank): a
+    key's first call runs eagerly and captures, every later call replays.
+    Elsewhere it runs eagerly."""
+    if buf.device.type != "cuda":
+        blob, interests, valid = _input_views(buf, layout)
+        return _render_composite_batch(blob, bank, interests, valid, cfg,
+                                       height, width, small=small)
+    graphs = _GRAPHS.get(id(bank))
+    if graphs is None:
+        graphs = _GRAPHS[id(bank)] = {}
+        weakref.finalize(bank, _GRAPHS.pop, id(bank), None)
+    key = (buf.device, layout, height, width, small, cfg.mode,
+           cfg.image_size, cfg.render_size)
+    graph = graphs.get(key)
+    if graph is None:
+        graph = graphs[key] = _RenderGraph(buf, layout, bank, cfg, height,
+                                           width, small)
+        first, graph.first = graph.first, None
+        return first
+    return graph.replay(buf)
+
+
 def _unpack_packed(packed_np: np.ndarray, out, height: int):
     """Host inverse of _pack_frame_device: (body [height, W, C] uint8,
     {key: np array in the original dtype/shape}).  `height` is the body's
@@ -568,14 +709,11 @@ def derender_render_begin(
                                              fr.get("operations"))
         per.append((objs, blob_t, interests))
 
-    dev = torch.device(device)
-    up = lambda arrays: to_device(  # noqa: E731
-        np.stack([np.asarray(a) for a in arrays]), dev)
     with phases.phase("geo.render"):
-        blob_b = {k: up([p[1][k] for p in per]) for k in sorted(per[0][1])}
-        out, insts, nrms, deps, packed = phases.block(_render_composite_batch(
-            blob_b, bank, up([p[2] for p in per]),
-            up([p[0]["valid"] for p in per]), cfg, H, W, small=small_plan))
+        host, layout = _packed_inputs(per)
+        out, insts, nrms, deps, packed = phases.block(_render_chunk(
+            to_device(host, device), layout, bank, cfg, H, W,
+            small=small_plan))
         fetch = HostFetch(packed)
     return per, frames, out, insts, nrms, deps, fetch, small_plan
 

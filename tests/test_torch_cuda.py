@@ -1083,3 +1083,129 @@ def test_spans_add_no_device_events_to_a_train_step(cuda, monkeypatch):
     off = names()
     assert not phases.profiled()["spans"]
     assert len(on) == len(off) and on == off
+
+
+@pytest.fixture(scope="module")
+def chain_render():
+    """The chain's geometric re-render at its serving size: the
+    derenderer (8 classes, random weights), 8 meshes of 39,600 faces,
+    DerenderInferConfig()'s 16 slots at render 384 (768^2 rasters)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    from sdn3d_tpu_torch.data.synthetic import make_sphere_mesh
+    from sdn3d_tpu_torch.geometry.assets import build_mesh_bank
+    from sdn3d_tpu_torch.models.derenderer import Derenderer, DeviceMeshBank
+    from sdn3d_tpu_torch.pipelines.derender_infer import DerenderInferConfig
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = Derenderer(num_classes=8).cuda().eval()
+    meshes = [make_sphere_mesh(100, 200, radius=0.3 + 0.02 * k)
+              for k in range(8)]
+    bank = DeviceMeshBank.from_host(build_mesh_bank(meshes), device="cuda")
+    return model, bank, DerenderInferConfig()
+
+
+def _edited_chunk(model, cfg, n_frames, seed):
+    """derender_render_begin's (objs, edited blob, interests) for
+    n_frames 375x1242 frames of 5-16 cars, each with two modifies and a
+    delete."""
+    from sdn3d_tpu_torch.pipelines import derender_infer as TI
+    rng = np.random.RandomState(seed)
+    per = []
+    for _ in range(n_frames):
+        n = rng.randint(5, 17)
+        image = (rng.rand(375, 1242, 3) * 255).astype(np.uint8)
+        h = rng.randint(40, 130, n)
+        w = (h * rng.uniform(1.2, 2.2, n)).astype(int)
+        y = rng.randint(150, 355 - h // 2, n) - h // 2
+        x = rng.randint(0, 1240 - w, n)
+        rois = np.stack([y, x, y + h, x + w], 1).astype(np.float32)
+        masks = np.zeros((n, 1, 375, 1242), np.float32)
+        for i, (y1, x1, y2, x2) in enumerate(rois.astype(int)):
+            masks[i, 0, y1:y2, x1:x2] = 1
+        centre = [{"u": str((r[1] + r[3]) / 2), "v": str((r[0] + r[2]) / 2)}
+                  for r in rois]
+        ops = [{"type": "modify", "from": centre[i], "to": {},
+                "zoom": str(rng.uniform(0.8, 1.5)),
+                "ry": str(rng.uniform(-3, 3))} for i in (0, 1)]
+        ops.append({"type": "delete", "from": centre[2]})
+        objs, blob = TI.derender_encode(model, image, np.ones(n, np.int64),
+                                        masks, rois, cfg, device="cuda")
+        per.append((objs,) + TI._edited_blob(objs, blob, ops))
+    return per
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_frames,small", [(1, True), (4, True),
+                                            (1, False)],
+                         ids=["serial", "batch", "file"])
+def test_render_graph_replays_the_eager_bytes(chain_render, n_frames,
+                                              small):
+    """The re-render through `_render_chunk` on the card, three calls of
+    one shape key (chunk A, chunk B, chunk A again: a capture and two
+    replays), against the eager `_render_composite_batch` on the same
+    inputs: every packed buffer byte-equal, so the static input is
+    refreshed on each replay, and every device map equal, the second
+    call's read after the third replay (no later replay changes what an
+    earlier result holds).  The graph counters count one eager run, one
+    capture and two replays; the forward kernel counts a launch a call;
+    under the profiler a replay shows the raster kernel."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdn3d_tpu_torch.ops.pil_resize import transform_plan
+    from sdn3d_tpu_torch.pipelines import derender_infer as TI
+    from sdn3d_tpu_torch.utils import phases
+    from sdn3d_tpu_torch.utils.transfer import to_device
+
+    model, bank, cfg = chain_render
+    plan = transform_plan((1242, 375), 624, (624, 192)) if small else None
+    chunks = [_edited_chunk(model, cfg, n_frames, seed) for seed in (1, 2)]
+    packed = [TI._packed_inputs(per) for per in chunks]
+
+    def eager(k):
+        host, layout = packed[k]
+        blob, interests, valid = TI._input_views(to_device(host, "cuda"),
+                                                 layout)
+        return TI._render_composite_batch(blob, bank, interests, valid, cfg,
+                                          375, 1242, small=plan)
+
+    want = [eager(0), eager(1)]
+    assert not torch.equal(want[0][4], want[1][4])
+    TI._GRAPHS.pop(id(bank), None)
+    launches = TC.rasterize_face_index_cuda.launches
+    got = []
+    phases.reset(True)
+    try:
+        for i, k in enumerate((0, 1, 0)):
+            host, layout = packed[k]
+            # the capture outside the profiler, the replays under it
+            with (profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) if i
+                  else contextlib.nullcontext()) as prof:
+                r = TI._render_chunk(to_device(host, "cuda"), layout, bank,
+                                     cfg, 375, 1242, small=plan)
+                got.append((k, r, r[4].cpu()))   # before the next replay
+        counted = phases.snapshot()
+    finally:
+        phases.reset(False)
+        phases.profiled()
+    assert any("raster_binned_kernel" in e.name() for e in _cuda_events(prof))
+    assert {k: v["n"] for k, v in counted.items()
+            if k.startswith("count.render_graph")} == {
+        "count.render_graph.eager": 1, "count.render_graph.capture": 1,
+        "count.render_graph.replay": 2}
+    assert TC.rasterize_face_index_cuda.launches == launches + 3
+    assert len(TI._GRAPHS[id(bank)]) == 1
+    for k, r, host_packed in got:
+        w = want[k]
+        assert torch.equal(host_packed, w[4].cpu())
+        assert {n: (v.shape, v.dtype) for n, v in r[0].items()} == \
+            {n: (v.shape, v.dtype) for n, v in w[0].items()}
+        for maps, want_maps in zip(r[1:4], w[1:4]):
+            assert len(maps) == n_frames
+            for a, b in zip(maps, want_maps):
+                assert torch.equal(a, b)
+    assert (want[0][1][0] > 0).any()
