@@ -130,16 +130,21 @@ def make_detector(args):
     return det
 
 
-def detect_objects(args, image_rgb: np.ndarray, detector=None):
-    """Object proposals: from a GT npz (rois/masks/class_ids) or from
-    Mask R-CNN.  `detector` is make_detector's; when None a throwaway one
-    is built (single-shot callers)."""
+def detect_objects(args, image_rgb: np.ndarray, cfg, detector=None):
+    """Objects kept to cfg's slots (scripts/main.py:812-818): from a GT
+    npz (rois/masks/class_ids) or from Mask R-CNN, whose objects are kept
+    before their masks are pasted.  `detector` is make_detector's; when
+    None a throwaway one is built (single-shot callers)."""
+    from sdn3d_tpu_torch.pipelines.derender_infer import (
+        keep_largest_detections, keep_largest_unmolded)
     if args.source == "gt" or args.input_masks:
         data = np.load(args.input_masks)
-        return data["class_ids"], data["masks"], data["rois"]
+        return keep_largest_detections(cfg, data["class_ids"], data["masks"],
+                                       data["rois"])
     if detector is None:
         detector = make_detector(args)
-    return detector.detect(image_rgb)
+    return keep_largest_unmolded(
+        cfg, detector.unmold(detector.detect_begin(image_rgb)))
 
 
 def quantize_instance_map(inst: np.ndarray) -> np.ndarray:
@@ -279,14 +284,14 @@ def main(argv=None):
         with crash_guard(name):
             if src_key not in cached:
                 if gt is not None:
-                    dets = gt
+                    dets = keep_largest_detections(cfg, *gt)
                 else:
                     if detector is None and not (
                             args.source == "gt" or args.input_masks):
                         detector = make_detector(args)
-                    dets = detect_objects(args, image, detector)
+                    dets = detect_objects(args, image, cfg, detector)
                 # keep the last source only (masks are large)
-                cached = {src_key: keep_largest_detections(cfg, *dets)}
+                cached = {src_key: dets}
             class_ids, masks, rois = cached[src_key]
             out = derender_image(model, bank, image, class_ids, masks, rois,
                                  cfg, operations=ops, device=args.device)

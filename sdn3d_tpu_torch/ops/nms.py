@@ -16,7 +16,8 @@ as one masked product a step until it stops changing.  Row i depends only
 on rows j < i, so the greedy keep mask is the map's unique fixed point, and
 it is reached after (longest chain of suppressions + 1) steps, whatever N
 is.  `NMS_STEPS_PER_CHECK` steps run between two checks for the fixed
-point; each check reads one flag on the host.
+point; each check reads one flag on the host.  Each call adds the steps it
+ran to the counter `count.det.nms_steps` (utils/phases).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from sdn3d_tpu_torch.utils import phases
 
 NMS_STEPS_PER_CHECK = 4
 
@@ -69,6 +72,7 @@ def nms(boxes: torch.Tensor, threshold: float,
         steps += NMS_STEPS_PER_CHECK
         if torch.equal(prev, keep):
             break
+    phases.count("count.det.nms_steps", steps)
     if stats is not None:
         stats["steps"] = steps
     return keep if batched else keep[0]

@@ -21,7 +21,10 @@ of the full fetch.  A request without `dets` gets its objects from the
 chain's Mask R-CNN detector (pipelines/detect.py; build with
 `with_detector` or `maskrcnn_ckpt`), once a request as in the JAX package:
 one frame at a time in `edit_frame`, every det-less request of a chunk in
-one batched pass in `edit_frames` and the pipelined chain's stage A.
+one batched pass in `edit_frames` and the pipelined chain's stage A.  Each
+request's result carries the `dets` its geometric stage used, given or
+detected; a detection runs inside a `stage.detect` span and counts the
+objects it keeps (`count.det.kept`).
 """
 
 from __future__ import annotations
@@ -110,7 +113,8 @@ class EditChain:
     `textural` a TexturalTrainer, `detector` None or a MaskRCNNDetector,
     all on `device`), then call `edit_frame` per (source image,
     operations) pair.  Stage wall-clock accumulates in `self.stage_s`, the
-    seconds of the `stage.*` spans (utils/phases); each request is a
+    seconds of the `stage.*` spans (utils/phases; "detect" from the first
+    detection on); each request is a
     `chain.request` span and each pipelined chunk's stages `chain.stage_a`,
     `_b` and `_c` spans, by a running count."""
 
@@ -206,7 +210,8 @@ class EditChain:
         t0 = time.time_ns()
         with phases.phase("stage." + name):
             yield
-        self.stage_s[name] += (time.time_ns() - t0) / 1e9
+        self.stage_s[name] = (self.stage_s.get(name, 0.0)
+                              + (time.time_ns() - t0) / 1e9)
 
     def labels(self, image_rgb: np.ndarray,
                cache_key: Optional[str] = None) -> np.ndarray:
@@ -231,27 +236,31 @@ class EditChain:
             raise ValueError(_NO_DETECTOR)
         return self.detector
 
+    def _kept(self, unmolded):
+        """One frame's unmolded detections capped to the derenderer's
+        slots as cli/geometric_main caps them, pasted and counted."""
+        from sdn3d_tpu_torch.pipelines.derender_infer import \
+            keep_largest_unmolded
+        dets = keep_largest_unmolded(self.infer_cfg, unmolded)
+        phases.count("count.det.kept", len(dets[0]))
+        return dets
+
     def detect(self, image_rgb: np.ndarray):
         """Mask R-CNN objects of one frame, capped to the derenderer's
-        slots as cli/geometric_main caps them."""
-        from sdn3d_tpu_torch.pipelines.derender_infer import \
-            keep_largest_detections
-        with phases.phase("det.detect"):
-            return keep_largest_detections(
-                self.infer_cfg, *self._detector().detect(image_rgb))
+        slots."""
+        with self._stage("detect"), phases.phase("det.detect"):
+            det = self._detector()
+            return self._kept(det.unmold(det.detect_begin(image_rgb)))
 
     def detect_begin(self, image_rgb: np.ndarray):
         """Enqueue one frame's detection (its copy in flight);
         detect_finish(pending) equals detect(image_rgb)."""
-        with phases.phase("det.detect"):
+        with self._stage("detect"), phases.phase("det.detect"):
             return self._detector().detect_begin(image_rgb)
 
     def detect_finish(self, pending):
-        from sdn3d_tpu_torch.pipelines.derender_infer import \
-            keep_largest_detections
-        with phases.phase("det.detect"):
-            return keep_largest_detections(
-                self.infer_cfg, *self._detector().detect_finish(pending))
+        with self._stage("detect"), phases.phase("det.detect"):
+            return self._kept(self._detector().unmold(pending))
 
     def detect_missing_begin(self, requests, dets_list):
         """Enqueue ONE batched detection pass for every request whose dets
@@ -261,7 +270,7 @@ class EditChain:
         idx = [i for i, d in enumerate(dets_list) if d is None]
         if not idx:
             return None
-        with phases.phase("det.detect"):
+        with self._stage("detect"), phases.phase("det.detect"):
             pending = self._detector().detect_begin_batch(
                 [requests[i]["image_rgb"] for i in idx],
                 pad_to=len(requests))
@@ -271,13 +280,11 @@ class EditChain:
         """Fill dets_list in place from detect_missing_begin's copy."""
         if handle is None:
             return dets_list
-        from sdn3d_tpu_torch.pipelines.derender_infer import \
-            keep_largest_detections
         idx, pending = handle
-        with phases.phase("det.detect"):
-            outs = self._detector().detect_finish_batch(pending)
+        with self._stage("detect"), phases.phase("det.detect"):
+            outs = self._detector().unmold_batch(pending)
             for i, out in zip(idx, outs):
-                dets_list[i] = keep_largest_detections(self.infer_cfg, *out)
+                dets_list[i] = self._kept(out)
         return dets_list
 
     def _encode(self, image_rgb: np.ndarray, dets,
@@ -387,8 +394,9 @@ class EditChain:
         """One source frame through all three branches, in memory.
 
         `dets` is (class_ids, masks, rois) (e.g. VKITTI GT); when None
-        the chain's Mask R-CNN detector runs.  Returns label, geometric
-        outputs, and the generated frame [fine_h, fine_w, 3] in [-1, 1]."""
+        the chain's Mask R-CNN detector runs.  Returns label, the dets the
+        geometric stage used, geometric outputs, and the generated frame
+        [fine_h, fine_w, 3] in [-1, 1]."""
         self._requests += 1
         with phases.phase("chain.request", self._requests):
             if label is None:
@@ -399,7 +407,8 @@ class EditChain:
                                 cache_key=cache_key)
             fake, maps = self.generate(image_rgb, label, geo,
                                        cache_key=cache_key)
-        return {"label": label, "geo": geo, "fake": fake, "maps": maps}
+        return {"label": label, "dets": dets, "geo": geo, "fake": fake,
+                "maps": maps}
 
     def edit_frames(self, requests: Sequence[Dict[str, object]]
                     ) -> List[Dict[str, object]]:
@@ -444,9 +453,10 @@ class EditChain:
                     r["image_rgb"], label, r.get("cache_key")), geo)
                     for r, label, geo in zip(requests, labels, geos)]
                 fakes, maps_list = self._generate_items(items)
-        return [{"label": label, "geo": geo, "fake": fake, "maps": maps}
-                for label, geo, fake, maps in
-                zip(labels, geos, fakes, maps_list)]
+        return [{"label": label, "dets": dets, "geo": geo, "fake": fake,
+                 "maps": maps}
+                for label, dets, geo, fake, maps in
+                zip(labels, dets_list, geos, fakes, maps_list)]
 
     # -- pipelined fused chain ---------------------------------------------
 
@@ -604,7 +614,8 @@ class EditChain:
                         key = requests[i].get("cache_key")
                         if key is not None:
                             self._src_cache.put(key, prepared[i])
-        return {"labels": labels, "pending_render": pending_render,
+        return {"labels": labels, "dets_list": a["dets_list"],
+                "pending_render": pending_render,
                 "prepared": prepared, "chunk": a["chunk"]}
 
     def _stage_c(self, b) -> List[Dict[str, object]]:
@@ -621,9 +632,10 @@ class EditChain:
                 items = [self._tex_item(prep, geo)
                          for prep, geo in zip(b["prepared"], geos)]
                 fakes, maps_list = self._generate_items(items)
-        return [{"label": label, "geo": geo, "fake": fake, "maps": maps}
-                for label, geo, fake, maps in
-                zip(b["labels"], geos, fakes, maps_list)]
+        return [{"label": label, "dets": dets, "geo": geo, "fake": fake,
+                 "maps": maps}
+                for label, dets, geo, fake, maps in
+                zip(b["labels"], b["dets_list"], geos, fakes, maps_list)]
 
     def edit_frames_pipelined(self, chunks):
         """Generator: run chunks of requests through a 3-deep software

@@ -157,14 +157,30 @@ def _unpack_f32(packed_np: np.ndarray, like: Dict[str, torch.Tensor],
     return out
 
 
+def largest(areas: np.ndarray, max_objects: int) -> Optional[np.ndarray]:
+    """Indices of the max_objects largest `areas`, largest first
+    (scripts/main.py:812-818); None where all of them fit."""
+    if len(areas) > max_objects:
+        return np.argsort(-areas)[:max_objects]
+    return None
+
+
 def keep_largest_detections(cfg: DerenderInferConfig, class_ids, masks,
                             rois):
     """Keep the <= max_objects largest masks (scripts/main.py:812-818)."""
-    if len(class_ids) > cfg.max_objects:
-        areas = masks[:, 0].sum((1, 2))
-        keep = np.argsort(-areas)[:cfg.max_objects]
-        return class_ids[keep], masks[keep], rois[keep]
-    return class_ids, masks, rois
+    keep = largest(masks[:, 0].sum((1, 2)), cfg.max_objects)
+    if keep is None:
+        return class_ids, masks, rois
+    return class_ids[keep], masks[keep], rois[keep]
+
+
+def keep_largest_unmolded(cfg: DerenderInferConfig, unmolded):
+    """A detector's objects before their masks are pasted
+    (pipelines/detect.Unmolded) kept as keep_largest_detections keeps
+    pasted ones (the same float32 areas, so the same objects in the same
+    order), then pasted: only the kept planes are made.
+    -> (class_ids, masks [K, 1, H, W] float32, rois)."""
+    return unmolded.paste(largest(unmolded.areas(), cfg.max_objects))
 
 
 def build_default_ignores(image_masks: np.ndarray, log_depths: np.ndarray,

@@ -9,12 +9,18 @@ plane [D, mh, mw] (the host never reads the other classes' planes).  The
 copy to the host is started without waiting (utils/transfer.HostFetch), so
 a caller can enqueue several frames before it unmolds any.
 
+Each entry point records the spans `det.mold` (the host resize and pad),
+`det.net` (the enqueue of the network and of the packed copy) and
+`det.unmold` (the wait for the copy and the host unmold: the masks'
+resizes in `unmold`, their pastes in `Unmolded.paste`), and the counter
+`count.det.valid` (the detections the network marked valid) (utils/phases).
+
 The detector holds its model on `device`; every entry point runs there.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -106,19 +112,28 @@ class MaskRCNNDetector:
         """Enqueue one frame's detection with its copy to the host started;
         returns the pending handle for detect_finish."""
         cfg = self.config
-        molded, window, scale = resize_image(image_rgb, cfg.image_min_dim,
-                                             cfg.image_max_dim)
-        fetch = HostFetch(self._packed([molded], [window])[0])
+        with phases.phase("det.mold"):
+            molded, window, scale = resize_image(
+                image_rgb, cfg.image_min_dim, cfg.image_max_dim)
+        with phases.phase("det.net"):
+            fetch = phases.block(HostFetch(
+                self._packed([molded], [window])[0]))
         phases.add_bytes("det.detect", molded, fetch)
         return (fetch, window, scale, image_rgb.shape[:2])
+
+    def unmold(self, pending, mask_threshold: float = 0.5) -> "Unmolded":
+        """detect_begin's packed copy unmolded to the original frame, its
+        masks not yet pasted (Unmolded)."""
+        fetch, window, scale, hw = pending
+        with phases.phase("det.unmold"):
+            return self._unmold_packed(fetch.result(), window, scale, hw,
+                                       mask_threshold)
 
     def detect_finish(self, pending, mask_threshold: float = 0.5
                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """detect_begin's packed copy unmolded to (class_ids [N], masks
         [N, 1, H, W], rois [N, 4] original-frame pixels)."""
-        fetch, window, scale, hw = pending
-        return self._unmold_packed(fetch.result(), window, scale, hw,
-                                   mask_threshold)
+        return self.unmold(pending, mask_threshold).paste()
 
     def detect(self, image_rgb: np.ndarray, mask_threshold: float = 0.5
                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -145,30 +160,39 @@ class MaskRCNNDetector:
             return ("one", self.detect_begin(images_rgb[0]))
         cfg = self.config
         molded_l, metas = [], []
-        for img in images_rgb:
-            molded, window, scale = resize_image(img, cfg.image_min_dim,
-                                                 cfg.image_max_dim)
-            molded_l.append(molded)
-            metas.append((window, scale, img.shape[:2]))
+        with phases.phase("det.mold"):
+            for img in images_rgb:
+                molded, window, scale = resize_image(
+                    img, cfg.image_min_dim, cfg.image_max_dim)
+                molded_l.append(molded)
+                metas.append((window, scale, img.shape[:2]))
         molded_l += [molded_l[-1]] * (pad_to - n)
         windows = [m[0] for m in metas] + [metas[-1][0]] * (pad_to - n)
-        fetch = HostFetch(self._packed(molded_l, windows))
+        with phases.phase("det.net"):
+            fetch = phases.block(HostFetch(self._packed(molded_l, windows)))
         phases.add_bytes("det.detect", *molded_l, fetch)
         return ("batch", fetch, metas)
+
+    def unmold_batch(self, pending, mask_threshold: float = 0.5
+                     ) -> List["Unmolded"]:
+        """-> one Unmolded per real frame of detect_begin_batch's copy."""
+        if pending[0] == "one":
+            return [self.unmold(pending[1], mask_threshold)]
+        _, fetch, metas = pending
+        if not metas:
+            return []
+        with phases.phase("det.unmold"):
+            packed = fetch.result()
+            return [self._unmold_packed(packed[i], window, scale, hw,
+                                        mask_threshold)
+                    for i, (window, scale, hw) in enumerate(metas)]
 
     def detect_finish_batch(self, pending, mask_threshold: float = 0.5
                             ) -> List[Tuple[np.ndarray, np.ndarray,
                                             np.ndarray]]:
         """-> one (class_ids, masks, rois) per real frame."""
-        if pending[0] == "one":
-            return [self.detect_finish(pending[1], mask_threshold)]
-        _, fetch, metas = pending
-        if not metas:
-            return []
-        packed = fetch.result()
-        return [self._unmold_packed(packed[i], window, scale, hw,
-                                    mask_threshold)
-                for i, (window, scale, hw) in enumerate(metas)]
+        return [u.paste() for u in self.unmold_batch(pending,
+                                                     mask_threshold)]
 
     def detect_batch(self, images_rgb: Sequence[np.ndarray],
                      mask_threshold: float = 0.5):
@@ -177,33 +201,37 @@ class MaskRCNNDetector:
                                         mask_threshold)
 
     def _unmold_packed(self, packed: np.ndarray, window, scale, hw,
-                       mask_threshold: float = 0.5
-                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Host unmold of one frame's packed buffer (model.py:2084-2128)."""
+                       mask_threshold: float = 0.5) -> "Unmolded":
+        """Host unmold of one frame's packed buffer (model.py:2084-2128),
+        up to the paste."""
         from PIL import Image as PILImage
 
         cfg = self.config
-        H, W = hw
         D = cfg.detection_max_instances
         mh, mw = cfg.mask_shape
+        H, W = hw
         dets = packed[:D * 6].reshape(D, 6)           # pixels (molded)
         valid = packed[D * 6:D * 7] > 0.5
         own_masks = packed[D * 7:].reshape(D, mh, mw)
+        phases.count("count.det.valid", int(valid.sum()))
 
-        class_ids, full_masks, rois = [], [], []
+        # a resized byte b is mask where float32(b) / 255 >= threshold,
+        # which grows with b: where b >= the first byte that passes
+        first = int(np.searchsorted(np.arange(256, dtype=np.float32) / 255.0
+                                    >= mask_threshold, True))
+        class_ids, crops, rois = [], [], []
         for i in range(len(dets)):
             if not valid[i]:
                 continue
-            y1, x1, y2, x2, cid, score = dets[i]
-            if not np.isfinite([y1, x1, y2, x2]).all():
-                # untrained weights can overflow exp() in the box deltas;
-                # the reference skips such a detection
-                # (geometric/scripts/main.py:798-810)
-                continue
+            y1, x1, y2, x2, cid, _ = dets[i]
             cid = int(cid)
-            if cid <= 0 or y2 <= y1 or x2 <= x1:
+            if cid <= 0:
                 continue
-            # back to the original frame (model.py:2104-2109)
+            if not np.isfinite([y1, x1, y2, x2]).all():
+                continue
+            if y2 <= y1 or x2 <= x1:
+                continue
+            # back to original-image pixels (utils.py:410-419)
             oy1 = (y1 - window[0]) / scale
             ox1 = (x1 - window[1]) / scale
             oy2 = (y2 - window[0]) / scale
@@ -212,22 +240,45 @@ class MaskRCNNDetector:
             ox1, ox2 = np.clip([ox1, ox2], 0, W)
             if oy2 - oy1 < 1 or ox2 - ox1 < 1:
                 continue
-            m = own_masks[i]
-            m = np.asarray(PILImage.fromarray(
-                (m * 255).astype(np.uint8)).resize(
-                (int(ox2 - ox1), int(oy2 - oy1)), PILImage.BILINEAR))
-            m = (m.astype(np.float32) / 255.0 >= mask_threshold)
-            full = np.zeros((H, W), np.float32)
-            full[int(oy1):int(oy1) + m.shape[0],
-                 int(ox1):int(ox1) + m.shape[1]] = m
             class_ids.append(cid)
-            full_masks.append(full[None])
+            crops.append(np.asarray(PILImage.fromarray(
+                (own_masks[i] * 255).astype(np.uint8)).resize(
+                (int(ox2 - ox1), int(oy2 - oy1)), PILImage.BILINEAR))
+                >= first)
             rois.append([oy1, ox1, oy2, ox2])
+        return Unmolded(np.asarray(class_ids, np.int32), crops,
+                        np.asarray(rois, np.float32).reshape(-1, 4), hw)
 
-        if not class_ids:
-            return (np.zeros((0,), np.int32),
-                    np.zeros((0, 1, H, W), np.float32),
-                    np.zeros((0, 4), np.float32))
-        return (np.asarray(class_ids, np.int32),
-                np.stack(full_masks).astype(np.float32),
-                np.asarray(rois, np.float32))
+
+class Unmolded(NamedTuple):
+    """One frame's detections on the original frame before their masks
+    are pasted: class_ids [N] int32, crops (N bool masks, each the size
+    of its box), rois [N, 4] float32 (y1, x1, y2, x2) pixels, hw the
+    frame's (H, W).  A cap picks from them by `areas()` and pastes only
+    what it keeps (pipelines/derender_infer.keep_largest_unmolded)."""
+    class_ids: np.ndarray
+    crops: List[np.ndarray]
+    rois: np.ndarray
+    hw: Tuple[int, int]
+
+    def areas(self) -> np.ndarray:
+        """Each mask's pixel count, float32: what the float32 sum of its
+        pasted plane gives (a count, exact in float32)."""
+        return np.asarray([c.sum() for c in self.crops], np.float32)
+
+    def paste(self, keep: Optional[np.ndarray] = None
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(class_ids [K], masks [K, 1, H, W] float32, rois [K, 4]) of the
+        detections `keep` (indices, in their order; every one when None),
+        each mask pasted into its full-frame plane of one array."""
+        if keep is None:
+            keep = np.arange(len(self.crops))
+        H, W = self.hw
+        rois = self.rois[keep]
+        with phases.phase("det.unmold"):
+            masks = np.zeros((len(keep), 1, H, W), np.float32)
+            for full, k, (top, left, _, _) in zip(masks, keep, rois):
+                m = self.crops[k]
+                full[0, int(top):int(top) + m.shape[0],
+                     int(left):int(left) + m.shape[1]] = m
+        return self.class_ids[keep], masks, rois

@@ -223,8 +223,8 @@ def test_geometric_main_maskrcnn_writes_contract(env, detectors, tmp_path,
                     "target": f"t{i}", "operations": []} for i in range(2)],
                   fh)
     runs = []
-    orig = TD.MaskRCNNDetector.detect
-    monkeypatch.setattr(TD.MaskRCNNDetector, "detect",
+    orig = TD.MaskRCNNDetector.detect_begin
+    monkeypatch.setattr(TD.MaskRCNNDetector, "detect_begin",
                         lambda self, *a, **kw: runs.append(1) or orig(
                             self, *a, **kw))
     common = ["--input_image", frame, "--shapenet_root", shapenet,
@@ -268,3 +268,81 @@ def test_edit_chain_cli_maskrcnn(env, detectors, tmp_path, monkeypatch):
         assert saved["pairs"] == res["pairs"] == 2
         for k in ("mean_L1", "mean_LPIPS", "mean_SSIM", "mean_PSNR"):
             assert np.isfinite(saved[k]), k
+
+
+DET_SPANS = ("stage.detect", "det.detect", "det.mold", "det.net",
+             "det.unmold")
+DET_COUNTS = ("count.det.nms_steps", "count.det.valid", "count.det.kept")
+
+
+@pytest.mark.parametrize("mode", ["serial", "pipelined"])
+def test_detection_spans_counters_and_dets(env, chains, detectors, mode):
+    """Det-less requests, serially (edit_frame) and as one pipelined
+    chunk: the detection's spans (`stage.detect` over `det.detect` over
+    `det.mold`, `det.net`, `det.unmold`; in the chunk `stage.detect` sits
+    inside stage A's `stage.geometric`) and counters (NMS steps, valid
+    and kept detections, kept = the objects handed on), stage_s["detect"]
+    the sum of its spans, and each result's "dets" what the chain
+    detected.  Fed those dets back, a fresh chain records none of the
+    detection's spans or counters, and gives the same result."""
+    from tests.test_torch_chain import (SMALL48, _assert_same_pair,
+                                        _profiled_log)
+
+    _, root, edit_json, _ = env
+    _, tchain, _, _ = chains
+    _, _, tdet, _ = detectors
+    requests = _det_requests(root, edit_json)
+
+    def chain():
+        c = _port_chain(tchain, **SMALL48)
+        c.detector = tdet
+        return c
+
+    port = chain()
+    outs = []
+    if mode == "serial":
+        log = _profiled_log(lambda: outs.extend(port.edit_frame(
+            r["image_rgb"], operations=r["operations"],
+            cache_key=r["cache_key"]) for r in requests))
+        want = [chain().detect(r["image_rgb"]) for r in requests]
+    else:
+        log = _profiled_log(lambda: outs.extend(next(iter(
+            port.edit_frames_pipelined([requests])))))
+        want = [None] * len(requests)
+        fresh = chain()
+        fresh.detect_missing_finish(fresh.detect_missing_begin(
+            requests, want), want)
+    assert log["dropped"] == 0
+    spans = log["spans"]
+    by_sid = {s.sid: s for s in spans}
+    assert set(DET_SPANS) <= {s.name for s in spans}
+    for s in spans:
+        if s.name in DET_SPANS[2:]:
+            assert by_sid[s.parent].name == "det.detect", s
+        elif s.name == "det.detect":
+            assert by_sid[s.parent].name == "stage.detect", s
+        elif s.name == "stage.detect":
+            assert by_sid[s.parent].name == ("chain.request"
+                                             if mode == "serial" else
+                                             "stage.geometric"), s
+    summed = sum(s.end_ns - s.start_ns for s in spans
+                 if s.name == "stage.detect") / 1e9
+    assert abs(port.stage_s["detect"] - summed) < 1e-3
+    counts = log["counts"]
+    assert all(counts.get(k, 0) > 0 for k in DET_COUNTS), counts
+    assert counts["count.det.kept"] == sum(len(o["dets"][0]) for o in outs)
+    assert counts["count.det.valid"] >= counts["count.det.kept"]
+    for out, w in zip(outs, want):
+        for a, b in zip(out["dets"], w):
+            np.testing.assert_array_equal(a, b)
+
+    again = chain()
+    r = requests[0]
+    log = _profiled_log(lambda: outs.append(again.edit_frame(
+        r["image_rgb"], operations=r["operations"], dets=outs[0]["dets"],
+        cache_key=r["cache_key"])))
+    assert not {s.name for s in log["spans"]} & set(DET_SPANS)
+    assert not [k for k in log["counts"] if k.startswith("count.det.")]
+    assert "detect" not in again.stage_s
+    assert outs[-1]["dets"] is outs[0]["dets"]
+    _assert_same_pair(outs[-1], outs[0])
