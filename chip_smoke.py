@@ -5,8 +5,9 @@
 
 Phases, each of which must pass (any failure exits non-zero):
   1. the card: requires torch.cuda; prints nvidia-smi's name and power limit;
-  2. build: compiles the three CUDA kernels (csrc/rasterize.cu,
-     silhouette_walk.cu, segment_face_grads.cu) from source, one nvcc each,
+  2. build: compiles the four CUDA kernels (csrc/rasterize.cu,
+     silhouette_walk.cu, segment_face_grads.cu, edit_conditioning.cu) from
+     source, one nvcc each,
      all started together, and the native host library
      (native/sdn3d_host.cpp, g++; data/native.py), which must load;
   3. kernels vs plain: the forward rasterizer against its plain PyTorch
@@ -62,7 +63,9 @@ Phases, each of which must pass (any failure exits non-zero):
      and their reconstruction twins); checks benchmark.json (pairs, finite
      L1 / LPIPS / SSIM / PSNR), each fake ([192, 624, 3], finite, in
      [-1, 1]), the labels (< 14), one forward-kernel launch per pair at 16
-     images and no plain forward; then the serving modes on the same root:
+     images and no plain forward, and in every run below one
+     conditioning-kernel launch per generate_edit_batch; then the serving
+     modes on the same root:
      8a. --full_fetch: instance_small / normal_small byte-equal to the PIL
          transform of the full planes, the fakes, labels, JSON and
          full-resolution maps bit-equal, geo.package bytes a pair of each;
@@ -78,6 +81,10 @@ Phases, each of which must pass (any failure exits non-zero):
          generator's time (CUDA events) and device busy in both dtypes;
      8e. --lpips_ckpt (an official-layout checkpoint written from --seed):
          a finite mean_LPIPS, lpips_backbone "ported";
+     8f. the edit conditioning kernel on the inputs the chain gave it (its
+         source tables and frames at 192x624), 1 and 4 frames: every
+         output equal to the plain twin's on the CPU, us a launch (CUDA
+         events), the twin's ms on the card, the bound by bytes;
      then steady wall per pair of the serial, batched and pipelined chains
      over the edit set in turns (MODE_REPS rounds), with each one's device
      idle share, and uncached and cached pairs apart, serial against
@@ -223,7 +230,9 @@ Phases, each of which must pass (any failure exits non-zero):
      NAMES_ATOL of the CPU's; trace() around one render() writes a Chrome
      trace holding B1's kernel.
 The line before last is the card's name and power limit, the line before
-that the kernels' JSON (launches: phase 11a's training run); the last line is {"ok": true, "device": {...}}.
+that the kernels' JSON (launches: phase 11a's training run; the
+conditioning kernel's, phase 8's default chain run); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1616,14 +1625,17 @@ def detect_frame_wall(frame, shapenet: str, ckpt: str, seed: int):
     return wall_ms, busy_ms
 
 
-def chain_phase(args, card: str, mark=lambda what: None) -> int:
+def chain_phase(args, card: str, mark=lambda what: None) -> dict:
     """Phase 8: the fused edit chain at full width, its serving modes
     (8a small against full fetch, 8b batched, 8c pipelined, 8d bfloat16,
-    8e LPIPS), their wall per pair and the chain's CUDA path against its
-    CPU path; `mark(step)` logs the time at the end of each step.
-    Returns the forward kernel's launches on the default chain's run."""
+    8e LPIPS, 8f the conditioning kernel at the chain's own inputs), their
+    wall per pair and the chain's CUDA path against its CPU path;
+    `mark(step)` logs the time at the end of each step.  Returns the
+    conditioning kernel's entry of the kernels' JSON (launches: the
+    default chain's run)."""
     import torch
 
+    from sdn3d_tpu_torch.ops import edit_conditioning as EC
     from sdn3d_tpu_torch.ops import rasterize as TR
     from sdn3d_tpu_torch.ops import rasterize_cuda as TC
     from sdn3d_tpu_torch.ops.pil_resize import transform_plan
@@ -1652,6 +1664,9 @@ def chain_phase(args, card: str, mark=lambda what: None) -> int:
         log(f"[chain] wrote assets and a VKITTI root ({n_pairs} edit pairs) "
             f"in {time.perf_counter() - t0:.1f} s")
         images = []                   # forward launches' image counts
+        # the conditioning kernel's launches and generate_edit_batch calls
+        # of each run, and its first inputs at each batch size
+        cond_runs, cond_inputs = {}, {}
 
         def shape_recording(faces, face_valid, image_size,
                             near=TR.DEFAULT_NEAR, far=TR.DEFAULT_FAR,
@@ -1675,13 +1690,28 @@ def chain_phase(args, card: str, mark=lambda what: None) -> int:
 
             originals = (EditChain.edit_frame, EditChain.edit_frames,
                          EditChain._stage_c)
+            generate_items, conditioning = (EditChain._generate_items,
+                                            EC.edit_conditioning)
+            batches = []
+
+            def counted(self, items):
+                batches.append(len(items))
+                return generate_items(self, items)
+
+            def recording(inst, *rest):
+                cond_inputs.setdefault(int(inst.shape[0]), (inst,) + rest)
+                return conditioning(inst, *rest)
+
             EditChain.edit_frame = lambda self, *a, **kw: keep(
                 [originals[0](self, *a, **kw)])[0]
             EditChain.edit_frames = lambda self, rs: keep(
                 originals[1](self, rs))
             EditChain._stage_c = lambda self, b: keep(originals[2](self, b))
+            EditChain._generate_items = counted
+            EC.edit_conditioning = recording
             TC.rasterize_face_index = shape_recording
             images.clear()
+            EC.edit_conditioning_cuda.launches = 0
             launch.launches = 0
             for fn in inner:
                 fn.launches = 0
@@ -1698,9 +1728,18 @@ def chain_phase(args, card: str, mark=lambda what: None) -> int:
             finally:
                 (EditChain.edit_frame, EditChain.edit_frames,
                  EditChain._stage_c) = originals
+                EditChain._generate_items = generate_items
+                EC.edit_conditioning = conditioning
                 TC.rasterize_face_index = dispatch
                 phases.reset(False)
             wall = time.perf_counter() - t0
+            cond_runs[tag] = (EC.edit_conditioning_cuda.launches,
+                              len(batches))
+            if cond_runs[tag][0] != len(batches) or not batches:
+                raise AssertionError(f"{tag}: conditioning kernel launches "
+                                     f"{cond_runs[tag][0]} for "
+                                     f"{len(batches)} generate_edit_batch "
+                                     f"calls (frames {batches})")
             counts = (launch.launches, inner_counts(), plain_counts(),
                       list(images))
             with open(os.path.join(tmp, tag, "benchmark.json")) as fh:
@@ -1723,7 +1762,10 @@ def chain_phase(args, card: str, mark=lambda what: None) -> int:
             f"included); forward kernel launches {c_launches} (bin "
             f"{c_inner[0]}, raster {c_inner[1]}, {c_images[0]} images each); "
             f"plain calls (rasterizer, walk, reduction, edge_invariant_stack, "
-            f"face_pixel_coords) {c_plain}; small_fetch on")
+            f"face_pixel_coords) {c_plain}; conditioning kernel launches "
+            f"{cond_runs['chain_out'][0]} for "
+            f"{cond_runs['chain_out'][1]} generate_edit_batch calls; "
+            f"small_fetch on")
         log_phases("chain", saved, n_pairs, card)
         mark("8. chain, default")
 
@@ -1763,6 +1805,8 @@ def chain_phase(args, card: str, mark=lambda what: None) -> int:
                             FAKE_BATCH_BOUND)
         log(f"[chain-8b] batch_pairs {BATCH_PAIRS}: {b_launches} forward "
             f"launches for {n_pairs} pairs at {b_images[0]} images each, "
+            f"conditioning kernel launches {cond_runs['chain_batched'][0]} "
+            f"for {cond_runs['chain_batched'][1]} generate_edit_batch calls, "
             f"plain calls {b_plain}; labels, planes, device maps and JSON "
             f"equal to the serial run pair by pair; fake max |diff| "
             f"{b_diff:.3g} (bit-equal: {b_diff == 0.0}) ({card})")
@@ -1814,6 +1858,10 @@ def chain_phase(args, card: str, mark=lambda what: None) -> int:
                 f"bfloat16 {b16:.6f} ({card})")
 
         mark("8d. bfloat16")
+        # 8f. the conditioning kernel at the chain's own inputs
+        cond_kernel = conditioning_kernel(cond_inputs, card)
+        cond_kernel["launches"] = cond_runs["chain_out"][0]
+        mark("8f. conditioning kernel")
         # 9e. Mask R-CNN as the chain's source: serial, batched, pipelined
         det_ckpt = detector_checkpoint(os.path.join(tmp, "maskrcnn.pth"),
                                        args.seed)
@@ -1882,7 +1930,64 @@ def chain_phase(args, card: str, mark=lambda what: None) -> int:
                         root, edit_json, args.seed)
         mark("8. chain reference")
 
-    return c_launches
+    return cond_kernel
+
+
+def conditioning_kernel(cond_inputs: dict, card: str) -> dict:
+    """8f. The edit conditioning kernel (csrc/edit_conditioning.cu) on the
+    inputs the chain gave it (its own source tables and edit frames, at
+    192x624) at 1 and BATCH_PAIRS frames: every output equal to the plain
+    twin's on the CPU (torch.equal), its time a launch (CUDA events) beside
+    the twin's on the card, and its bound by bytes.  Returns the kernel's
+    entry of the kernels' JSON for the BATCH_PAIRS launch."""
+    import torch
+
+    from sdn3d_tpu_torch.ops import edit_conditioning as EC
+
+    entry = None
+    for n in (1, BATCH_PAIRS):
+        if n not in cond_inputs:
+            raise AssertionError(f"8f: the chain gave the conditioning no "
+                                 f"batch of {n} (sizes {sorted(cond_inputs)})")
+        args = cond_inputs[n]
+        inst, codes, M = args[0], args[4], args[5]
+        got = EC.edit_conditioning_cuda(*args)
+        want = EC.edit_conditioning_plain(
+            *[a.cpu() for a in args[:5]], M)
+        for field, g, w in zip(got._fields, got, want):
+            if not torch.equal(g.cpu(), w):
+                raise AssertionError(f"8f: {n} frames: the kernel's {field} "
+                                     f"differs from the plain twin's")
+        ms = cuda_ms(lambda: EC.edit_conditioning_cuda(*args), iters=50,
+                     warmup=5)
+        plain_ms = cuda_ms(lambda: EC.edit_conditioning_plain(*args),
+                           iters=10, warmup=2)
+        # bytes the conditioning needs: the instance and source label
+        # planes read, the label, pose and slot planes written (5 a
+        # pixel), the object tables read, the code tables written
+        P = inst.shape[1] * inst.shape[2]
+        nbytes = n * (5 * P + 2 * EC.TABLE + M * codes.shape[2] * 4)
+        bound_ms = nbytes / PEAK["hbm"] * 1e3
+        log(f"[chain-8f] conditioning kernel at the chain's inputs, {n} "
+            f"frame(s) of {tuple(inst.shape[1:])}: every output equal to "
+            f"the plain twin's (ids a frame {got.nids.tolist()}); "
+            f"{ms * 1e3:.2f} us a launch, the twin on the card "
+            f"{plain_ms:.3f} ms; bound {bound_ms * 1e3:.3f} us by bytes "
+            f"({nbytes} B) ({card})")
+        entry = {
+            "name": "edit_conditioning",
+            "route": "cuda",
+            "source": "sdn3d_tpu_torch/csrc/edit_conditioning.cu",
+            "replaces": "host numpy",
+            "launches": None,
+            "max_abs_err": 0.0,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes",
+            "library_ms": None,
+        }
+    return entry
 
 
 # -- 10. the per-stage file contract -------------------------------------
@@ -5703,7 +5808,7 @@ def main(argv=None) -> int:
 
     mark("7. reference")
     # -- 8. chain: the fused edit chain at full width ------------------------
-    chain_phase(args, card, mark)
+    cond_kernel = chain_phase(args, card, mark)
     # -- 12. textural training (12e inside phase 10) -------------------------
     textural_phase(args, card, mark)
     # -- 10. the per-stage file contract --------------------------------------
@@ -5745,7 +5850,7 @@ def main(argv=None) -> int:
         "bound_ms": red_bound_ms,
         "bound_by": red_bound_by,
         "library_ms": lib_ms,
-    }]
+    }, cond_kernel]
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

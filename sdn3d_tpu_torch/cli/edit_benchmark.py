@@ -87,19 +87,18 @@ def main(argv=None):
         tgt = os.path.join(args.data_root, "vkitti_1.3.1_rgb", item.world,
                            item.topic, f"{item.target}.png")
         tp = time.perf_counter()
-        if item.source_name in src_cache:
-            base_img_t, base_label, feats = src_cache[item.source_name]
-        else:
+        if item.source_name not in src_cache:
             src = os.path.join(args.data_root, "vkitti_1.3.1_rgb",
                                item.world, item.topic, f"{item.source}.png")
             segm = os.path.join(args.segm_dir, f"{item.source_name}.png")
-            base_img_t, base_label, feats = prepare_source_inputs(
+            src_cache[item.source_name] = prepare_source_inputs(
                 trainer, Image.open(src), Image.open(segm), args.load_size,
                 wh)
-            src_cache[item.source_name] = (base_img_t, base_label, feats)
-        fake, _ = generate_edit_frame(trainer, base_img_t, base_label,
+        prepared = src_cache[item.source_name]
+        fake, _ = generate_edit_frame(trainer, prepared.image, prepared.label,
                                       args.geo_dir, item.target_name, wh,
-                                      args, feats=feats)
+                                      args, feats=prepared.feats,
+                                      source=prepared.table)
         pair_times.append(time.perf_counter() - tp)
 
         # the target's decode and resize are scoring (the edit never reads

@@ -17,6 +17,8 @@ import numpy as np
 from PIL import Image
 
 POSE_BINS = np.array(list(range(-180, 181, 360 // 24))) / 180.0
+# an edited object's label id by its JSON class_id (car 2, van 12; else 2)
+CLASS_LABEL = {1: 2, 2: 12}
 
 
 def scale_width(img: Image.Image, target_width: int,
@@ -92,7 +94,7 @@ def assemble_condition_maps(
         k = int(k_str)
         sel = inst == k
         class_id = int(v["class_id"])
-        segm = np.where(sel, {1: 2, 2: 12}.get(class_id, 2), segm)
+        segm = np.where(sel, CLASS_LABEL.get(class_id, 2), segm)
         alpha = float(v["alpha"])
         pose = np.where(sel, int(np.digitize(alpha / np.pi, POSE_BINS)),
                         pose)
@@ -106,11 +108,17 @@ def assemble_condition_maps(
         "pose": pose.astype(np.int32),
     }
     if normal_png is not None:
-        out["normal"] = (normal_png.astype(np.float32) / 255.0 - 0.5) / 0.5 \
-            + 1.0 / 255.0                       # bias (edit_vkitti.py:93)
+        out["normal"] = condition_normal(normal_png)
     if depth_png is not None:
         out["depth"] = 1.0 - depth_png.astype(np.float32) / 65535.0
     return out
+
+
+def condition_normal(normal_png: np.ndarray) -> np.ndarray:
+    """The normal map's conditioning [H, W, 3] float32 from its PNG values:
+    normalised to [-1, 1] plus the reference's 1/255 bias
+    (edit_vkitti.py:93)."""
+    return (normal_png.astype(np.float32) / 255.0 - 0.5) / 0.5 + 1.0 / 255.0
 
 
 def assemble_train_maps(

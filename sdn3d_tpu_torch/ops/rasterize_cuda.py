@@ -5,6 +5,7 @@
   silhouette_walk.cu     silhouette edge walk    walk_grads
   segment_face_grads.cu  pixel->face reduction   segment_face_grads
                          (won_pixel_boxes_cuda, then the sums)
+  edit_conditioning.cu   textural conditioning   ops/edit_conditioning
 
 Each dispatcher runs on the device of its input: for a CPU tensor the
 plain PyTorch version (ops/rasterize.py); for a CUDA tensor it launches the
@@ -35,7 +36,8 @@ from sdn3d_tpu_torch.ops import rasterize as R
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("rasterize", "silhouette_walk", "segment_face_grads")
+SOURCES = ("rasterize", "silhouette_walk", "segment_face_grads",
+           "edit_conditioning")
 # -fmad=false: no a*b+c contraction (it flips boundary pixels and walk
 # terms against the plain versions); IEEE division stays on (no
 # --use_fast_math).
@@ -62,6 +64,10 @@ _ENTRY = {
     "segment_face_grads": {
         "sdn3d_won_pixel_boxes": [_P, _I, _I, _I, _I, _P, _P],
         "sdn3d_segment_face_grads": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    },
+    "edit_conditioning": {
+        "sdn3d_edit_conditioning": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _P, _P, _P, _P, _P, _P],
     },
 }
 

@@ -130,7 +130,9 @@ class EditChain:
         self.stage_s = {"semantic": 0.0, "geometric": 0.0, "textural": 0.0}
         self._label_cache = _SourceCache(cfg.cache_sources, "label")
         # per-source textural inputs (transformed image, transformed label,
-        # feature-code table) — recompute elision for pairs sharing a source
+        # feature-code table, and the label plane and codes by label value
+        # on the device: cli/edit_vkitti.SourceInputs) — recompute elision
+        # for pairs sharing a source
         self._src_cache = _SourceCache(cfg.cache_sources, "source")
         # per-source de-render encode (objs, blob) — edit-independent
         self._encode_cache = _SourceCache(cfg.cache_sources, "encode")
@@ -354,10 +356,12 @@ class EditChain:
         planes, device-downsized (`instance_small`) or the full-resolution
         bytes the host resizes with PIL."""
         from PIL import Image
-        base_img_t, base_label, feats = source_inputs
         with phases.phase("tex.quantize"):
-            item = {"base_img_t": base_img_t, "base_label": base_label,
-                    "json_obj": geo["json_obj"], "feats": feats}
+            item = {"base_img_t": source_inputs.image,
+                    "base_label": source_inputs.label,
+                    "json_obj": geo["json_obj"],
+                    "feats": source_inputs.feats,
+                    "source": source_inputs.table}
             if "instance_small" in geo:
                 item["inst_small"] = geo["instance_small"]
                 item["normal_small"] = geo["normal_small"]

@@ -12,8 +12,9 @@ returns the bytes as numpy.  Three things keep it correct:
     allocator cannot hand its memory to later work while the copy reads
     it.
 A CPU tensor needs no copy: `result()` returns it at once.  `to_device`
-is the other direction, and `constant` keeps small constants on the card
-so that they are uploaded once.
+is the other direction (`to_device_packed` for several arrays in one
+copy), and `constant` keeps small constants on the card so that they are
+uploaded once.
 """
 
 from __future__ import annotations
@@ -65,6 +66,28 @@ def to_device(a, device) -> torch.Tensor:
     if dev.type != "cuda":
         return t.to(dev)
     return t.pin_memory().to(dev, non_blocking=True)
+
+
+def to_device_packed(arrays, device) -> list:
+    """Host arrays on `device` in ONE non-blocking copy: their bytes laid
+    out in a pinned buffer, each at a 16-byte offset, and one typed view
+    of the device buffer an array (same dtypes and shapes).  One copy
+    costs one launch and one pinned block where `to_device` an array
+    costs one of each."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    offsets, total = [], 0
+    for a in arrays:
+        offsets.append(total)
+        total += -(-a.nbytes // 16) * 16
+    dev = torch.device(device)
+    host = torch.empty(total, dtype=torch.uint8,
+                       pin_memory=dev.type == "cuda")
+    flat = host.numpy()
+    for a, off in zip(arrays, offsets):
+        flat[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+    buf = host.to(dev, non_blocking=True) if dev.type == "cuda" else host
+    return [buf[off:off + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
+            .reshape(a.shape) for a, off in zip(arrays, offsets)]
 
 
 @functools.lru_cache(maxsize=None)

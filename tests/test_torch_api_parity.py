@@ -28,6 +28,10 @@ RENAMED = {
         "core/optimizers.py:sparse_adam_step",
         "optax's GradientTransformation as tensor functions: "
         "sparse_adam_init / scale_by_sparse_adam / sparse_adam_step"),
+    "cli/edit_vkitti.py:assemble_edit_conditioning": (
+        "ops/edit_conditioning.py:edit_conditioning",
+        "the edit frames' conditioning is built on the device, a batch at a "
+        "time (csrc/edit_conditioning.cu; its plain twin on the CPU)"),
     "data/kitti.py:hybrid_weights": (
         "data/loader.py:hybrid_weights",
         "moved beside the port's HybridDataset and samplers"),

@@ -651,8 +651,9 @@ def test_chain_spans_and_counters(env, chains):
     pipelined chunk, each on a chain with empty caches: the spans' names,
     parents and ids, the per-source caches' exact hits and misses, each
     piece of per-source work counted once where it ran (in the chunk, one
-    semantic pass, encode and source prep for the two), and stage_s the
-    sums of the stage spans."""
+    semantic pass, encode and source prep for the two), each frame's
+    textural conditioning counted on the host path (the CPU's), and
+    stage_s the sums of the stage spans."""
     _, root, edit_json, _ = env
     _, tchain, _, _ = chains
     requests = _request_dicts(root, edit_json)
@@ -681,7 +682,8 @@ def test_chain_spans_and_counters(env, chains):
         "count.cache.label.miss": 1, "count.cache.label.hit": 1,
         "count.cache.encode.miss": 1, "count.cache.encode.hit": 1,
         "count.cache.source.miss": 1, "count.cache.source.hit": 1,
-        "count.semantic_pass": 1, "count.encode": 1, "count.source_prep": 1}
+        "count.semantic_pass": 1, "count.encode": 1, "count.source_prep": 1,
+        "count.tex.assemble.host": 2}
     for name, secs in serial.stage_s.items():
         summed = sum(s.end_ns - s.start_ns for s in spans
                      if s.name == "stage." + name) / 1e9
@@ -707,7 +709,8 @@ def test_chain_spans_and_counters(env, chains):
     assert log["counts"] == {
         "count.cache.label.miss": 2, "count.cache.encode.miss": 2,
         "count.cache.source.miss": 2, "count.semantic_pass": 1,
-        "count.encode": 1, "count.source_prep": 1}
+        "count.encode": 1, "count.source_prep": 1,
+        "count.tex.assemble.host": 2}
     for name, secs in pipelined.stage_s.items():
         summed = sum(s.end_ns - s.start_ns for s in spans
                      if s.name == "stage." + name) / 1e9

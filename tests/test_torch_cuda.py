@@ -1,6 +1,7 @@
 """The port's CUDA kernels (forward rasterizer, silhouette walk,
-pixel->face reduction) against their plain PyTorch versions, on the card,
-and the edit chain's use of the forward kernel.
+pixel->face reduction, edit conditioning) against their plain PyTorch
+versions, on the card, and the edit chain's use of the forward kernel and
+of the conditioning kernel.
 Imports no JAX, so it runs where only the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -14,6 +15,7 @@ import torch
 
 from sdn3d_tpu_torch.ops import rasterize as TR
 from sdn3d_tpu_torch.ops import rasterize_cuda as TC
+from tests.test_torch_edit_conditioning import CASES as EC_CASES
 
 
 @pytest.fixture
@@ -237,17 +239,11 @@ def test_all_invalid_scene_has_zero_gradients(cuda):
     assert (a == 0).all() and (g == 0).all()
 
 
-@pytest.mark.cuda
-def test_edit_chain_pair_launches_the_forward_kernel(cuda, tmp_path):
-    """One edit pair through EditChain on the card (full-width models with
-    random weights, small shapes: scale 100, render 64, 160x48 textural
-    frames, so the chain fetches the device-downsized planes) on a
-    synthetic VKITTI root: the re-render launches the forward rasterizer
-    kernel once and the plain forward never runs; the fake is finite, in
-    [-1, 1], and the labels are < 14.  The same pair again, once from the
-    per-source caches and once without them, gives the same bits; so do
-    the batched chain (edit_frames over the pair and a second pair: one
-    forward launch at 2 x 16 images) and the pipelined chain."""
+def _small_chain(tmp_path):
+    """EditChain on the card (full-width models with random weights, small
+    shapes: scale 100, render 64, 160x48 textural frames, so the chain
+    fetches the device-downsized planes) over a synthetic VKITTI root:
+    (chain, the source frame, its two GT objects, one modify)."""
     from PIL import Image
 
     from sdn3d_tpu_torch.cli.geometric_main import _keep_largest
@@ -277,6 +273,21 @@ def test_edit_chain_pair_launches_the_forward_kernel(cuda, tmp_path):
     assert len(dets[0]) == 2
     ops = [{"type": "modify", "from": {"u": "370", "v": "220"}, "to": {},
             "zoom": "1.2", "ry": "0.3"}]
+    return chain, image, dets, ops
+
+
+@pytest.mark.cuda
+def test_edit_chain_pair_launches_the_forward_kernel(cuda, tmp_path):
+    """One edit pair through EditChain on the card (full-width models with
+    random weights, small shapes: scale 100, render 64, 160x48 textural
+    frames, so the chain fetches the device-downsized planes) on a
+    synthetic VKITTI root: the re-render launches the forward rasterizer
+    kernel once and the plain forward never runs; the fake is finite, in
+    [-1, 1], and the labels are < 14.  The same pair again, once from the
+    per-source caches and once without them, gives the same bits; so do
+    the batched chain (edit_frames over the pair and a second pair: one
+    forward launch at 2 x 16 images) and the pipelined chain."""
+    chain, image, dets, ops = _small_chain(tmp_path)
     TC.rasterize_face_index_cuda.launches = 0
     TR.rasterize_face_maps.calls = 0
     out = chain.edit_frame(image, operations=ops, dets=dets,
@@ -310,6 +321,132 @@ def test_edit_chain_pair_launches_the_forward_kernel(cuda, tmp_path):
         for k in ("instance_small", "normal_small"):
             np.testing.assert_array_equal(again["geo"][k], want["geo"][k])
         assert again["geo"]["json_obj"] == want["geo"]["json_obj"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(192, 624), (47, 81)],
+                         ids=["serving", "odd"])
+@pytest.mark.parametrize("name", EC_CASES)
+def test_edit_conditioning_kernel_matches_twin(cuda, name, shape):
+    """The kernel (csrc/edit_conditioning.cu) equals its plain twin bit for
+    bit on the CPU tests' cases, at the serving size (four pixels a step)
+    and at an odd one (a pixel a step), and so the host assembly; the twin
+    on the card equals the twin on the CPU."""
+    from sdn3d_tpu_torch.ops import edit_conditioning as EC
+    from tests.test_torch_edit_conditioning import (case_feats, host_frames,
+                                                    make_case, twin_inputs)
+
+    M = 64
+    sources, frames = make_case(name, *shape)
+    feats = case_feats(sources, M)
+    EC.edit_conditioning_cuda.launches = 0
+    got = EC.edit_conditioning(*twin_inputs(sources, frames, feats, M,
+                                            "cuda"), M)
+    torch.cuda.synchronize()
+    assert EC.edit_conditioning_cuda.launches == 1
+    want = EC.edit_conditioning(*twin_inputs(sources, frames, feats, M,
+                                             "cpu"), M)
+    plain = EC.edit_conditioning_plain(*twin_inputs(sources, frames, feats,
+                                                    M, "cuda"), M)
+    for field, g, w, p in zip(got._fields, got, want, plain):
+        assert g.is_cuda and g.dtype == w.dtype, field
+        assert torch.equal(g.cpu(), w), field
+        assert torch.equal(p.cpu(), w), field
+    if shape == (192, 624) and name in ("cars16", "overflow"):
+        from tests.test_torch_edit_conditioning import assert_matches_host
+        assert_matches_host(got, host_frames(sources, frames, feats, M),
+                            frames)
+
+
+@pytest.mark.cuda
+def test_edit_conditioning_kernel_flags_a_foreign_source(cuda):
+    """A frame whose source index lies outside the batch's sources comes
+    back with nids -1; the others are computed."""
+    from sdn3d_tpu_torch.ops import edit_conditioning as EC
+    from tests.test_torch_edit_conditioning import (case_feats, make_case,
+                                                    twin_inputs)
+
+    sources, frames = make_case("two_sources", 48, 80)
+    args = list(twin_inputs(sources, frames, case_feats(sources, 64), 64,
+                            "cuda"))
+    args[2] = torch.tensor([0, 2, 1], dtype=torch.int32, device="cuda")
+    got = EC.edit_conditioning(*args, 64)
+    assert got.nids.cpu().tolist()[1] == -1
+    assert min(got.nids.cpu().tolist()[::2]) > 0
+
+
+@pytest.mark.cuda
+def test_generate_edit_batch_one_launch_a_chunk(cuda):
+    """generate_edit_batch on the card over three frames of two sources:
+    one kernel launch, three frames counted on the device, none on the
+    host; fakes and maps equal the host-assembled generator input's, to
+    the bit."""
+    from types import SimpleNamespace
+
+    from sdn3d_tpu_torch.cli import edit_vkitti as TE
+    from sdn3d_tpu_torch.ops import edit_conditioning as EC
+    from sdn3d_tpu_torch.pipelines import textural as TT
+    from sdn3d_tpu_torch.utils import phases
+    from tests.test_torch_edit_conditioning import (assert_same_output,
+                                                    case_items,
+                                                    host_generate)
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        trainer = TT.TexturalTrainer(TT.TexturalConfig()).to("cuda")
+    H, W = 192, 624
+    items = case_items("two_sources", H, W, 64)
+    args = SimpleNamespace(load_size=W)
+    TE.generate_edit_batch(trainer, items, (W, H), args)       # warm
+    EC.edit_conditioning_cuda.launches = 0
+    phases.reset(True)
+    try:
+        got = TE.generate_edit_batch(trainer, items, (W, H), args)
+        snap = phases.snapshot()
+    finally:
+        phases.reset(False)
+    assert EC.edit_conditioning_cuda.launches == 1
+    assert snap["count.tex.assemble.device"]["n"] == 3
+    assert "count.tex.assemble.host" not in snap
+    assert_same_output(got, host_generate(trainer, items, (W, H), args))
+
+
+@pytest.mark.cuda
+def test_edit_chain_fakes_equal_the_host_assembled(cuda, tmp_path,
+                                                   monkeypatch):
+    """EditChain.edit_frame, edit_frames and edit_frames_pipelined on the
+    card: every textural batch's fakes and maps equal those of the
+    host-assembled conditioning on the same items, with one kernel launch
+    a batch."""
+    from sdn3d_tpu_torch.ops import edit_conditioning as EC
+    from sdn3d_tpu_torch.pipelines.chain import EditChain
+    from tests.test_torch_edit_conditioning import (assert_same_output,
+                                                    host_generate)
+
+    chain, image, dets, ops = _small_chain(tmp_path)
+    real = EditChain._generate_items
+    batches = []
+
+    def checked(self, items):
+        before = EC.edit_conditioning_cuda.launches
+        got = real(self, items)
+        assert EC.edit_conditioning_cuda.launches == before + 1
+        assert_same_output(got, host_generate(
+            self.textural_trainer, items, self._wh, self._tex_args))
+        batches.append(len(items))
+        return got
+
+    monkeypatch.setattr(EditChain, "_generate_items", checked)
+    requests = [{"image_rgb": image, "operations": ops, "dets": dets,
+                 "cache_key": "0001_clone_00000"},
+                {"image_rgb": image, "operations": [], "dets": dets}]
+    chain.edit_frame(image, operations=ops, dets=dets,
+                     cache_key="0001_clone_00000")
+    chain.edit_frame(image, operations=ops, dets=dets,
+                     cache_key="0001_clone_00000")
+    chain.edit_frames(requests)
+    list(chain.edit_frames_pipelined([requests, requests[::-1]]))
+    assert batches == [1, 1, 2, 2, 2]
 
 
 @pytest.mark.cuda

@@ -192,19 +192,26 @@ def test_fake_inference_uint8_planes_match_jax(small_trainers):
 
 def test_generate_edit_from_images_matches_jax(small_trainers):
     """cli.edit_vkitti end to end from PIL images: the source code table
-    (netE + instance means) within 1e-6, the host conditioning (maps,
-    slots, code table, uint8 planes) equal, and the fake within NET_ATOL,
-    with and without a normal map."""
+    (netE + instance means) within 1e-6, the device conditioning (the
+    plain twin on the CPU: label as the generator reads it, pose, slots,
+    code table) and the maps equal to JAX's host assembly, and the fake
+    within NET_ATOL, with and without a normal map; the source's label
+    holds 255, whose label 256 reaches the generator as 0 in both."""
     from PIL import Image
 
     from sdn3d_tpu.cli import edit_vkitti as JE
     from sdn3d_tpu_torch.cli import edit_vkitti as TE
+    from sdn3d_tpu_torch.data.textural_data import dense_instance_slots
+    from sdn3d_tpu_torch.ops import edit_conditioning as EC
+    from tests.test_torch_edit_conditioning import assert_matches_host
 
     jt, state, tt = small_trainers
     rng = np.random.RandomState(6)
     H, W, wh = 120, 200, (80, 48)
     src = Image.fromarray((rng.rand(H, W, 3) * 255).astype(np.uint8))
-    lab = Image.fromarray(rng.randint(0, 4, (H, W)).astype(np.uint8))
+    raw = rng.randint(0, 4, (H, W)).astype(np.uint8)
+    raw[:20, :60] = 255
+    lab = Image.fromarray(raw)
     inst = np.zeros((H, W), np.uint8)
     inst[40:90, 30:120] = 1
     inst[60:110, 100:180] = 2
@@ -214,28 +221,35 @@ def test_generate_edit_from_images_matches_jax(small_trainers):
     args = SimpleNamespace(load_size=80)
     jp = JE.prepare_source_inputs(jt, state, src, lab, 80, wh)
     tp = TE.prepare_source_inputs(tt, src, lab, 80, wh)
-    np.testing.assert_array_equal(tp[0], jp[0])
-    np.testing.assert_array_equal(tp[1], jp[1])
-    np.testing.assert_allclose(tp[2], jp[2], rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(tp.image, jp[0])
+    np.testing.assert_array_equal(tp.label, jp[1])
+    assert (tp.label == 255).any()
+    np.testing.assert_allclose(tp.feats, jp[2], rtol=0, atol=1e-6)
+    M = tt.cfg.max_instances
     for nimg in (normal, None):
         ja = JE.assemble_edit_conditioning(jt, state, *jp[:2],
                                            Image.fromarray(inst), json_obj,
                                            nimg, wh, args, feats=jp[2])
-        ta = TE.assemble_edit_conditioning(tt, *jp[:2], Image.fromarray(inst),
-                                           json_obj, nimg, wh, args,
-                                           feats=jp[2])
-        for k in ja[0]:
-            np.testing.assert_array_equal(ta[0][k], ja[0][k], err_msg=k)
-        for a, b in zip(ta[1:], ja[1:]):
-            assert (a is None) == (b is None)
-            if a is not None:
-                np.testing.assert_array_equal(a, b)
-        want, _ = JE.generate_edit_from_images(
+        inst_raw, normal_u8 = ja[4], ja[3]
+        source = EC.source_table(tp.label,
+                                 dense_instance_slots(tp.label, M)[1],
+                                 torch.from_numpy(jp[2]))
+        cond = EC.edit_conditioning(
+            torch.from_numpy(inst_raw[None]), source.label[None],
+            torch.zeros(1, dtype=torch.int32),
+            torch.from_numpy(EC.frame_table(json_obj)[None]),
+            source.codes[None], M)
+        assert_matches_host(cond, [ja], [{"inst": inst_raw}])
+        want, jmaps = JE.generate_edit_from_images(
             jt, state, *jp[:2], Image.fromarray(inst), json_obj, nimg, wh,
             args, feats=jp[2])
         got, maps = TE.generate_edit_from_images(
-            tt, *jp[:2], Image.fromarray(inst), json_obj, nimg, wh, args,
-            feats=jp[2])
+            tt, tp.image, tp.label, Image.fromarray(inst), json_obj, nimg,
+            wh, args, feats=jp[2])
+        assert (normal_u8 is None) == (nimg is None)
+        assert set(maps) == set(jmaps)
+        for k in jmaps:
+            np.testing.assert_array_equal(maps[k], jmaps[k], err_msg=k)
         assert got.shape == (48, 80, 3)
         np.testing.assert_allclose(got, want, rtol=0, atol=NET_ATOL)
 
