@@ -1688,8 +1688,7 @@ def chain_phase(args, card: str, mark=lambda what: None) -> dict:
                 records.extend(pair_record(o) for o in outs[:real])
                 return outs
 
-            originals = (EditChain.edit_frame, EditChain.edit_frames,
-                         EditChain._stage_c)
+            originals = (EditChain.edit_frame, EditChain._stage_c)
             generate_items, conditioning = (EditChain._generate_items,
                                             EC.edit_conditioning)
             batches = []
@@ -1704,9 +1703,8 @@ def chain_phase(args, card: str, mark=lambda what: None) -> dict:
 
             EditChain.edit_frame = lambda self, *a, **kw: keep(
                 [originals[0](self, *a, **kw)])[0]
-            EditChain.edit_frames = lambda self, rs: keep(
-                originals[1](self, rs))
-            EditChain._stage_c = lambda self, b: keep(originals[2](self, b))
+            # edit_frames and edit_frames_pipelined end in _stage_c
+            EditChain._stage_c = lambda self, b: keep(originals[1](self, b))
             EditChain._generate_items = counted
             EC.edit_conditioning = recording
             TC.rasterize_face_index = shape_recording
@@ -1726,8 +1724,7 @@ def chain_phase(args, card: str, mark=lambda what: None) -> dict:
                     + (["--phases"] if phases_on else []) + extra)
                 torch.cuda.synchronize()
             finally:
-                (EditChain.edit_frame, EditChain.edit_frames,
-                 EditChain._stage_c) = originals
+                EditChain.edit_frame, EditChain._stage_c = originals
                 EditChain._generate_items = generate_items
                 EC.edit_conditioning = conditioning
                 TC.rasterize_face_index = dispatch

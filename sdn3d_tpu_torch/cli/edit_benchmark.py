@@ -62,10 +62,10 @@ def main(argv=None):
     from PIL import Image
 
     from sdn3d_tpu_torch.cli.edit_vkitti import (generate_edit_frame,
-                                                 load_trainer,
-                                                 prepare_source_inputs)
+                                                 load_trainer)
     from sdn3d_tpu_torch.data.textural_data import transform_image
     from sdn3d_tpu_torch.data.vkitti import benchmark_split, load_edit_json
+    from sdn3d_tpu_torch.pipelines.textural_edit import prepare_source_inputs
     from sdn3d_tpu_torch.utils import metrics
     from sdn3d_tpu_torch.utils.visualizer import HTMLGallery, tensor2im
 

@@ -10,10 +10,14 @@ inter-branch artifacts in memory, quantized with the same math
 three CLIs through the filesystem.  `dump` writes the file contract as a
 side effect.
 
-The geometric stage's re-render goes through render_targets, which on the
+The chain runs a frame at a time (`edit_frame`) or a chunk of N frames
+through three stages (`_stage_a`, `_b`, `_c`): `edit_frames` runs one
+chunk through them, `edit_frames_pipelined` overlaps successive chunks.
+Requests of one source (one cache key) in a chunk share one semantic
+pass, one encode and one source prep (`_SourceCache.lookup`).  The
+geometric stage's re-render goes through render_targets, which on the
 card launches the forward rasterizer kernel (csrc/rasterize.cu) once per
-frame (`edit_frame`) or once per chunk of N frames (`edit_frames`,
-`edit_frames_pipelined`, at 16 * N slot images).  With
+frame or once per chunk (at 16 * N slot images).  With
 `ChainConfig.small_fetch` (the default, as in the JAX package) the
 instance and normal planes are downsized on the device to the textural
 conditioning resolution and fetched at that size; the outputs are those
@@ -21,10 +25,13 @@ of the full fetch.  A request without `dets` gets its objects from the
 chain's Mask R-CNN detector (pipelines/detect.py; build with
 `with_detector` or `maskrcnn_ckpt`), once a request as in the JAX package:
 one frame at a time in `edit_frame`, every det-less request of a chunk in
-one batched pass in `edit_frames` and the pipelined chain's stage A.  Each
-request's result carries the `dets` its geometric stage used, given or
-detected; a detection runs inside a `stage.detect` span and counts the
-objects it keeps (`count.det.kept`).
+one batched pass in stage A.  Each request's result carries the `dets`
+its geometric stage used, given or detected; a detection runs inside a
+`stage.detect` span and counts the objects it keeps (`count.det.kept`).
+
+The textural stage is pipelines/textural_edit.  Only `build` (the
+per-stage CLIs' loaders) and `dump` (cli/geometric_main.save_outputs, the
+file contract) import from cli/.
 """
 
 from __future__ import annotations
@@ -104,6 +111,39 @@ class _SourceCache:
     def __contains__(self, key: str) -> bool:
         return key in self._d
 
+    def lookup(self, keys: Sequence[Optional[str]],
+               given: Optional[Sequence[object]] = None):
+        """The chunk's rule for per-source work: each request's key looked
+        up once (a hit or a miss counted), except where `given[i]` is not
+        None or the key is None.  Returns (values, misses): values[i] the
+        given or cached value, None for a miss; misses the request indices
+        grouped by key in the order of first appearance, one piece of work
+        a group (a request without a key is a group of its own)."""
+        values, misses, by_key = [], [], {}
+        for i, key in enumerate(keys):
+            v = given[i] if given is not None else None
+            if v is None and key is not None:
+                v = self.get(key)
+            values.append(v)
+            if v is None and key in by_key:
+                by_key[key].append(i)
+            elif v is None:
+                misses.append([i])
+                if key is not None:
+                    by_key[key] = misses[-1]
+        return values, misses
+
+    def fill(self, keys, values, misses, results) -> list:
+        """`values` with each group of `misses` given its result (in
+        order), each result kept under its key."""
+        values = list(values)
+        for group, result in zip(misses, results):
+            for i in group:
+                values[i] = result
+            if keys[group[0]] is not None:
+                self.put(keys[group[0]], result)
+        return values
+
 
 class EditChain:
     """All three branch models resident in one process, on one device.
@@ -112,11 +152,12 @@ class EditChain:
     a SemanticModel, `derender` a (Derenderer, DeviceMeshBank) tuple,
     `textural` a TexturalTrainer, `detector` None or a MaskRCNNDetector,
     all on `device`), then call `edit_frame` per (source image,
-    operations) pair.  Stage wall-clock accumulates in `self.stage_s`, the
+    operations) pair, or `edit_frames` / `edit_frames_pipelined` per
+    chunk of pairs.  Stage wall-clock accumulates in `self.stage_s`, the
     seconds of the `stage.*` spans (utils/phases; "detect" from the first
-    detection on); each request is a
-    `chain.request` span and each pipelined chunk's stages `chain.stage_a`,
-    `_b` and `_c` spans, by a running count."""
+    detection on); each `edit_frame` request is a `chain.request` span and
+    each chunk's stages `chain.stage_a`, `_b` and `_c` spans, by a running
+    count."""
 
     def __init__(self, cfg: ChainConfig, semantic, derender, textural,
                  device="cuda", detector=None):
@@ -131,7 +172,7 @@ class EditChain:
         self._label_cache = _SourceCache(cfg.cache_sources, "label")
         # per-source textural inputs (transformed image, transformed label,
         # feature-code table, and the label plane and codes by label value
-        # on the device: cli/edit_vkitti.SourceInputs) — recompute elision
+        # on the device: textural_edit.SourceInputs) — recompute elision
         # for pairs sharing a source
         self._src_cache = _SourceCache(cfg.cache_sources, "source")
         # per-source de-render encode (objs, blob) — edit-independent
@@ -217,16 +258,17 @@ class EditChain:
 
     def labels(self, image_rgb: np.ndarray,
                cache_key: Optional[str] = None) -> np.ndarray:
-        """Semantic stage: multi-scale argmax labels [H, W] uint8
-        (cli/semantic_test.infer_image)."""
+        """Semantic stage: multi-scale argmax labels [H, W] uint8 (one
+        device pass from the uint8 frame)."""
         if cache_key is not None:
             cached = self._label_cache.get(cache_key)
             if cached is not None:
                 return cached
-        from sdn3d_tpu_torch.cli.semantic_test import infer_image
+        from sdn3d_tpu_torch.pipelines.semantic import multiscale_labels_fused
         with self._stage("semantic"), phases.phase("sem.infer"):
-            pred = infer_image(self.semantic_model, image_rgb,
-                               SimpleNamespace(scales=tuple(self.cfg.scales)))
+            pred = multiscale_labels_fused(
+                self.semantic_model, np.ascontiguousarray(image_rgb),
+                scales=tuple(self.cfg.scales), device=self.device)
             phases.add_bytes("sem.infer", pred)
         phases.count("count.semantic_pass")
         if cache_key is not None:
@@ -254,63 +296,41 @@ class EditChain:
             det = self._detector()
             return self._kept(det.unmold(det.detect_begin(image_rgb)))
 
-    def detect_begin(self, image_rgb: np.ndarray):
-        """Enqueue one frame's detection (its copy in flight);
-        detect_finish(pending) equals detect(image_rgb)."""
-        with self._stage("detect"), phases.phase("det.detect"):
-            return self._detector().detect_begin(image_rgb)
-
-    def detect_finish(self, pending):
-        with self._stage("detect"), phases.phase("det.detect"):
-            return self._kept(self._detector().unmold(pending))
-
-    def detect_missing_begin(self, requests, dets_list):
-        """Enqueue ONE batched detection pass for every request whose dets
-        are None, padded to the chunk's size (detect_begin_batch), so the
-        serial and pipelined chains at one --batch_pairs run the same
-        batch.  Returns the pending handle, None when nothing is missing."""
+    def detect_missing(self, requests, dets_list) -> list:
+        """`dets_list` with every None filled by ONE batched detection
+        pass over those requests, padded to the chunk's size
+        (detect_begin_batch), so every chunk of a size runs the same
+        batch; nothing runs when none is missing."""
         idx = [i for i, d in enumerate(dets_list) if d is None]
         if not idx:
-            return None
-        with self._stage("detect"), phases.phase("det.detect"):
-            pending = self._detector().detect_begin_batch(
-                [requests[i]["image_rgb"] for i in idx],
-                pad_to=len(requests))
-        return (idx, pending)
-
-    def detect_missing_finish(self, handle, dets_list):
-        """Fill dets_list in place from detect_missing_begin's copy."""
-        if handle is None:
             return dets_list
-        idx, pending = handle
+        dets_list = list(dets_list)
         with self._stage("detect"), phases.phase("det.detect"):
-            outs = self._detector().unmold_batch(pending)
+            det = self._detector()
+            outs = det.unmold_batch(det.detect_begin_batch(
+                [requests[i]["image_rgb"] for i in idx],
+                pad_to=len(requests)))
             for i, out in zip(idx, outs):
                 dets_list[i] = self._kept(out)
         return dets_list
 
-    def _encode(self, image_rgb: np.ndarray, dets,
-                cache_key: Optional[str]):
-        """The frame's derender_encode (object prep + encoder +
-        refinement), put in the per-source cache under `cache_key`."""
-        from sdn3d_tpu_torch.pipelines.derender_infer import derender_encode
-        class_ids, masks, rois = dets
-        encoded = derender_encode(self.derender_model, image_rgb,
-                                  class_ids, masks, rois, self.infer_cfg,
-                                  device=self.device, bank=self.bank)
-        phases.count("count.encode")
-        if cache_key is not None:
-            self._encode_cache.put(cache_key, encoded)
-        return encoded
-
     def _encoded(self, image_rgb: np.ndarray, dets,
                  cache_key: Optional[str]):
-        """The frame's encode, from the per-source cache when it holds the
-        frame."""
+        """The frame's derender_encode (object prep + encoder +
+        refinement), from the per-source cache when it holds the frame,
+        else run and put there."""
         encoded = (self._encode_cache.get(cache_key)
                    if cache_key is not None else None)
         if encoded is None:
-            encoded = self._encode(image_rgb, dets, cache_key)
+            from sdn3d_tpu_torch.pipelines.derender_infer import \
+                derender_encode
+            class_ids, masks, rois = dets
+            encoded = derender_encode(self.derender_model, image_rgb,
+                                      class_ids, masks, rois, self.infer_cfg,
+                                      device=self.device, bank=self.bank)
+            phases.count("count.encode")
+            if cache_key is not None:
+                self._encode_cache.put(cache_key, encoded)
         return encoded
 
     def derender(self, image_rgb: np.ndarray, dets,
@@ -336,7 +356,8 @@ class EditChain:
         the per-source cache when it holds the frame."""
         from PIL import Image
 
-        from sdn3d_tpu_torch.cli.edit_vkitti import prepare_source_inputs
+        from sdn3d_tpu_torch.pipelines.textural_edit import \
+            prepare_source_inputs
         cached = (self._src_cache.get(cache_key)
                   if cache_key is not None else None)
         if cached is None:
@@ -371,7 +392,8 @@ class EditChain:
         return item
 
     def _generate_items(self, items):
-        from sdn3d_tpu_torch.cli.edit_vkitti import generate_edit_batch
+        from sdn3d_tpu_torch.pipelines.textural_edit import \
+            generate_edit_batch
         return generate_edit_batch(self.textural_trainer, items, self._wh,
                                    self._tex_args)
 
@@ -416,215 +438,132 @@ class EditChain:
 
     def edit_frames(self, requests: Sequence[Dict[str, object]]
                     ) -> List[Dict[str, object]]:
-        """Batched fused chain: N (source, operations) pairs with ONE
-        render of the N frames' slots (derender_images_batch: one
-        forward-rasterizer launch at 16 * N images) and ONE generator
-        forward (generate_edit_batch).  Each request takes edit_frame's
-        keys (image_rgb, operations, dets, label, cache_key); the outputs
-        are edit_frame's, pair by pair."""
-        from sdn3d_tpu_torch.pipelines.derender_infer import \
-            derender_images_batch
+        """One chunk of N (source, operations) pairs through the three
+        stages: ONE render of the N frames' slots (one forward-rasterizer
+        launch at 16 * N images) and ONE generator forward
+        (generate_edit_batch).  Each request takes edit_frame's keys
+        (image_rgb, operations, dets, label, cache_key); the outputs are
+        edit_frame's, pair by pair."""
+        return self._stage_c(self._stage_b(self._stage_a(requests)))
 
-        self._requests += 1
-        with phases.phase("chain.request", self._requests):
-            # detection for every det-less request in one batched pass,
-            # its copy in flight while the semantic passes run
-            dets_list = [r.get("dets") for r in requests]
-            det_handle = self.detect_missing_begin(requests, dets_list)
-            labels = [r["label"] if r.get("label") is not None else
-                      self.labels(r["image_rgb"],
-                                  cache_key=r.get("cache_key"))
-                      for r in requests]
-            self.detect_missing_finish(det_handle, dets_list)
+    # -- the chunk's stages -------------------------------------------------
 
-            with self._stage("geometric"):
-                frames = []
-                for r, dets in zip(requests, dets_list):
-                    class_ids, masks, rois = dets
-                    frames.append({
-                        "image_rgb": r["image_rgb"], "class_ids": class_ids,
-                        "image_masks": masks, "rois": rois,
-                        "operations": r.get("operations"),
-                        "encoded": self._encoded(r["image_rgb"], dets,
-                                                 r.get("cache_key"))})
-                geos = derender_images_batch(
-                    self.derender_model, self.bank, frames, self.infer_cfg,
-                    small_plan=self._small_plan(frames[0]["image_rgb"].shape),
-                    device=self.device)
-
-            with self._stage("textural"):
-                items = [self._tex_item(self._source_inputs(
-                    r["image_rgb"], label, r.get("cache_key")), geo)
-                    for r, label, geo in zip(requests, labels, geos)]
-                fakes, maps_list = self._generate_items(items)
-        return [{"label": label, "dets": dets, "geo": geo, "fake": fake,
-                 "maps": maps}
-                for label, dets, geo, fake, maps in
-                zip(labels, dets_list, geos, fakes, maps_list)]
-
-    # -- pipelined fused chain ---------------------------------------------
+    @staticmethod
+    def _frame(request, dets, encoded=None) -> Dict[str, object]:
+        """A request's frame for derender_encode_batch_begin and
+        derender_render_begin."""
+        class_ids, masks, rois = dets
+        return {"image_rgb": request["image_rgb"], "class_ids": class_ids,
+                "image_masks": masks, "rois": rois,
+                "operations": request.get("operations"), "encoded": encoded}
 
     def _stage_a(self, requests: Sequence[Dict[str, object]]):
-        """Pipeline stage A: enqueue the chunk's semantic passes, detect
-        (one batched pass for the det-less requests; the crops need its
-        masks, so stage A waits for it), prepare the object crops and
-        enqueue the encoders, each copy to the host started without
-        waiting (HostFetch).  Returns as soon as the
-        card's queue holds the work.  Requests of one source (one cache
-        key) in the chunk share one semantic pass and one encode: the
-        per-source caches are filled only in stage B."""
+        """Stage A: enqueue the chunk's semantic passes, detect (one
+        batched pass for the det-less requests; the crops need its masks,
+        so stage A waits for it), prepare the object crops and enqueue the
+        encoders, each copy to the host started without waiting
+        (HostFetch).  Returns as soon as the card's queue holds the work.
+        A request that carries `label` runs no semantic pass; under
+        refinement (num_opts > 0) a missed encode runs at once."""
         from sdn3d_tpu_torch.pipelines.derender_infer import (
             derender_encode_batch_begin)
         from sdn3d_tpu_torch.pipelines.semantic import multiscale_labels_begin
 
         self._chunks += 1
+        keys = [r.get("cache_key") for r in requests]
         with phases.phase("chain.stage_a", self._chunks):
             with self._stage("semantic"):
-                labels = []          # ("host", np) | ("dev", HostFetch)
-                fetches = {}         # cache key -> the chunk's HostFetch
-                for r in requests:
-                    lab = r.get("label")
-                    key = r.get("cache_key")
-                    if lab is None and key is not None:
-                        lab = self._label_cache.get(key)
-                    if lab is not None:
-                        labels.append(("host", lab))
-                        continue
-                    if key is None or key not in fetches:
-                        with phases.phase("sem.infer"):
-                            fetch = multiscale_labels_begin(
-                                self.semantic_model,
-                                np.ascontiguousarray(r["image_rgb"]),
-                                scales=tuple(self.cfg.scales),
-                                device=self.device)
-                            phases.add_bytes("sem.infer", fetch)
-                        phases.count("count.semantic_pass")
-                        if key is not None:
-                            fetches[key] = fetch
-                    labels.append(("dev", fetches.get(key, fetch)))
+                labels, label_misses = self._label_cache.lookup(
+                    keys, given=[r.get("label") for r in requests])
+                label_fetches = []
+                for i, *_ in label_misses:
+                    with phases.phase("sem.infer"):
+                        fetch = multiscale_labels_begin(
+                            self.semantic_model,
+                            np.ascontiguousarray(requests[i]["image_rgb"]),
+                            scales=tuple(self.cfg.scales),
+                            device=self.device)
+                        phases.add_bytes("sem.infer", fetch)
+                    phases.count("count.semantic_pass")
+                    label_fetches.append(fetch)
 
             with self._stage("geometric"):
-                dets_list = [r.get("dets") for r in requests]
-                self.detect_missing_finish(
-                    self.detect_missing_begin(requests, dets_list), dets_list)
-                enc_frames, enc_slots = [], []   # slots: request indices
-                by_key = {}                      # cache key -> its slots
-                encoded_list: List[object] = []
-                for i, (r, dets) in enumerate(zip(requests, dets_list)):
-                    key = r.get("cache_key")
-                    encoded = (self._encode_cache.get(key)
-                               if key is not None else None)
-                    if encoded is None and self.infer_cfg.num_opts:
-                        # refinement has no overlapped path: encode now
-                        encoded = self._encode(r["image_rgb"], dets, key)
-                    encoded_list.append(encoded)
-                    if encoded is None:
-                        if key is not None and key in by_key:
-                            by_key[key].append(i)
-                            continue
-                        class_ids, masks, rois = dets
-                        enc_frames.append({
-                            "image_rgb": r["image_rgb"],
-                            "class_ids": class_ids, "image_masks": masks,
-                            "rois": rois})
-                        enc_slots.append([i])
-                        if key is not None:
-                            by_key[key] = enc_slots[-1]
+                dets_list = self.detect_missing(
+                    requests, [r.get("dets") for r in requests])
+                given = None
+                if self.infer_cfg.num_opts:
+                    # refinement has no overlapped path: encode now
+                    given = [self._encoded(r["image_rgb"], dets, key)
+                             for r, dets, key in zip(requests, dets_list,
+                                                     keys)]
+                encoded, enc_misses = self._encode_cache.lookup(
+                    keys, given=given)
+                frames = [self._frame(requests[i], dets_list[i])
+                          for i, *_ in enc_misses]
                 enc_pending = (derender_encode_batch_begin(
-                    self.derender_model, enc_frames, self.infer_cfg,
-                    device=self.device) if enc_frames else [])
-                phases.count("count.encode", len(enc_frames))
-        return {"requests": requests, "labels": labels,
-                "dets_list": dets_list, "encoded_list": encoded_list,
-                "enc_pending": enc_pending, "enc_slots": enc_slots,
+                    self.derender_model, frames, self.infer_cfg,
+                    device=self.device) if frames else [])
+                phases.count("count.encode", len(frames))
+        return {"requests": requests, "keys": keys, "labels": labels,
+                "label_misses": label_misses, "label_fetches": label_fetches,
+                "dets_list": dets_list, "encoded": encoded,
+                "enc_misses": enc_misses, "enc_pending": enc_pending,
                 "chunk": self._chunks}
 
     def _stage_b(self, a):
-        """Pipeline stage B: take stage A's copies, apply the edit ops on
-        the host, enqueue the chunk's render (its copy started), and
-        prepare the textural source inputs (every source's netE enqueued
-        before any copy is waited for)."""
+        """Stage B: take stage A's copies, apply the edit ops on the host,
+        enqueue the chunk's render (its copy started), and prepare the
+        textural source inputs (every source's netE enqueued before any
+        copy is waited for)."""
         from PIL import Image
 
-        from sdn3d_tpu_torch.cli.edit_vkitti import (prepare_source_begin,
-                                                     prepare_source_finish)
         from sdn3d_tpu_torch.pipelines.derender_infer import (
             derender_encode_batch_finish, derender_render_begin)
+        from sdn3d_tpu_torch.pipelines.textural_edit import (
+            prepare_source_begin, prepare_source_finish)
 
-        requests = a["requests"]
+        requests, keys = a["requests"], a["keys"]
         with phases.phase("chain.stage_b", a["chunk"]):
             with self._stage("semantic"):
-                labels = []
-                for r, (kind, lab) in zip(requests, a["labels"]):
-                    if kind == "dev":
-                        lab = lab.result()
-                        key = r.get("cache_key")
-                        if key is not None:
-                            self._label_cache.put(key, lab)
-                    labels.append(lab)
+                labels = self._label_cache.fill(
+                    keys, a["labels"], a["label_misses"],
+                    [fetch.result() for fetch in a["label_fetches"]])
 
             with self._stage("geometric"):
-                encoded_list = list(a["encoded_list"])
-                for slots, encoded in zip(a["enc_slots"],
-                                          derender_encode_batch_finish(
-                                              a["enc_pending"])):
-                    for slot in slots:
-                        encoded_list[slot] = encoded
-                    key = requests[slots[0]].get("cache_key")
-                    if key is not None:
-                        self._encode_cache.put(key, encoded)
-                frames = []
-                for r, dets, encoded in zip(requests, a["dets_list"],
-                                            encoded_list):
-                    class_ids, masks, rois = dets
-                    frames.append({
-                        "image_rgb": r["image_rgb"], "class_ids": class_ids,
-                        "image_masks": masks, "rois": rois,
-                        "operations": r.get("operations"),
-                        "encoded": encoded})
+                encoded = self._encode_cache.fill(
+                    keys, a["encoded"], a["enc_misses"],
+                    derender_encode_batch_finish(a["enc_pending"]))
+                frames = [self._frame(r, dets, enc) for r, dets, enc in
+                          zip(requests, a["dets_list"], encoded)]
                 pending_render = derender_render_begin(
                     self.derender_model, self.bank, frames, self.infer_cfg,
                     small_plan=self._small_plan(frames[0]["image_rgb"].shape),
                     device=self.device)
 
             with self._stage("textural"):
-                prepared, pending = [], []
-                first = {}               # cache key -> first request index
-                for i, (r, label) in enumerate(zip(requests, labels)):
-                    key = r.get("cache_key")
-                    cached = (self._src_cache.get(key) if key is not None
-                              else None)
-                    if cached is None and key is not None and key in first:
-                        pending.append(first[key])  # the chunk's own prepare
-                    elif cached is None:
-                        with phases.phase("tex.prepare"):
-                            pending.append(prepare_source_begin(
-                                self.textural_trainer,
-                                Image.fromarray(r["image_rgb"]),
-                                Image.fromarray(label.astype(np.uint8)),
-                                self.cfg.load_size, self._wh))
-                        phases.count("count.source_prep")
-                        if key is not None:
-                            first[key] = i
-                    else:
-                        pending.append(None)
-                    prepared.append(cached)
-                for i, p in enumerate(pending):
-                    if isinstance(p, int):
-                        prepared[i] = prepared[p]
-                    elif p is not None:
-                        with phases.phase("tex.prepare"):
-                            prepared[i] = prepare_source_finish(p)
-                        key = requests[i].get("cache_key")
-                        if key is not None:
-                            self._src_cache.put(key, prepared[i])
+                prepared, misses = self._src_cache.lookup(keys)
+                pending = []
+                for i, *_ in misses:
+                    with phases.phase("tex.prepare"):
+                        pending.append(prepare_source_begin(
+                            self.textural_trainer,
+                            Image.fromarray(requests[i]["image_rgb"]),
+                            Image.fromarray(labels[i].astype(np.uint8)),
+                            self.cfg.load_size, self._wh))
+                    phases.count("count.source_prep")
+                results = []
+                for p in pending:
+                    with phases.phase("tex.prepare"):
+                        results.append(prepare_source_finish(p))
+                prepared = self._src_cache.fill(keys, prepared, misses,
+                                                results)
         return {"labels": labels, "dets_list": a["dets_list"],
                 "pending_render": pending_render,
                 "prepared": prepared, "chunk": a["chunk"]}
 
     def _stage_c(self, b) -> List[Dict[str, object]]:
-        """Pipeline stage C: take the chunk's packed render, assemble the
-        textural conditioning and generate."""
+        """Stage C: take the chunk's packed render, assemble the textural
+        conditioning and generate."""
         from sdn3d_tpu_torch.pipelines.derender_infer import (
             derender_render_finish)
 
@@ -648,12 +587,11 @@ class EditChain:
         Stage A (semantic + detection + crop prep + encoder, copies in
         flight) runs two chunks ahead of the yield; stage B (edit ops +
         the chunk's render + textural source prep) one chunk ahead; stage
-        C (the
-        packed planes + generate) yields.  The card's queue holds the
-        next chunks' work while the host packages and scores the current
-        one.  The outputs are edit_frames' per chunk (the same
-        operations on the same inputs; only the host's order differs).
-        The per-stage stage_s walls overlap under this scheduling and no
+        C (the packed planes + generate) yields.  The card's queue holds
+        the next chunks' work while the host packages and scores the
+        current one.  Each chunk runs the stages of edit_frames, so its
+        outputs are edit_frames'; only the host's order differs.  The
+        per-stage stage_s walls overlap under this scheduling and no
         longer sum to the wall clock; with the phase records on,
         phases.block synchronises the card, so phase times are
         attribution only."""

@@ -289,6 +289,23 @@ def refine_silhouettes(blob: Dict[str, torch.Tensor], bank: DeviceMeshBank,
     return out
 
 
+def _encode_frame(model: Derenderer, image_rgb, class_ids, image_masks,
+                  rois, cfg: DerenderInferConfig, device, fetch=None):
+    """One frame's object prep (`geo.prep`) and encoder (`geo.encode`):
+    (objs, device blob, packed outputs), the packed outputs handed to
+    `fetch` inside `geo.encode` when it is given (HostFetch: the copy
+    starts without waiting)."""
+    with phases.phase("geo.prep"):
+        objs = prepare_objects(image_rgb, rois, image_masks, class_ids, cfg,
+                               with_masks=cfg.num_opts > 0)
+        phases.add_bytes("geo.prep", objs["rgbs"][:objs["num_objs"]])
+    with phases.phase("geo.encode"):
+        blob, packed = phases.block(encode_objects(model, objs, device))
+        if fetch is not None:
+            packed = fetch(packed)
+    return objs, blob, packed
+
+
 def derender_encode(
     model: Derenderer,
     image_rgb: np.ndarray,
@@ -308,12 +325,8 @@ def derender_encode(
     if cfg.num_opts and bank is None:
         raise ValueError("silhouette refinement (num_opts > 0) needs the "
                          "mesh bank")
-    with phases.phase("geo.prep"):
-        objs = prepare_objects(image_rgb, rois, image_masks, class_ids, cfg,
-                               with_masks=cfg.num_opts > 0)
-        phases.add_bytes("geo.prep", objs["rgbs"][:objs["num_objs"]])
-    with phases.phase("geo.encode"):
-        blob, packed = phases.block(encode_objects(model, objs, device))
+    objs, blob, packed = _encode_frame(model, image_rgb, class_ids,
+                                       image_masks, rois, cfg, device)
     if cfg.num_opts:
         with phases.phase("geo.refine"):
             n = len(rois)
@@ -357,17 +370,10 @@ def derender_encode_batch_begin(
     if cfg.num_opts:
         raise ValueError("the batched encode has no refinement path; "
                          "use derender_encode")
-    pendings = []
-    for fr in frames:
-        with phases.phase("geo.prep"):
-            objs = prepare_objects(fr["image_rgb"], fr["rois"],
-                                   fr["image_masks"], fr["class_ids"], cfg)
-            phases.add_bytes("geo.prep", objs["rgbs"][:objs["num_objs"]])
-        with phases.phase("geo.encode"):
-            blob, packed = phases.block(encode_objects(model, objs, device))
-            fetch = HostFetch(packed)
-        pendings.append((objs, blob, fetch))
-    return pendings
+    return [_encode_frame(model, fr["image_rgb"], fr["class_ids"],
+                          fr["image_masks"], fr["rois"], cfg, device,
+                          fetch=HostFetch)
+            for fr in frames]
 
 
 def derender_encode_batch_finish(pendings) -> List[

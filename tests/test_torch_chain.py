@@ -646,9 +646,14 @@ def _profiled_log(fn):
     return phases.profiled()
 
 
-def test_chain_spans_and_counters(env, chains):
+@pytest.mark.parametrize("run_chunk", [
+    lambda chain, rs: list(chain.edit_frames_pipelined([rs])),
+    lambda chain, rs: chain.edit_frames(rs)],
+    ids=["edit_frames_pipelined", "edit_frames"])
+def test_chain_spans_and_counters(env, chains, run_chunk):
     """Two serial requests sharing a source, then the same two as one
-    pipelined chunk, each on a chain with empty caches: the spans' names,
+    chunk (a one-chunk edit_frames_pipelined, or edit_frames, which runs
+    the same stages), each on a chain with empty caches: the spans' names,
     parents and ids, the per-source caches' exact hits and misses, each
     piece of per-source work counted once where it ran (in the chunk, one
     semantic pass, encode and source prep for the two), each frame's
@@ -690,8 +695,7 @@ def test_chain_spans_and_counters(env, chains):
         assert abs(secs - summed) < 1e-3, (name, secs, summed)
 
     pipelined = _port_chain(tchain, **SMALL48)
-    log = _profiled_log(lambda: list(pipelined.edit_frames_pipelined(
-        [requests])))
+    log = _profiled_log(lambda: run_chunk(pipelined, requests))
     spans = log["spans"]
     roots = {s.sid: s for s in spans if s.name.startswith("chain.")}
     assert sorted((s.name, s.rid, s.parent) for s in roots.values()) == [

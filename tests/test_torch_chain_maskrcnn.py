@@ -82,8 +82,7 @@ def test_edit_frame_with_detector_matches_jax(env, chains, detectors):
     MASK_FLIPS, and, end to end on JAX's label, the instance planes on
     >= 99.9% of pixels and the fake within test_torch_chain.py's
     FAKE_E2E_MAX / FAKE_E2E_MEAN; the port's edit_frame without dets
-    equals edit_frame with dets=chain.detect(image) bit for bit, and
-    detect_finish(detect_begin) equals detect."""
+    equals edit_frame with dets=chain.detect(image) bit for bit."""
     _, root, edit_json, _ = env
     jchain, tchain, _, _ = chains
     jdet, variables, tdet, _ = detectors
@@ -97,8 +96,6 @@ def test_edit_frame_with_detector_matches_jax(env, chains, detectors):
         dets = port.detect(image)
         _same_dets(dets, jchain.detect(image))
         assert len(dets[0]) > 0
-        for a, b in zip(port.detect_finish(port.detect_begin(image)), dets):
-            np.testing.assert_array_equal(a, b)
         got = port.edit_frame(image, operations=r["operations"],
                               label=want["label"], cache_key=key)
         agree = (got["geo"]["instance_png"]
@@ -119,7 +116,7 @@ def test_edit_frame_with_detector_matches_jax(env, chains, detectors):
 
 
 def test_detect_missing_batches_one_dispatch(chains, detectors):
-    """detect_missing_begin puts every det-less request of a chunk through
+    """detect_missing puts every det-less request of a chunk through
     ONE batched detection padded to the chunk's size, leaves preset dets
     untouched and does nothing when none is missing (the JAX package's
     test_detect_missing_batches_one_dispatch); a chain without a detector
@@ -143,14 +140,13 @@ def test_detect_missing_batches_one_dispatch(chains, detectors):
         preset = ("ids", "masks", "rois")
         requests = [{"image_rgb": frames[0], "dets": preset},
                     {"image_rgb": frames[1]}, {"image_rgb": frames[2]}]
-        dets_list = [r.get("dets") for r in requests]
-        port.detect_missing_finish(
-            port.detect_missing_begin(requests, dets_list), dets_list)
+        dets_list = port.detect_missing(requests,
+                                        [r.get("dets") for r in requests])
         assert calls == [(2, 3)]
         assert dets_list[0] is preset
         for d in dets_list[1:]:
             assert isinstance(d, tuple) and len(d) == 3
-        assert port.detect_missing_begin(requests, [preset] * 3) is None
+        assert port.detect_missing(requests, [preset] * 3) == [preset] * 3
         assert calls == [(2, 3)]
     finally:
         del tdet.detect_begin_batch
@@ -308,10 +304,7 @@ def test_detection_spans_counters_and_dets(env, chains, detectors, mode):
     else:
         log = _profiled_log(lambda: outs.extend(next(iter(
             port.edit_frames_pipelined([requests])))))
-        want = [None] * len(requests)
-        fresh = chain()
-        fresh.detect_missing_finish(fresh.detect_missing_begin(
-            requests, want), want)
+        want = chain().detect_missing(requests, [None] * len(requests))
     assert log["dropped"] == 0
     spans = log["spans"]
     by_sid = {s.sid: s for s in spans}
